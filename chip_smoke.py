@@ -14,11 +14,20 @@
 5. The seismic forward model, AcousticWaveSolver.forward, on a 512^3
    layered model: a finite, non-zero shot record and one launch per step;
    then the same forward at 96^3 through the kernel and, on the CPU,
-   through the plain version, compared.
+   through the plain version, compared. Phases 4 and 5 start as a new
+   process would, with no device self-tested: the first K1 launch runs
+   K2, the self-test, once for both.
+6. The probe entry points (devito_tpu_torch/experiments): stencil_probe9's
+   main (K15, the sliding-ring step) at N=256, TX=32, and stencil_probe6's
+   main (P1 copy bandwidth, K8 window copies, K9 the in-place step) at
+   N=256, t0=16, each with its launches counted; K9 in both output modes
+   and every tap ablation against its plain version; then K15 and K9
+   timed at 512^3 beside K1, and P1 at 512^3 as the card's copy ceiling.
 
 Every failure raises, and the script exits non-zero. The next-to-last
-lines are the kernel record (JSON) and the card's name and power limit;
-the last line is {"ok": true, "device": {...}}.
+lines are the kernel records (one JSON line, a record per kernel) and the
+card's name and power limit; the last line is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -38,7 +47,22 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
                    ('ragged 61x77x93 SO=8', (61, 77, 93), 8, 'acoustic')],
             head_n=512, head_steps=100, head_compare=4,
             fwd_n=512, fwd_compare_n=96, fwd_nbl=10, fwd_tn=500.,
-            fwd_nrec=512, reps=20, plain_reps=3)
+            fwd_nrec=512, reps=20, plain_reps=3,
+            p9_n=256, p9_tx=32, p9_steps=64, p6_n=256, p6_t0=16, big_n=512)
+#: (name, source, TPU kernel replaced) of every kernel, in record order.
+KERNELS = [
+    ('stencil_update', 'devito_tpu_torch/csrc/stencil.cuh',
+     'experiments/pallas_backend.py:303'),
+    ('selftest_window_sum', 'devito_tpu_torch/csrc/selftest.cu',
+     'experiments/pallas_backend.py:54'),
+    ('ring_step', 'devito_tpu_torch/csrc/probe9_ring.cu',
+     'experiments/stencil_probe9.py:32'),
+    ('inplace_step', 'devito_tpu_torch/csrc/probe6_inplace.cu',
+     'experiments/stencil_probe6.py:110'),
+    ('window_copy', 'devito_tpu_torch/csrc/probe6_window_copy.cu',
+     'experiments/stencil_probe6.py:68'),
+]
+FIXED = ['selftest', 'probe9_ring', 'probe6_inplace', 'probe6_window_copy']
 
 
 def log(*args):
@@ -168,7 +192,7 @@ def forward_solver(n, nbl, tn, nrec):
 
 def smoke(device, sizes):
     """All phases after the first on ``device``; returns the device's
-    name and the kernel record."""
+    name and the kernel records."""
     from devito_tpu_torch import switchconfig
     with switchconfig(device=device.type):
         return _smoke(device, sizes)
@@ -177,15 +201,15 @@ def smoke(device, sizes):
 def _smoke(device, sizes):
     from devito_tpu_torch import switchconfig
     from devito_tpu_torch.compiler.executor import plan_rows
-    from devito_tpu_torch.kernels import stencil as K
+    from devito_tpu_torch.kernels import stencil as K, _nvcc
     from concurrent.futures import ThreadPoolExecutor
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     kind = torch.cuda.get_device_name(device) if device.type == 'cuda' \
         else 'cpu'
-    record = {'name': 'stencil_update', 'route': 'cuda',
-              'source': 'devito_tpu_torch/csrc/stencil.cuh',
-              'replaces': 'experiments/pallas_backend.py:303'}
+    records = [{'name': n, 'route': 'cuda', 'source': src, 'replaces': rep}
+               for n, src, rep in KERNELS]
+    record, selftest = records[:2]
 
     # -- 2. build every kernel of the phases below -------------------------
     cases = [(f'{lab} {np.dtype(dt).name}',
@@ -207,15 +231,33 @@ def _smoke(device, sizes):
         tic = time.perf_counter()
         with ThreadPoolExecutor(8) as pool:
             list(pool.map(K.build, uniq))
-        log(f"[build] {len(uniq)} kernels in "
+            list(pool.map(_nvcc.fixed, FIXED))
+        log(f"[build] {len(uniq) + len(FIXED)} kernels in "
             f"{time.perf_counter() - tic:.2f} s wall "
             f"(nvcc {sum(K.build_seconds.values()):.2f} s); headline "
-            f"kernel: " + ' '.join(
-                ln.strip() for ln in K.build_log.get(
-                    head_op.kernel_plans[0][1].key, '').splitlines()
-                if 'registers' in ln or 'spill' in ln))
+            f"kernel: " + ptxas(K.build_log.get(
+                head_op.kernel_plans[0][1].key, '')))
+        for name in FIXED:
+            log(f"[build] {name}: "
+                + ptxas(K.build_log.get(_nvcc.fixed_key(name), '')))
+    K.validate_backend(device)
+    log(f"[selftest] K2 passed on {device} (self-tests run: {K.selftests})")
 
-    # -- 3. K1 against its plain version ----------------------------------
+    # -- 3. K1 and K2 against their plain versions -------------------------
+    x = torch.randn(K.SELFTEST_SHAPE, generator=gen, device=device)
+    got = K.selftest_window_sum(x)
+    want = K.selftest_window_sum_reference(x)
+    err = (got - want).abs().max().item()
+    if not err <= TOL[np.float32] * want.abs().max().item():
+        raise AssertionError(f"self-test kernel disagrees: {err:.3e}")
+    selftest.update(
+        max_abs_err=err,
+        ms=time_ms(lambda: K.selftest_window_sum(x), sizes['reps'], device),
+        plain_ms=time_ms(lambda: K.selftest_window_sum_reference(x),
+                         sizes['reps'], device))
+    log(f"[kernel] K2 self-test on random input: max|kernel - plain| "
+        f"{err:.3e}; {selftest['ms']:.4f} ms, plain "
+        f"{selftest['plain_ms']:.4f} ms")
     for lab, plan in cases:
         err, tol = compare_once(plan, device, gen)
         log(f"[kernel] {lab}: max|kernel - plain| {err:.3e} "
@@ -270,7 +312,10 @@ def _smoke(device, sizes):
     steps = sizes['head_steps']
     ndense = len(head_op.kernel_plans)
     nbuilds = len(K.build_seconds)
-    K.launches = 0                               # main path starts here
+    # main path starts here, as in a new process: counts at 0 and no
+    # device self-tested yet
+    K.launches = K.selftest_launches = K.selftests = 0
+    K.validated.clear()
     summary = head_op.apply(time_m=1, time_M=steps, dt=dt_)
     head_launches = K.launches
     if head_launches != steps * ndense:
@@ -297,6 +342,11 @@ def _smoke(device, sizes):
     sync(device)
     wall = time.perf_counter() - tic
     fwd_launches = K.launches - before           # main path ends here
+    once = int(device.type == 'cuda')     # the CPU runs no K1 kernel
+    if (K.selftests, K.selftest_launches) != (once, once):
+        raise AssertionError(f"the main path ran {K.selftests} self-tests "
+                             f"({K.selftest_launches} launches), not "
+                             f"{once}")
     r = np.array(rec.data)
     if not (np.isfinite(r).all() and np.linalg.norm(r) > 0):
         raise AssertionError("forward: rec is not finite and non-zero")
@@ -311,10 +361,13 @@ def _smoke(device, sizes):
         f"{np.linalg.norm(r):.6g}; launches {fwd_launches} = {nsteps} "
         f"steps, declined 0")
     record['launches'] = head_launches + fwd_launches
+    selftest['launches'] = K.selftest_launches
     if len(K.build_seconds) != nbuilds:
         raise AssertionError("the main path rebuilt a kernel")
     log(f"[forward] kernel builds during the main path: 0 (every apply, "
-        f"with its own dt and grid, reused the phase-2 builds)")
+        f"with its own dt and grid, reused the phase-2 builds); K2 "
+        f"self-test ran once before the first K1 launch, not once per "
+        f"apply")
     del solver, rec, fop
     if device.type == 'cuda':
         torch.cuda.empty_cache()
@@ -332,7 +385,164 @@ def _smoke(device, sizes):
     log(f"[forward] {sizes['fwd_compare_n']}^3: rec through the kernel vs "
         f"the plain version (CPU): max|diff| {err:.3e} (tolerance "
         f"{tol:.3e}), rec norm {np.linalg.norm(rk):.6g}")
-    return kind, record
+
+    probes(device, sizes, gen, records)
+    if len(K.build_seconds) != nbuilds:
+        raise AssertionError("the probe entry points built a kernel")
+    return kind, records
+
+
+def ptxas(log_text):
+    """The register and spill lines of a ptxas report, joined."""
+    return ' '.join(ln.strip() for ln in log_text.splitlines()
+                    if 'registers' in ln or 'spill' in ln)
+
+
+def check_close(what, got, want):
+    err = (got - want).abs().max().item()
+    tol = TOL[np.float32] * want.abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{what}: max|kernel - plain| {err:.3e} > "
+                             f"{tol:.3e}")
+    return err
+
+
+def probes(device, sizes, gen, records):
+    """Phase 6: the probe entry points, each driven with its kernels'
+    launch counts at 0 just before and read just after; then the 512^3
+    comparisons and times."""
+    from devito_tpu_torch.experiments import stencil_probe6 as P6
+    from devito_tpu_torch.experiments import stencil_probe9 as P9
+    k1, _, ring, inplace, wcopy = records
+    dev = device.type
+    on_card = int(dev == 'cuda')     # the CPU runs the plain versions
+    H = P6.H
+
+    # -- stencil_probe9: K15 -------------------------------------------------
+    n, tx, steps = sizes['p9_n'], sizes['p9_tx'], sizes['p9_steps']
+    P9.launches = 0
+    r9 = P9.main(n, tx, steps, dev)
+    ring['launches'] = P9.launches
+    want = on_card * (steps + 2)  # one compared, one warm-up, steps timed
+    if P9.launches != want:
+        raise AssertionError(f"stencil_probe9 launched K15 {P9.launches} "
+                             f"times, not {want}")
+    log(f"[probe9] K15 at N={n}, TX={tx}: max|kernel - plain| "
+        f"{r9['err']:.3e} (tolerance {r9['tol']:.3e}); {r9['ms']:.3f} "
+        f"ms/step; launches {P9.launches}")
+
+    # -- stencil_probe6: P1, K8, K9 -----------------------------------------
+    n6, t0 = sizes['p6_n'], sizes['p6_t0']
+    P6.inplace_launches = P6.window_copy_launches = 0
+    r6 = P6.main(t0, dev, n6)
+    wcopy['launches'] = P6.window_copy_launches
+    inplace['launches'] = P6.inplace_launches
+    # P2: 3 windows x (1 + warm-up + 10); P3: 6 x (1 compared + 4 x 32)
+    want = (on_card * 3 * 12, on_card * 6 * (1 + 4 * 32))
+    if (P6.window_copy_launches, P6.inplace_launches) != want:
+        raise AssertionError(f"stencil_probe6 launched K8/K9 "
+                             f"{P6.window_copy_launches}/"
+                             f"{P6.inplace_launches} times, not {want}")
+    if not all(r['correct'] for r in r6['p2']):
+        raise AssertionError("K8 copied a window wrongly")
+    log(f"[probe6] K8 windows correct=True x3: " + ', '.join(
+        f"{r['label'].split(' partial')[0].strip()} {r['gbs']:.1f} GB/s "
+        f"({r['ms']:.4f} ms)" for r in r6['p2'])
+        + f"; launches K8 {P6.window_copy_launches}, K9 "
+        f"{P6.inplace_launches}")
+
+    # K9 in both output modes, every ablation, on random buffers
+    NY = n6 + 2 * H
+    bufs = [torch.randn((NY,) * 3, generator=gen, device=device)
+            for _ in range(3)]
+    vp = 1.5 + torch.rand((NY,) * 3, generator=gen, device=device)
+    damp = 0.01 * torch.rand((NY,) * 3, generator=gen, device=device)
+    errs = []
+    for tt0 in (t0, 2 * t0):
+        for taps in P6.TAPS:
+            for mode in P6.OUT_MODES:
+                ut, utm1, tgt = bufs
+                got = P6.inplace_step(ut, utm1, vp, damp, tgt.clone(), tt0,
+                                      mode, taps)
+                ref = P6.inplace_step_reference(ut, utm1, vp, damp,
+                                                tgt.clone(), mode, taps)
+                errs.append(check_close(f"K9 t0={tt0} {taps} {mode}", got,
+                                        ref))
+                for sl in (slice(0, H), slice(H + n6, None)):
+                    if not torch.equal(got[sl], tgt[sl]):
+                        raise AssertionError("K9 wrote an x-halo row")
+    log(f"[probe6] K9 at N={n6}, t0={t0} and {2 * t0}, taps none/z/full, "
+        f"fullz and interior: max|kernel - plain| {max(errs):.3e}, x-halo "
+        f"rows untouched")
+    del bufs, vp, damp, ut, utm1, tgt, got, ref
+
+    # -- 512^3: K15, K9 beside K1; P1 as the copy ceiling -------------------
+    N = sizes['big_n']
+    reps, preps = sizes['reps'], sizes['plain_reps']
+    p1 = P6.p1_copy_roofline(N, dev)
+    ceiling = p1['gbs']
+    u0 = torch.randn((N + 2 * H, N + 2 * H, N), generator=gen, device=device)
+    slab = [torch.randn((N + 2 * H, N, N), generator=gen, device=device),
+            1.5 + torch.rand((N + 2 * H, N, N), generator=gen, device=device),
+            0.01 * torch.rand((N + 2 * H, N, N), generator=gen,
+                              device=device)]
+    err = check_close("K15 at 512^3", P9.ring_step(u0, *slab, 1e-4, tx),
+                      P9.ring_step_reference(u0, *slab, 1e-4))
+    ring.update(max_abs_err=max(err, r9['err']),
+                ms=time_ms(lambda: P9.ring_step(u0, *slab, 1e-4, tx), reps,
+                           device),
+                plain_ms=time_ms(lambda: P9.ring_step_reference(
+                    u0, *slab, 1e-4), preps, device))
+    del u0, slab
+    NY = N + 2 * H
+    ut, utm1, tgt = (torch.randn((NY,) * 3, generator=gen, device=device)
+                     for _ in range(3))
+    vp = 1.5 + torch.rand((NY,) * 3, generator=gen, device=device)
+    damp = 0.01 * torch.rand((NY,) * 3, generator=gen, device=device)
+    ref = P6.inplace_step_reference(ut, utm1, vp, damp, tgt.clone())
+    err = check_close("K9 at 512^3", P6.inplace_step(
+        ut, utm1, vp, damp, tgt.clone(), t0), ref)
+    inplace.update(
+        max_abs_err=max(errs + [err]),
+        ms=time_ms(lambda: P6.inplace_step(ut, utm1, vp, damp, tgt, t0),
+                   reps, device),
+        ms_t0_2x=time_ms(lambda: P6.inplace_step(ut, utm1, vp, damp, tgt,
+                                                 2 * t0), reps, device),
+        plain_ms=time_ms(lambda: P6.inplace_step_reference(
+            ut, utm1, vp, damp, tgt), preps, device))
+    del ut, utm1, tgt, vp, damp, ref
+    src = torch.randn((NY,) * 3, generator=gen, device=device)
+    by_window = {}
+    for label, window in P6.p2_windows(N):
+        sl = tuple(slice(a, a + k) for a, k in window)
+        got = P6.window_copy(src, window)
+        if not torch.equal(got[sl], src[sl]):
+            raise AssertionError(f"K8 {label} at {N}: wrong copy")
+        by_window[label] = time_ms(lambda: P6.window_copy(src, window),
+                                   reps, device)
+    _, mis = P6.p2_windows(N)[1]
+    wcopy.update(max_abs_err=0.0, window=str(mis),
+                 ms=by_window[P6.p2_windows(N)[1][0]],
+                 plain_ms=time_ms(lambda: P6.window_copy_reference(src, mis),
+                                  reps, device),
+                 ms_by_window=by_window)
+    del src, got
+
+    nbytes = 5 * N ** 3 * 4 / 1e9      # 4 arrays read, 1 written, fp32
+    log(f"[probe] P1 copy at {N + 2 * H}^3 (read + write): {p1['ms']:.3f} "
+        f"ms, {ceiling:.1f} GB/s = the card's measured copy ceiling")
+    for lab, rec in (('K1 stencil_update', k1), ('K15 ring_step TX=%d' % tx,
+                                                 ring),
+                     ('K9 inplace_step t0=%d' % t0, inplace)):
+        gbs = nbytes / rec['ms'] * 1e3
+        log(f"[probe] {lab} at {N}^3 SO=8: {rec['ms']:.3f} ms "
+            f"({N ** 3 / rec['ms'] / 1e6:.2f} GPts/s, {gbs:.0f} GB/s of "
+            f"the 5 arrays = {100 * gbs / ceiling:.1f} % of P1's); plain "
+            f"{rec['plain_ms']:.3f} ms")
+    log(f"[probe] K9 t0={2 * t0} at {N}^3: {inplace['ms_t0_2x']:.3f} ms; K8 "
+        f"window copies at N={N}: " + ', '.join(
+            f"{k.split(' partial')[0].strip()} {v:.4f} ms"
+            for k, v in by_window.items()))
 
 
 def main():
@@ -345,8 +555,8 @@ def main():
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kind, record = smoke(torch.device('cuda', 0), FULL)
-    print(json.dumps({'kernels': [record]}))
+    kind, records = smoke(torch.device('cuda', 0), FULL)
+    print(json.dumps({'kernels': records}))
     print(smi())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -1,0 +1,47 @@
+"""Design probes of the acoustic SO=8 stencil on the card, ported from the
+JAX package's ``experiments/`` scripts, each with its hand-written CUDA
+kernel and that kernel's plain PyTorch version:
+
+- ``stencil_probe9``: K15, the sliding-ring step
+  (``python -m devito_tpu_torch.experiments.stencil_probe9 [N] [TX] [steps]``);
+- ``stencil_probe6``: P1 copy bandwidth, K8 window copies and K9 the
+  in-place x-tiled step (``python -m devito_tpu_torch.experiments.stencil_probe6 [t0]``).
+
+Both take ``--device cuda`` (the default) or ``--device cpu``; on the CPU
+the plain versions run. Asking for ``cuda`` without CUDA raises.
+"""
+
+import time
+
+import torch
+
+from ..parameters import switchconfig, torch_device
+
+__all__ = ['device_for', 'time_ms']
+
+
+def device_for(name):
+    """The torch device named ``name`` ('cuda' or 'cpu'); raises when CUDA
+    is asked for and absent."""
+    with switchconfig(device=name):
+        return torch_device()
+
+
+def time_ms(fn, reps, device):
+    """Mean milliseconds of ``fn()`` over ``reps`` calls after one warm-up
+    call: CUDA events on the card, the host clock on the CPU."""
+    fn()
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+    tic = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - tic) * 1e3 / reps

@@ -11,26 +11,27 @@ indexing, bounds mask, 64-bit offsets, store) plus one point expression
 printed from the equation's right-hand side by ``compiler.translate.
 cuda_expr``. At its first CUDA launch the combined source is written to
 ``devito_tpu_torch/_build/`` under the hash of its text and the nvcc
-flags, compiled with nvcc into a shared library and loaded with ctypes.
-Parameters (dt, spacings, Constants), row pointers, strides and region
-extents are runtime arguments, so no value and no grid size is baked into
-a build: ``apply(dt=...)`` never rebuilds, and offsets follow each
-function's actual halo at every launch.
+flags, compiled with nvcc into a shared library and loaded with ctypes
+(``kernels/_nvcc.py``). Parameters (dt, spacings, Constants), row
+pointers, strides and region extents are runtime arguments, so no value
+and no grid size is baked into a build: ``apply(dt=...)`` never rebuilds,
+and offsets follow each function's actual halo at every launch.
+
+K2, the self-test (``validate_backend``, kernel ``csrc/selftest.cu``),
+ports ``experiments/pallas_backend.py`` ``validate_backend``: before the
+first K1 launch of a process on a device it runs a miniature kernel of
+the same data movement and raises on a wrong answer.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from collections import OrderedDict
-from pathlib import Path
 
 import numpy as np
 import sympy
 import torch
 
+from . import _nvcc
+from ._nvcc import build_seconds, build_log, check_launch  # noqa: F401
 from ..compiler.translate import translate, cuda_expr
 from ..exceptions import CompilationError, InvalidOperator
 from ..ir.lowering import time_access_of, space_offsets_of
@@ -40,24 +41,22 @@ from ..types.dense import torch_dtype
 from ..types.dimension import Dimension
 
 __all__ = ['StencilPlan', 'plan_for', 'build', 'stencil_update',
-           'stencil_update_reference']
+           'stencil_update_reference', 'validate_backend',
+           'selftest_window_sum', 'selftest_window_sum_reference']
 
 #: Kernel launches since import (or since the caller last reset it).
 launches = 0
 #: Equations ``plan_for`` declined since import.
 declines = 0
-#: Seconds spent in nvcc, by build key.
-build_seconds = {}
-#: ptxas resource report (registers, spills), by build key.
-build_log = {}
+#: Self-test kernel (K2) launches.
+selftest_launches = 0
+#: Self-tests run (``validate_backend``), passed or not.
+selftests = 0
+#: Devices whose self-test passed in this process; a device taken out
+#: is self-tested again before its next kernel launch.
+validated = set()
 
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / 'csrc'
-_BUILD = _PKG / '_build'
-_NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 _CTYPE = {np.dtype(np.float32): 'float', np.dtype(np.float64): 'double'}
-_libs = {}
 
 
 class StencilPlan:
@@ -80,9 +79,8 @@ class StencilPlan:
         # row: the target's, then each group's
         self.origins = [_origin(eq, eq.target)] + [
             _origin(eq, g['fn']) for g in groups]
-        self.key = hashlib.sha256(
-            ((_CSRC / 'stencil.cuh').read_text() + source
-             + ' '.join(_NVCC_FLAGS)).encode()).hexdigest()[:20]
+        self.key = _nvcc.source_key(
+            (_nvcc._CSRC / 'stencil.cuh').read_text(), source)
         n = len(groups) + 1
         self._ptrs = (ctypes.c_void_p * n)()
         self._strides = (ctypes.c_longlong * (2 * n))()
@@ -247,46 +245,14 @@ extern "C" int dtpu_stencil_launch(void* const* ptrs, const long long* strides,
 """
 
 
-def _nvcc():
-    cands = [shutil.which('nvcc')]
-    home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
-    cands.append(os.path.join(home, 'bin', 'nvcc'))
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise CompilationError("nvcc not found: the stencil kernel is built "
-                           "with the CUDA toolkit's nvcc")
-
-
 def build(plan):
     """The ctypes entry point of ``plan``'s kernel: compiled with nvcc
     into ``_build/`` and loaded at the first call, cached after."""
-    hit = _libs.get(plan.key)
-    if hit is not None:
-        return hit[1]
-    so = _BUILD / f'stencil_{plan.key}.so'
-    if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        cu = _BUILD / f'stencil_{plan.key}.cu'
-        cu.write_text(plan.source)
-        tmp = _BUILD / f'stencil_{plan.key}.{os.getpid()}.so'
-        tic = time.perf_counter()
-        res = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, '-I', str(_CSRC), '-o', str(tmp),
-             str(cu)], capture_output=True, text=True)
-        if res.returncode != 0:
-            raise CompilationError(
-                f"nvcc failed on {cu}:\n{res.stderr[-4000:]}")
-        os.replace(tmp, so)
-        build_seconds[plan.key] = time.perf_counter() - tic
-        build_log[plan.key] = res.stderr
-    lib = ctypes.CDLL(str(so))
-    fn = lib.dtpu_stencil_launch
+    fn = _nvcc.build(plan.key, 'stencil', plan.source).dtpu_stencil_launch
     # every pointer and the stream as c_void_p: a default int would cut
     # them to 32 bits
     fn.argtypes = [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
-    _libs[plan.key] = (lib, fn)
     return fn
 
 
@@ -326,6 +292,8 @@ def stencil_update(plan, rows, params):
         return stencil_update_reference(plan, rows, params)
     if out.device.type != 'cuda':
         raise ValueError(f"no stencil kernel for device {out.device}")
+    if out.device not in validated:
+        validate_backend(out.device)
     entry = build(plan)
     for i, (r, org) in enumerate(zip([out] + list(ins), plan.origins)):
         st = r.stride()
@@ -341,9 +309,7 @@ def stencil_update(plan, rows, params):
                    ctypes.addressof(plan._strides),
                    ctypes.addressof(plan._n),
                    ctypes.addressof(plan._params), stream)
-    if rc != 0:
-        raise RuntimeError(f"stencil kernel launch failed: cudaError {rc} "
-                           f"for {plan.eq!r}")
+    check_launch(rc, f"stencil kernel for {plan.eq!r}")
     launches += 1
 
 
@@ -378,3 +344,74 @@ def stencil_update_reference(plan, rows, params):
                     for s, n in zip(plan.origins[0], plan.extents))]
     dst.copy_(torch.as_tensor(val, dtype=out.dtype,
                               device=out.device).expand(dst.shape))
+
+
+# -- K2: the self-test ------------------------------------------------------
+
+_H, _T, _NZ, _ZP = 2, 4, 16, 128
+#: The self-test's input shape; its output is (2T, T, ZP).
+SELFTEST_SHAPE = (2 * _T + 2 * _H, _T + 2 * _H, _ZP)
+
+
+def selftest_window_sum(x):
+    """K2's computation on ``x`` of shape ``SELFTEST_SHAPE`` (fp32): for
+    each of the 2 tiles i, the window ``w = x[i*T : i*T+T+2H, :T+2H]``
+    gives ``w[H:-H, H:-H, H:H+NZ] + w[H+1:H+1+T, H:-H, H+1:H+1+NZ]``,
+    zero-padded from NZ to ZP lanes; the tiles stack along axis 0 into a
+    (2T, T, ZP) tensor. CUDA tensors go through the kernel
+    (``csrc/selftest.cu``); CPU tensors through
+    ``selftest_window_sum_reference``."""
+    global selftest_launches
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 or \
+            tuple(x.shape) != SELFTEST_SHAPE or not x.is_contiguous():
+        raise ValueError(f"the self-test takes a contiguous fp32 tensor of "
+                         f"shape {SELFTEST_SHAPE}")
+    if x.device.type == 'cpu':
+        return selftest_window_sum_reference(x)
+    if x.device.type != 'cuda':
+        raise ValueError(f"no self-test kernel for device {x.device}")
+    out = torch.empty((2 * _T, _T, _ZP), dtype=x.dtype, device=x.device)
+    entry = _nvcc.entry('selftest', 'dtpu_selftest_launch',
+                        [ctypes.c_void_p] * 3)
+    with torch.cuda.device(x.device):
+        rc = entry(x.data_ptr(), out.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
+    check_launch(rc, "self-test kernel")
+    selftest_launches += 1
+    return out
+
+
+def selftest_window_sum_reference(x):
+    """The plain PyTorch version of ``selftest_window_sum``."""
+    out = x.new_zeros((2 * _T, _T, _ZP))
+    for i in range(2):
+        w = x[i * _T:i * _T + _T + 2 * _H, :_T + 2 * _H]
+        out[i * _T:(i + 1) * _T, :, :_NZ] = (
+            w[_H:-_H, _H:-_H, _H:_H + _NZ]
+            + w[_H + 1:_H + 1 + _T, _H:-_H, _H + 1:_H + 1 + _NZ])
+    return out
+
+
+def validate_backend(device='cuda'):
+    """Run the self-test on ``device`` and check its whole output: 2.0 on
+    lanes [0, NZ) and 0 beyond, for ones in. Raises CompilationError on
+    any other answer; returns True. ``stencil_update`` runs it once per
+    process and device, before its first kernel launch there; each run
+    adds one to ``selftests``."""
+    global selftests
+    x = torch.ones(SELFTEST_SHAPE, dtype=torch.float32,
+                   device=torch.device(device))
+    out = selftest_window_sum(x)
+    selftests += 1
+    want = torch.zeros((2 * _T, _T, _ZP), dtype=torch.float32)
+    want[..., :_NZ] = 2.0
+    got = out.cpu()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise CompilationError(
+            f"the self-test kernel gave a wrong answer on {out.device}: "
+            f"{bad} of {want.numel()} values differ from 2.0 on lanes "
+            f"[0, {_NZ}) and 0 beyond (max |diff| "
+            f"{(got - want).abs().max().item():.3e})")
+    validated.add(out.device)
+    return True

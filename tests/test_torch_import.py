@@ -28,6 +28,8 @@ def clear_port_cache():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, devito_tpu_torch, devito_tpu_torch.models.seismic\n"
+            "import devito_tpu_torch.experiments.stencil_probe6\n"
+            "import devito_tpu_torch.experiments.stencil_probe9\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'devito_tpu'))\n"
             "print(bad)\n"
