@@ -23,6 +23,12 @@
    N=256, t0=16, each with its launches counted; K9 in both output modes
    and every tap ablation against its plain version; then K15 and K9
    timed at 512^3 beside K1, and P1 at 512^3 as the card's copy ceiling.
+7. The tiled-design probe entry points: stencil_probe (K3), stencil_probe2
+   (K4), stencil_probe3 (K5), stencil_probe4 (K6) and stencil_probe5 (K7),
+   each main at its JAX script's TPU defaults with its kernel's launches
+   counted (K7 at TX=32, where the JAX kernel itself is wrong); then each
+   kernel against its plain version at 512^3, one step and 3 steps of its
+   loop over the whole array, and timed beside K1 and K15 against P1.
 
 Every failure raises, and the script exits non-zero. The next-to-last
 lines are the kernel records (one JSON line, a record per kernel) and the
@@ -34,6 +40,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,21 +55,48 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
             head_n=512, head_steps=100, head_compare=4,
             fwd_n=512, fwd_compare_n=96, fwd_nbl=10, fwd_tn=500.,
             fwd_nrec=512, reps=20, plain_reps=3,
-            p9_n=256, p9_tx=32, p9_steps=64, p6_n=256, p6_t0=16, big_n=512)
-#: (name, source, TPU kernel replaced) of every kernel, in record order.
+            p9_n=256, p9_tx=32, p9_steps=64, p6_n=256, p6_t0=16, big_n=512,
+            # main's (N, STEPS, tiles) of each tiled-design entry point, the
+            # JAX scripts' TPU defaults; and each kernel's tiles at big_n
+            tiled={'halo_tiles_step': (256, 64, 32, 32),
+                   'neighbour_blocks_step': (128, 64, 8),
+                   'neighbour_blocks_zeroed_step': (128, 64, 8),
+                   'tiles_step': (240, 64, 16, 32),
+                   'xtiles_step': (240, 64, 32)},
+            tiled_big={'halo_tiles_step': (32, 32),
+                       'neighbour_blocks_step': (8,),
+                       'neighbour_blocks_zeroed_step': (8,),
+                       'tiles_step': (16, 32), 'xtiles_step': (16,)})
+#: (name, source, TPU kernel replaced, the part of the kernel's mangled name
+#: that picks its ptxas report out of its unit's) of every kernel, in record
+#: order.
 KERNELS = [
     ('stencil_update', 'devito_tpu_torch/csrc/stencil.cuh',
-     'experiments/pallas_backend.py:303'),
+     'experiments/pallas_backend.py:303', ''),
     ('selftest_window_sum', 'devito_tpu_torch/csrc/selftest.cu',
-     'experiments/pallas_backend.py:54'),
+     'experiments/pallas_backend.py:54', ''),
     ('ring_step', 'devito_tpu_torch/csrc/probe9_ring.cu',
-     'experiments/stencil_probe9.py:32'),
+     'experiments/stencil_probe9.py:32', ''),
     ('inplace_step', 'devito_tpu_torch/csrc/probe6_inplace.cu',
-     'experiments/stencil_probe6.py:110'),
+     'experiments/stencil_probe6.py:110', ''),
     ('window_copy', 'devito_tpu_torch/csrc/probe6_window_copy.cu',
-     'experiments/stencil_probe6.py:68'),
+     'experiments/stencil_probe6.py:68', ''),
+    ('halo_tiles_step', 'devito_tpu_torch/csrc/probe_halo_tiles.cu',
+     'experiments/stencil_probe.py:64', ''),
+    ('neighbour_blocks_step',
+     'devito_tpu_torch/csrc/probe2_neighbour_blocks.cu',
+     'experiments/stencil_probe2.py:73', 'nb_kernelILb0E'),   # <false>
+    ('neighbour_blocks_zeroed_step',
+     'devito_tpu_torch/csrc/probe2_neighbour_blocks.cu',
+     'experiments/stencil_probe3.py:94', 'nb_kernelILb1E'),   # <true>
+    ('tiles_step', 'devito_tpu_torch/csrc/probe4_tiles.cu',
+     'experiments/stencil_probe4.py:66', ''),
+    ('xtiles_step', 'devito_tpu_torch/csrc/probe5_xtiles.cu',
+     'experiments/stencil_probe5.py:75', ''),
 ]
-FIXED = ['selftest', 'probe9_ring', 'probe6_inplace', 'probe6_window_copy']
+FIXED = ['selftest', 'probe9_ring', 'probe6_inplace', 'probe6_window_copy',
+         'probe_halo_tiles', 'probe2_neighbour_blocks', 'probe4_tiles',
+         'probe5_xtiles']
 
 
 def log(*args):
@@ -208,7 +242,7 @@ def _smoke(device, sizes):
     kind = torch.cuda.get_device_name(device) if device.type == 'cuda' \
         else 'cpu'
     records = [{'name': n, 'route': 'cuda', 'source': src, 'replaces': rep}
-               for n, src, rep in KERNELS]
+               for n, src, rep, _ in KERNELS]
     record, selftest = records[:2]
 
     # -- 2. build every kernel of the phases below -------------------------
@@ -240,6 +274,11 @@ def _smoke(device, sizes):
         for name in FIXED:
             log(f"[build] {name}: "
                 + ptxas(K.build_log.get(_nvcc.fixed_key(name), '')))
+        for rec, (_, src, _, entry) in zip(records, KERNELS):
+            unit = Path(src).stem
+            key = head_op.kernel_plans[0][1].key if unit == 'stencil' \
+                else _nvcc.fixed_key(unit)
+            rec['ptxas'] = ptxas(K.build_log.get(key, ''), entry)
     K.validate_backend(device)
     log(f"[selftest] K2 passed on {device} (self-tests run: {K.selftests})")
 
@@ -386,16 +425,23 @@ def _smoke(device, sizes):
         f"the plain version (CPU): max|diff| {err:.3e} (tolerance "
         f"{tol:.3e}), rec norm {np.linalg.norm(rk):.6g}")
 
-    probes(device, sizes, gen, records)
+    ceiling = probes(device, sizes, gen, records)
+    tiled_probes(device, sizes, gen, records, ceiling)
     if len(K.build_seconds) != nbuilds:
         raise AssertionError("the probe entry points built a kernel")
     return kind, records
 
 
-def ptxas(log_text):
-    """The register and spill lines of a ptxas report, joined."""
-    return ' '.join(ln.strip() for ln in log_text.splitlines()
-                    if 'registers' in ln or 'spill' in ln)
+def ptxas(log_text, entry=''):
+    """The register and spill lines of a ptxas report, joined; of the
+    kernels whose mangled name holds ``entry`` only."""
+    keep, lines = True, []
+    for ln in log_text.splitlines():
+        if 'Compiling entry function' in ln:
+            keep = entry in ln
+        elif keep and ('registers' in ln or 'spill' in ln):
+            lines.append(ln.strip())
+    return ' '.join(lines)
 
 
 def check_close(what, got, want):
@@ -410,10 +456,10 @@ def check_close(what, got, want):
 def probes(device, sizes, gen, records):
     """Phase 6: the probe entry points, each driven with its kernels'
     launch counts at 0 just before and read just after; then the 512^3
-    comparisons and times."""
+    comparisons and times. Returns P1's GB/s, the copy ceiling."""
     from devito_tpu_torch.experiments import stencil_probe6 as P6
     from devito_tpu_torch.experiments import stencil_probe9 as P9
-    k1, _, ring, inplace, wcopy = records
+    k1, _, ring, inplace, wcopy = records[:5]
     dev = device.type
     on_card = int(dev == 'cuda')     # the CPU runs the plain versions
     H = P6.H
@@ -543,6 +589,170 @@ def probes(device, sizes, gen, records):
         f"window copies at N={N}: " + ', '.join(
             f"{k.split(' partial')[0].strip()} {v:.4f} ms"
             for k, v in by_window.items()))
+    return ceiling
+
+
+def tiled_cases(N, device, gen, tiles):
+    """The tiled-design kernels at N^3 on random inputs, by record name:
+    (label, one kernel step, its plain version, 3 steps of the loop through
+    the kernel and through the plain version -- each returning the whole
+    field -- the loop's step through the kernel and through the plain
+    version, for timing, and the bytes of the padded arrays one step reads
+    and writes, with how they are counted)."""
+    from devito_tpu_torch.experiments import (
+        stencil_probe as T3, stencil_probe2 as T4, stencil_probe3 as T5,
+        stencil_probe4 as T6, stencil_probe5 as T7)
+    H = T3.H
+    NP = N + 2 * H
+    ZP = -(-NP // 128) * 128
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def coef(*shape):
+        return 0.1 + 0.1 * torch.rand(shape, generator=gen, device=device)
+
+    c = slice(H, H + N)
+
+    def k3():
+        tx, ty = tiles['halo_tiles_step']
+        up, uc, m, damp = normal(NP, NP, NP), normal(NP, NP, NP), \
+            coef(N, N, N), 0.5 * coef(N, N, N)
+        return (f'K3 halo_tiles_step TX={tx} TY={ty}',
+                lambda: T3.halo_tiles_step(up, uc, m, damp, tx, ty),
+                lambda: T3.halo_tiles_step_reference(up, uc, m, damp),
+                lambda: T3.run_pallas(up.clone(), uc.clone(), m, damp, 3, tx,
+                                      ty)[1],
+                lambda: T3.run_pallas(up.clone(), uc.clone(), m, damp, 3,
+                                      plain=True)[1],
+                lambda: T3.halo_tiles_step(up, uc, m, damp, tx, ty,
+                                           out=up[c, c, c]),
+                lambda: T3.halo_tiles_step_reference(up, uc, m, damp,
+                                                     out=up[c, c, c]),
+                4 * (2 * NP ** 3 + 3 * N ** 3),
+                f'up, uc {NP}^3 and m, damp {N}^3 read, {N}^3 written')
+
+    def nb(label, name, step, ref, run):
+        def case():
+            t, = tiles[name]
+            up, uc, mf = normal(NP, NP, ZP), normal(NP, NP, ZP), \
+                coef(NP, NP, ZP)
+            spare = torch.empty_like(uc)
+            return (f'{label} {name} T={t}',
+                    lambda: step(up, uc, mf, t),
+                    lambda: ref(up, uc, mf, t),
+                    lambda: run(up.clone(), uc.clone(), mf, 3, t)[1],
+                    lambda: run(up.clone(), uc.clone(), mf, 3, t,
+                                plain=True)[1],
+                    lambda: step(up, uc, mf, t, out=spare),
+                    lambda: ref(up, uc, mf, t, out=spare),
+                    4 * 4 * NP * NP * ZP,
+                    f'uc, up, mfull ({NP}, {NP}, {ZP}) read, out written')
+        return case
+
+    def k6():
+        tx, ty = tiles['tiles_step']
+        u0, uc, m_i = normal(NP, NP, ZP), normal(NP, NP, ZP), coef(N, N, ZP)
+        up_i = u0[c, c, :]
+        return (f'K6 tiles_step TX={tx} TY={ty}',
+                lambda: T6.tiles_step(uc, up_i, m_i, tx, ty),
+                lambda: T6.tiles_step_reference(uc, up_i, m_i),
+                lambda: T6.run_E(u0.clone(), uc.clone(), m_i, 3, tx, ty)[1],
+                lambda: T6.run_E(u0.clone(), uc.clone(), m_i, 3,
+                                 plain=True)[1],
+                lambda: T6.tiles_step(uc, up_i, m_i, tx, ty, out=up_i),
+                lambda: T6.tiles_step_reference(uc, up_i, m_i, out=up_i),
+                4 * (NP * NP * ZP + 3 * N * N * ZP),
+                f'uc ({NP}, {NP}, {ZP}) and up_i, m_i ({N}, {N}, {ZP}) read, '
+                f'({N}, {N}, {ZP}) written')
+
+    def k7():
+        tx, = tiles['xtiles_step']
+        XP = N + 4 * H
+        up, uc, mp = normal(XP, NP, ZP), normal(XP, NP, ZP), \
+            coef(XP, NP, ZP)
+        spare = torch.empty_like(uc)
+        return (f'K7 xtiles_step TX={tx}',
+                lambda: T7.xtiles_step(uc, up, mp, tx),
+                lambda: T7.xtiles_step_reference(uc, up, mp),
+                lambda: T7.run_E(up.clone(), uc.clone(), mp, 3, tx)[1],
+                lambda: T7.run_E(up.clone(), uc.clone(), mp, 3,
+                                 plain=True)[1],
+                lambda: T7.xtiles_step(uc, up, mp, tx, out=spare),
+                lambda: T7.xtiles_step_reference(uc, up, mp, out=spare),
+                4 * 4 * XP * NP * ZP,
+                f'uc, up, m_pad ({XP}, {NP}, {ZP}) read, out written')
+
+    return {'halo_tiles_step': k3,
+            'neighbour_blocks_step': nb(
+                'K4', 'neighbour_blocks_step', T4.neighbour_blocks_step,
+                T4.neighbour_blocks_step_reference, T4.run_C),
+            'neighbour_blocks_zeroed_step': nb(
+                'K5', 'neighbour_blocks_zeroed_step',
+                T5.neighbour_blocks_zeroed_step,
+                T5.neighbour_blocks_zeroed_step_reference, T5.run_E),
+            'tiles_step': k6, 'xtiles_step': k7}
+
+
+def tiled_probes(device, sizes, gen, records, ceiling):
+    """Phase 7: the tiled-design entry points, each main driven with its
+    kernel's launch count at 0 just before and read just after; then each
+    kernel against its plain version at big_n^3, whole fields, and its
+    time against P1's ``ceiling`` GB/s."""
+    from devito_tpu_torch.experiments import (
+        stencil_probe as T3, stencil_probe2 as T4, stencil_probe3 as T5,
+        stencil_probe4 as T6, stencil_probe5 as T7)
+    by_name = {r['name']: r for r in records}
+    mods = {'halo_tiles_step': T3, 'neighbour_blocks_step': T4,
+            'neighbour_blocks_zeroed_step': T5, 'tiles_step': T6,
+            'xtiles_step': T7}
+    on_card = int(device.type == 'cuda')     # the CPU runs the plain versions
+    for name, mod in mods.items():
+        args = sizes['tiled'][name]
+        mod.launches = 0
+        res = mod.main(*args, device=device.type)
+        launches = mod.launches
+        # a warm-up and a timed run of STEPS, then 3 + 1 steps compared
+        want = on_card * (2 * args[1] + 4)
+        if launches != want:
+            raise AssertionError(f"{mod.__name__} launched its kernel "
+                                 f"{launches} times, not {want}")
+        by_name[name].update(launches=launches, max_abs_err=res['err'])
+        times = ', '.join(f"{k[3:].upper()} {v:.3f} ms" for k, v in
+                          res.items() if k.startswith('ms_'))
+        log(f"[tiled] {mod.__name__.split('.')[-1]}.main{args}: {times} "
+            f"per {args[1]} steps; max|kernel - plain| {res['err']:.3e} "
+            f"(1 and 3 steps, whole field), against variant A "
+            f"{res.get('err_a')} (tolerance {res.get('tol')}); launches "
+            f"{launches}")
+
+    N = sizes['big_n']
+    cases = tiled_cases(N, device, gen, sizes['tiled_big'])
+    reps, preps = sizes['reps'], sizes['plain_reps']
+    lines = []
+    for name, make in cases.items():
+        (label, step, plain, loop, plain_loop, timed, plain_timed, nbytes,
+         counted) = make()
+        rec = by_name[name]
+        errs = [check_close(f"{label} at {N}^3, 1 step", step(), plain()),
+                check_close(f"{label} at {N}^3, 3 steps", loop(),
+                            plain_loop())]
+        rec.update(max_abs_err=max(errs + [rec['max_abs_err']]),
+                   ms=time_ms(timed, reps, device),
+                   plain_ms=time_ms(plain_timed, preps, device),
+                   bytes=nbytes)
+        gbs = nbytes / 1e9 / rec['ms'] * 1e3
+        lines.append(
+            f"[tiled] {label} at {N}^3: {rec['ms']:.3f} ms "
+            f"({N ** 3 / rec['ms'] / 1e6:.2f} GPts/s, {gbs:.0f} GB/s of "
+            f"{nbytes / 1e9:.3f} GB = {counted}; {100 * gbs / ceiling:.1f} % "
+            f"of P1's); plain {rec['plain_ms']:.3f} ms; max|kernel - plain| "
+            f"{max(errs):.3e} over 1 and 3 steps")
+        del step, plain, loop, plain_loop, timed, plain_timed
+        if device.type == 'cuda':
+            torch.cuda.empty_cache()
+    for line in lines:
+        log(line)
 
 
 def main():

@@ -5,9 +5,19 @@ kernel and that kernel's plain PyTorch version:
 - ``stencil_probe9``: K15, the sliding-ring step
   (``python -m devito_tpu_torch.experiments.stencil_probe9 [N] [TX] [steps]``);
 - ``stencil_probe6``: P1 copy bandwidth, K8 window copies and K9 the
-  in-place x-tiled step (``python -m devito_tpu_torch.experiments.stencil_probe6 [t0]``).
+  in-place x-tiled step (``python -m devito_tpu_torch.experiments.stencil_probe6 [t0]``);
+- ``stencil_probe``: K3, (x, y) tiles staging both halo'd windows
+  (``python -m devito_tpu_torch.experiments.stencil_probe [N] [STEPS] [TX] [TY]``);
+- ``stencil_probe2``: K4, x-tiles assembled from neighbour blocks, x-halo
+  rows computed (``python -m devito_tpu_torch.experiments.stencil_probe2 [N] [STEPS] [T]``);
+- ``stencil_probe3``: K5, as K4 with the x-halo rows zeroed
+  (``python -m devito_tpu_torch.experiments.stencil_probe3 [N] [STEPS] [T]``);
+- ``stencil_probe4``: K6, (x, y) tiles with a double-buffered window
+  (``python -m devito_tpu_torch.experiments.stencil_probe4 [N] [STEPS] [TX] [TY]``);
+- ``stencil_probe5``: K7, x-tiles writing the whole padded array
+  (``python -m devito_tpu_torch.experiments.stencil_probe5 [N] [STEPS] [TX]``).
 
-Both take ``--device cuda`` (the default) or ``--device cpu``; on the CPU
+All take ``--device cuda`` (the default) or ``--device cpu``; on the CPU
 the plain versions run. Asking for ``cuda`` without CUDA raises.
 """
 

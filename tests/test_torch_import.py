@@ -30,6 +30,11 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, devito_tpu_torch, devito_tpu_torch.models.seismic\n"
             "import devito_tpu_torch.experiments.stencil_probe6\n"
             "import devito_tpu_torch.experiments.stencil_probe9\n"
+            "import devito_tpu_torch.experiments.stencil_probe\n"
+            "import devito_tpu_torch.experiments.stencil_probe2\n"
+            "import devito_tpu_torch.experiments.stencil_probe3\n"
+            "import devito_tpu_torch.experiments.stencil_probe4\n"
+            "import devito_tpu_torch.experiments.stencil_probe5\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'devito_tpu'))\n"
             "print(bad)\n"

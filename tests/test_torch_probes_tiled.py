@@ -1,0 +1,597 @@
+"""K3 (devito_tpu_torch/experiments/stencil_probe.py), K4 (stencil_probe2),
+K5 (stencil_probe3), K6 (stencil_probe4) and K7 (stencil_probe5) against
+the TPU kernels they port, which run here in Pallas interpret mode.
+
+The JAX scripts read their sizes from the environment when they are
+imported, so each test sets them with ``monkeypatch.setenv`` and imports
+the script anew. Every ``pallas_call`` is built with ``interpret=True``
+(``stencil_probe.py`` passes none), in JAX's 32-bit mode, which the
+probes were written for. Inputs come from numpy's generator and go to
+both packages; whole arrays are compared, after 1 and 3 steps of each
+loop. On the CPU the port's wrappers run their kernels' plain PyTorch
+versions; the CUDA kernels are held against those versions by the
+``cuda``-marked tests, on the card. Tolerances are 1e-5 * max|reference|:
+fp32 sums taken in another order."""
+
+import importlib
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from devito_tpu_torch.exceptions import DevitoTpuError
+from devito_tpu_torch.experiments import stencil_probe as P1
+from devito_tpu_torch.experiments import stencil_probe2 as P2
+from devito_tpu_torch.experiments import stencil_probe3 as P3
+from devito_tpu_torch.experiments import stencil_probe4 as P4
+from devito_tpu_torch.experiments import stencil_probe5 as P5
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+TOL = 1e-5
+H = 4
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """Every ``pallas_call`` made while the test runs is built with
+    ``interpret=True``, in JAX's default 32-bit mode (importing
+    devito_tpu turns on 64-bit mode)."""
+    import jax
+    from jax.experimental import pallas as pl
+    orig = pl.pallas_call
+
+    def wrap(*args, **kwargs):
+        kwargs['interpret'] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(pl, 'pallas_call', wrap)
+    with jax.enable_x64(False):
+        yield
+
+
+@pytest.fixture
+def jax_probe(monkeypatch):
+    """``load(name, **sizes)`` imports ``experiments.{name}`` anew with
+    MODE=cpu and the sizes in its environment."""
+    loaded = []
+
+    def load(name, **sizes):
+        monkeypatch.setenv('MODE', 'cpu')
+        monkeypatch.setenv('JAX_PLATFORMS', 'cpu')
+        for k, v in sizes.items():
+            monkeypatch.setenv(k, str(v))
+        mod = f'experiments.{name}'
+        sys.modules.pop(mod, None)
+        loaded.append(mod)
+        return importlib.import_module(mod)
+
+    yield load
+    for mod in loaded:
+        sys.modules.pop(mod, None)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card)")
+    return torch.device('cuda', 0)
+
+
+def _close(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape
+    err, tol = np.abs(got - ref).max(), TOL * np.abs(ref).max()
+    assert err <= tol, (err, tol)
+
+
+def _normal(rng, shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _jax_loop(step, up, uc, nsteps):
+    """(up, uc) -> (uc, step(up, uc)) ``nsteps`` times, in JAX."""
+    for _ in range(nsteps):
+        up, uc = uc, step(up, uc)
+    return up, uc
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a.copy()) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+# -- K3 ------------------------------------------------------------------------
+
+def _k3_inputs(N, seed):
+    rng = np.random.default_rng(seed)
+    NP = N + 2 * H
+    return (_normal(rng, (NP,) * 3), _normal(rng, (NP,) * 3),
+            (0.1 + 0.1 * rng.random((N,) * 3)).astype(np.float32),
+            (0.05 * rng.random((N,) * 3)).astype(np.float32))
+
+
+@pytest.mark.parametrize('N,TX,TY', [(16, 8, 8), (24, 8, 12), (32, 16, 8)])
+def test_halo_tiles_step_matches_pallas_kernel(N, TX, TY, jax_probe,
+                                               interpret):
+    jp = jax_probe('stencil_probe', N=N, TX=TX, TY=TY)
+    step = jp.make_pallas_step()
+    up, uc, m, damp = _k3_inputs(N, N + TX)
+    ref = np.asarray(step(*_j(up, uc, m, damp)))
+    before = P1.launches
+    got = P1.halo_tiles_step(*_t(up, uc, m, damp), TX, TY)
+    _close(got.numpy(), ref)
+    for nsteps in (1, 3):
+        mj, dj = _j(m, damp)
+        want = _jax_loop(lambda a, b: a.at[H:-H, H:-H, H:-H].set(
+            step(a, b, mj, dj)), *_j(up, uc), nsteps)
+        got = P1.run_pallas(*_t(up, uc, m, damp), nsteps, TX, TY)
+        for g, w in zip(got, want):
+            _close(g.numpy(), w)
+    assert P1.launches == before
+
+
+def test_halo_tiles_run_xla_matches_jax(jax_probe, interpret):
+    jp = jax_probe('stencil_probe', N=16, TX=8, TY=8)
+    up, uc, m, damp = _k3_inputs(16, 3)
+    want = jp.run_xla(*_j(up, uc, m, damp), 3)
+    got = P1.run_xla(*_t(up, uc, m, damp), 3)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+
+
+def test_halo_tiles_step_writes_into_a_view():
+    up, uc, m, damp = _t(*_k3_inputs(8, 1))
+    want = P1.halo_tiles_step_reference(up, uc, m, damp)
+    kept = up.clone()
+    view = up[H:-H, H:-H, H:-H]
+    assert P1.halo_tiles_step(up, uc, m, damp, 8, 8, out=view) is view
+    assert torch.equal(up[H:-H, H:-H, H:-H], want)
+    up[H:-H, H:-H, H:-H] = kept[H:-H, H:-H, H:-H]
+    assert torch.equal(up, kept)               # only the interior written
+
+
+# -- K4 ------------------------------------------------------------------------
+
+def _nb_inputs(N, seed):
+    """(up, uc, mfull) over the (NP, NP, ZP) layout: normal everywhere,
+    halo and pad included, so that every tap the x-halo rule picks shows."""
+    NP = N + 2 * H
+    shape = (NP, NP, -(-NP // 128) * 128)
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, shape), _normal(rng, shape),
+            (0.1 + 0.1 * rng.random(shape)).astype(np.float32))
+
+
+@pytest.mark.parametrize('N,T', [(16, 4), (16, 6), (16, 8), (16, 12),
+                                 (16, 24), (24, 8), (24, 16)])
+def test_neighbour_blocks_step_matches_pallas_kernel(N, T, jax_probe,
+                                                     interpret):
+    """K4 over the whole array, its x-halo rows included, for several T."""
+    jp = jax_probe('stencil_probe2', N=N, T=T)
+    step = jp.make_pallas_step()
+    up, uc, mf = _nb_inputs(N, N * T)
+    ref = np.asarray(step(*_j(up, uc, mf)))
+    before = P2.launches
+    got = P2.neighbour_blocks_step(*_t(up, uc, mf), T)
+    _close(got.numpy(), ref)
+    rows = np.r_[0:H, H + N:N + 2 * H]
+    assert np.abs(ref[rows]).max() > 0          # x-halo rows computed
+    for nsteps in (1, 3):
+        mj = jnp.asarray(mf)
+        want = _jax_loop(lambda a, b: step(a, b, mj), *_j(up, uc), nsteps)
+        u0, u1, mt = _t(up, uc, mf)
+        got = P2.run_C(u0, u1, mt, nsteps, T)
+        for g, w in zip(got, want):
+            _close(g.numpy(), w)
+    assert P2.launches == before
+
+
+def test_neighbour_block_rows_follow_the_clamped_rule():
+    NP, T = 24, 8
+    rows = [r.tolist() for r in P2.x_sources(NP, T, 'cpu')]
+    k = {d: rows[d + H] for d in range(-H, H + 1)}
+    assert k[-1][0] == 7 and k[-4][3] == 7 and k[-4][4] == 0  # tile 0 wraps
+    assert k[1][23] == 16 and k[4][20] == 16 and k[3][20] == 23  # last tile
+    assert k[-4][8] == 4 and k[4][15] == 19                   # middle: r + k
+
+
+def test_neighbour_blocks_variants_match_jax(jax_probe, interpret):
+    N = 16
+    jp = jax_probe('stencil_probe2', N=N, T=8)
+    up, uc, mf = _nb_inputs(N, 5)
+    m, damp = np.full((N,) * 3, 0.2, np.float32), np.zeros((N,) * 3,
+                                                           np.float32)
+    mask = np.zeros_like(mf)
+    mask[H:H + N, H:H + N, H:H + N] = 1.0
+    want = jp.run_A(*_j(up, uc, m, damp), 3)
+    got = P2.run_A(*_t(up, uc, m, damp), 3)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+    want = jp.run_B(*_j(up, uc, mf, mask), 3)
+    got = P2.run_B(*_t(up, uc, mf, mask), 3)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+
+
+# -- K5 ------------------------------------------------------------------------
+
+@pytest.mark.parametrize('N,T', [(16, 4), (16, 8), (16, 12), (24, 8),
+                                 (24, 16)])
+def test_neighbour_blocks_zeroed_step_matches_pallas_kernel(N, T, jax_probe,
+                                                            interpret):
+    jp = jax_probe('stencil_probe3', N=N, T=T)
+    run_E = jp.make_pallas_step()
+    up, uc, mf = _nb_inputs(N, N * T + 1)
+    before = P3.launches
+    for nsteps in (1, 3):
+        want = run_E(*_j(up, uc, mf), nsteps)
+        got = P3.run_E(*_t(up, uc, mf), nsteps, T)
+        for g, w in zip(got, want):
+            _close(g.numpy(), w)
+    out = P3.neighbour_blocks_zeroed_step(*_t(up, uc, mf), T).numpy()
+    assert not out[:H].any() and not out[H + N:].any()
+    assert P3.launches == before
+
+
+def test_neighbour_blocks_zeroed_variants_match_jax(jax_probe, interpret):
+    N = 16
+    jp = jax_probe('stencil_probe3', N=N, T=8)
+    up, uc, _ = _nb_inputs(N, 7)
+    m = np.full((N,) * 3, 0.2, np.float32)
+    want = jp.run_A(*_j(up, uc, m), 3)
+    got = P3.run_A(*_t(up, uc, m), 3)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+    want = jp.make_conv_step()(*_j(up, uc, m), 3)
+    got = P3.run_D(*_t(up, uc, m), 3)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+
+
+# -- K6 ------------------------------------------------------------------------
+
+def _tiles_inputs(N, seed):
+    NP = N + 2 * H
+    ZA = -(-NP // 128) * 128
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, (NP, NP, ZA)), _normal(rng, (NP, NP, ZA)),
+            (0.1 + 0.1 * rng.random((N, N, ZA))).astype(np.float32))
+
+
+@pytest.mark.parametrize('N,TX,TY', [(16, 8, 8), (32, 16, 32), (48, 16, 16)])
+def test_tiles_step_matches_pallas_kernel(N, TX, TY, jax_probe, interpret):
+    """K6 over the whole field: the x/y halo keeps up's values, the z halo
+    and pad of the interior columns are zeroed."""
+    jp = jax_probe('stencil_probe4', N=N, TX=TX, TY=TY)
+    step, run_E = jp.make_v3_step(), jp.make_run_E()
+    u0, u1, m_i = _tiles_inputs(N, N + TX + TY)
+    ref = np.asarray(step(*_j(u1, u0[H:H + N, H:H + N], m_i)))
+    before = P4.launches
+    got = P4.tiles_step(*_t(u1, u0[H:H + N, H:H + N], m_i), TX, TY)
+    _close(got.numpy(), ref)
+    for nsteps in (1, 3):
+        want = run_E(*_j(u0, u1, m_i), nsteps)
+        got = P4.run_E(*_t(u0, u1, m_i), nsteps, TX, TY)
+        for g, w in zip(got, want):
+            _close(g.numpy(), w)
+    assert P4.launches == before
+
+
+def test_tiles_step_in_place_keeps_the_halo():
+    u0, u1, m_i = _t(*_tiles_inputs(8, 2))
+    kept = u0.clone()
+    up_i = u0[H:-H, H:-H, :]
+    assert P4.tiles_step(u1, up_i, m_i, 8, 8, out=up_i) is up_i
+    u0[H:-H, H:-H, :] = kept[H:-H, H:-H, :]
+    assert torch.equal(u0, kept)
+
+
+def test_tiles_run_A_matches_jax(jax_probe, interpret):
+    N = 16
+    jp = jax_probe('stencil_probe4', N=N, TX=8, TY=8)
+    u0, u1, _ = _tiles_inputs(N, 4)
+    m = np.full((N,) * 3, 0.2, np.float32)
+    want = jp.run_A(*_j(u0, u1, m), 3)
+    got = P4.run_A(*_t(u0, u1, m), 3)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+
+
+# -- K7 ------------------------------------------------------------------------
+
+def _xtiles_inputs(N, seed, halo=True):
+    """(u0, u1, m_pad) over the (XP, NP, ZA) layout: normal everywhere, or
+    (``halo`` False) only on the interior, as the JAX script's own."""
+    NP = N + 2 * H
+    shape = (N + 4 * H, NP, -(-NP // 128) * 128)
+    rng = np.random.default_rng(seed)
+    arrs = [_normal(rng, shape), _normal(rng, shape),
+            (0.1 + 0.1 * rng.random(shape)).astype(np.float32)]
+    if not halo:
+        inner = (slice(2 * H, 2 * H + N), slice(H, H + N), slice(H, H + N))
+        for a in arrs:
+            keep = a[inner].copy()
+            a[:] = 0.0
+            a[inner] = keep
+    return arrs
+
+
+@pytest.mark.parametrize('N,TX', [(16, 4), (16, 8), (48, 8)])
+def test_xtiles_step_matches_pallas_kernel(N, TX, jax_probe, interpret):
+    jp = jax_probe('stencil_probe5', N=N, TX=TX)
+    step, run_E = jp.make_v4_step(), jp.make_run_E()
+    u0, u1, mp = _xtiles_inputs(N, N + TX)
+    ref = np.asarray(step(*_j(u1, u0, mp)))
+    before = P5.launches
+    got = P5.xtiles_step(*_t(u1, u0, mp), TX)
+    _close(got.numpy(), ref)
+    for nsteps in (1, 3):
+        want = run_E(*_j(u0, u1, mp), nsteps)
+        got = P5.run_E(*_t(u0, u1, mp), nsteps, TX)
+        for g, w in zip(got, want):
+            _close(g.numpy(), w)
+    assert P5.launches == before
+
+
+def test_xtiles_reference_fault_at_tx_32(jax_probe, interpret):
+    """At N=48, TX=32 the JAX kernel differs from its own variant A on the
+    interior rows of its first and last x-tiles; the port matches A."""
+    N, TX, X0 = 48, 32, 2 * H
+    jp = jax_probe('stencil_probe5', N=N, TX=TX)
+    u0, u1, mp = _xtiles_inputs(N, 11, halo=False)
+    m = mp[X0:X0 + N, H:H + N, H:H + N].copy()
+    a = np.asarray(jp.run_A(*_j(u0, u1, m), 1)[1])
+    e = np.asarray(jp.make_run_E()(*_j(u0, u1, mp), 1)[1])
+    bad = np.abs(e - a).max(axis=(1, 2)) > TOL * np.abs(a).max()
+    assert bad[X0:X0 + N].all()                 # every interior row wrong
+    assert not bad[:X0].any() and not bad[X0 + N:].any()
+    for nsteps in (1, 3):
+        want = P5.run_A(*_t(u0, u1, m), nsteps)
+        got = P5.run_E(*_t(u0, u1, mp), nsteps, TX)
+        for g, w in zip(got, want):
+            _close(g.numpy(), w.numpy())
+    _close(P5.run_E(*_t(u0, u1, mp), 1, TX)[1].numpy(), a)
+
+
+def test_xtiles_run_A_matches_jax(jax_probe, interpret):
+    N = 16
+    jp = jax_probe('stencil_probe5', N=N, TX=8)
+    u0, u1, mp = _xtiles_inputs(N, 6)
+    m = mp[2 * H:2 * H + N, H:H + N, H:H + N].copy()
+    want = jp.run_A(*_j(u0, u1, m), 3)
+    got = P5.run_A(*_t(u0, u1, m), 3)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+
+
+# -- argument checks -----------------------------------------------------------
+
+def _k3_args(N=8):
+    return _t(*_k3_inputs(N, 0))
+
+
+def _nb_args(N=8):
+    return _t(*_nb_inputs(N, 0))
+
+
+def _tiles_args(N=8):
+    u0, u1, m_i = _t(*_tiles_inputs(N, 0))
+    return [u1, u0[H:-H, H:-H], m_i]
+
+
+def _xtiles_args(N=8):
+    return _t(*_xtiles_inputs(N, 0))
+
+
+CHECKS = {
+    'K3 shape': (lambda a: P1.halo_tiles_step(a[0][:, :4].contiguous(),
+                                              *a[1:]), _k3_args,
+                 ValueError, 'expected'),
+    'K3 dtype': (lambda a: P1.halo_tiles_step(a[0].double(), *a[1:]),
+                 _k3_args, TypeError, 'fp32'),
+    'K3 tile': (lambda a: P1.halo_tiles_step(*a, TX=0), _k3_args,
+                ValueError, 'positive'),
+    'K3 out is uc': (lambda a: P1.halo_tiles_step(*a, out=a[1][H:-H, H:-H,
+                                                               H:-H]),
+                     _k3_args, ValueError, 'shares storage'),
+    'K3 device': (lambda a: P1.halo_tiles_step(*[t.to('meta') for t in a]),
+                  _k3_args, ValueError, 'no halo-tiles step kernel'),
+    'K4 T divides NP': (lambda a: P2.neighbour_blocks_step(*a, T=5),
+                        _nb_args, ValueError, 'T=5'),
+    'K4 T >= 4': (lambda a: P2.neighbour_blocks_step(*a, T=2), _nb_args,
+                  ValueError, 'T >= 4'),
+    'K4 shape': (lambda a: P2.neighbour_blocks_step(a[0], a[1][:, :8],
+                                                    a[2]), _nb_args,
+                 TypeError, 'contiguous'),
+    'K4 out is uc': (lambda a: P2.neighbour_blocks_step(*a, out=a[1]),
+                     _nb_args, ValueError, 'shares storage'),
+    'K5 T divides NP': (lambda a: P3.neighbour_blocks_zeroed_step(*a, T=6),
+                        _nb_args, ValueError, 'T=6'),
+    'K5 dtype': (lambda a: P3.neighbour_blocks_zeroed_step(
+        a[0], a[1].half(), a[2]), _nb_args, TypeError, 'fp32'),
+    'K5 device': (lambda a: P3.neighbour_blocks_zeroed_step(
+        *[t.to('meta') for t in a]), _nb_args, ValueError,
+        'no zeroed neighbour-block step kernel'),
+    'K6 shape': (lambda a: P4.tiles_step(a[0], a[1][:4], a[2]), _tiles_args,
+                 ValueError, 'expected'),
+    'K6 tile': (lambda a: P4.tiles_step(*a, TY=0), _tiles_args, ValueError,
+                'positive'),
+    'K6 z stride': (lambda a: P4.tiles_step(a[0], a[1].transpose(1, 2),
+                                            a[2]), _tiles_args, TypeError,
+                    'contiguous along z'),
+    'K6 devices': (lambda a: P4.tiles_step(a[0], a[1].to('meta'), a[2]),
+                   _tiles_args, ValueError, 'different devices'),
+    'K7 TX divides XP': (lambda a: P5.xtiles_step(*a, TX=5), _xtiles_args,
+                         ValueError, 'does not divide'),
+    'K7 shape': (lambda a: P5.xtiles_step(a[0][:16].contiguous(), *a[1:]),
+                 _xtiles_args, ValueError, 'expected'),
+    'K7 out is uc': (lambda a: P5.xtiles_step(*a, TX=8, out=a[0]),
+                     _xtiles_args,
+                     ValueError, 'shares storage'),
+}
+
+
+@pytest.mark.parametrize('case', sorted(CHECKS))
+def test_wrappers_check_arguments(case):
+    call, args, exc, match = CHECKS[case]
+    with pytest.raises(exc, match=match):
+        call(args())
+
+
+def test_z_chunk_fits_shared_memory():
+    from devito_tpu_torch.experiments._tiled import z_chunk
+    assert z_chunk('k', 32, 32, 2) == 8
+    assert z_chunk('k', 16, 32, 2) == 16
+    assert z_chunk('k', 8, 8, 2) == 32
+    with pytest.raises(ValueError, match='cannot fit'):
+        z_chunk('k', 64, 64, 2)
+
+
+# -- the entry points on the CPU -------------------------------------------------
+
+MAINS = {
+    'stencil_probe': (lambda: P1.main(16, 2, 8, 8, device='cpu'), P1,
+                      ['A torch-slices', 'C kernel TX=8 TY=8',
+                       'max |A - C| after 3 steps']),
+    'stencil_probe2': (lambda: P2.main(40, 2, 8, device='cpu'), P2,
+                       ['A torch-DUS', 'B torch-mask', 'C kernel-nb T=8',
+                        'C vs A central err']),
+    'stencil_probe3': (lambda: P3.main(16, 2, 4, device='cpu'), P3,
+                       ['A torch-DUS', 'D torch-conv', 'D vs A err',
+                        'E kernel-nb T=4', 'E vs A err']),
+    'stencil_probe4': (lambda: P4.main(24, 2, 8, 16, device='cpu'), P4,
+                       ['A torch-DUS', 'E v3 TX=8 TY=16', 'E vs A err']),
+    'stencil_probe5': (lambda: P5.main(16, 2, 8, device='cpu'), P5,
+                       ['A torch-DUS', 'E v4 TX=8', 'E vs A err']),
+}
+
+
+@pytest.mark.parametrize('module', sorted(MAINS))
+def test_probe_main_on_cpu(module, capsys):
+    run, mod, lines = MAINS[module]
+    before = mod.launches
+    res = run()
+    out = capsys.readouterr().out
+    for line in lines:
+        assert line in out, line
+    assert re.search(r'max \|kernel - plain\| over the whole array after 1 '
+                     r'and 3 steps: 0\.0, 0\.0', out)
+    assert re.search(r': \S+ ms, \S+ GPts/s', out)
+    assert res['err'] == 0.0 and mod.launches == before
+
+
+@pytest.mark.parametrize('module,args', [
+    ('stencil_probe', ['16', '1', '8', '8']),
+    ('stencil_probe2', ['16', '1', '8']),
+    ('stencil_probe3', ['16', '1', '8']),
+    ('stencil_probe4', ['16', '1', '8', '16']),
+    ('stencil_probe5', ['16', '1', '8'])])
+def test_entry_points_run_as_scripts(module, args):
+    res = subprocess.run(
+        [sys.executable, '-m', f'devito_tpu_torch.experiments.{module}',
+         *args, '--device', 'cpu'], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env={'PATH': '/usr/bin:/bin',
+                                     'OMP_NUM_THREADS': '1'})
+    assert res.returncode == 0, res.stderr
+    assert 'GPts/s' in res.stdout and 'kernel - plain' in res.stdout
+
+
+@pytest.mark.parametrize('module', sorted(MAINS))
+def test_entry_points_need_cuda_when_asked(module, monkeypatch):
+    mod = MAINS[module][1]
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(DevitoTpuError, match='is_available'):
+        mod.main(16, 1)
+
+
+# -- on the card -----------------------------------------------------------------
+
+def _on(card, arrays):
+    return [torch.from_numpy(a).to(card) for a in arrays]
+
+
+def _card_close(got, ref):
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= TOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N,TX,TY', [(36, 32, 32), (40, 16, 12), (64, 32, 32)])
+def test_halo_tiles_kernel_on_card(card, N, TX, TY):
+    up, uc, m, damp = _on(card, _k3_inputs(N, N))
+    before = P1.launches
+    _card_close(P1.halo_tiles_step(up, uc, m, damp, TX, TY),
+                P1.halo_tiles_step_reference(up, uc, m, damp))
+    got = P1.run_pallas(up.clone(), uc.clone(), m, damp, 3, TX, TY)
+    want = P1.run_pallas(up.clone(), uc.clone(), m, damp, 3, plain=True)
+    for g, w in zip(got, want):
+        _card_close(g, w)
+    assert P1.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('zeroed', [False, True])
+@pytest.mark.parametrize('N,T', [(20, 4), (28, 9), (40, 8)])
+def test_neighbour_blocks_kernels_on_card(card, N, T, zeroed):
+    mod = P3 if zeroed else P2
+    step = P3.neighbour_blocks_zeroed_step if zeroed \
+        else P2.neighbour_blocks_step
+    ref = P3.neighbour_blocks_zeroed_step_reference if zeroed \
+        else P2.neighbour_blocks_step_reference
+    run = P3.run_E if zeroed else P2.run_C
+    up, uc, mf = _on(card, _nb_inputs(N, N * T))
+    before = mod.launches
+    _card_close(step(up, uc, mf, T), ref(up, uc, mf, T))
+    got = run(up.clone(), uc.clone(), mf, 3, T)
+    want = run(up.clone(), uc.clone(), mf, 3, T, plain=True)
+    for g, w in zip(got, want):
+        _card_close(g, w)
+    assert mod.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N,TX,TY', [(40, 16, 32), (36, 8, 8), (48, 16, 16)])
+def test_tiles_kernel_on_card(card, N, TX, TY):
+    u0, u1, m_i = _on(card, _tiles_inputs(N, N))
+    up_i = u0[H:-H, H:-H]
+    before = P4.launches
+    _card_close(P4.tiles_step(u1, up_i, m_i, TX, TY),
+                P4.tiles_step_reference(u1, up_i, m_i))
+    got = P4.run_E(u0.clone(), u1.clone(), m_i, 3, TX, TY)
+    want = P4.run_E(u0.clone(), u1.clone(), m_i, 3, plain=True)
+    for g, w in zip(got, want):
+        _card_close(g, w)
+    assert P4.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N,TX', [(16, 32), (40, 8), (48, 16)])
+def test_xtiles_kernel_on_card(card, N, TX):
+    u0, u1, mp = _on(card, _xtiles_inputs(N, N))
+    before = P5.launches
+    _card_close(P5.xtiles_step(u1, u0, mp, TX),
+                P5.xtiles_step_reference(u1, u0, mp))
+    got = P5.run_E(u0.clone(), u1.clone(), mp, 3, TX)
+    want = P5.run_E(u0.clone(), u1.clone(), mp, 3, plain=True)
+    for g, w in zip(got, want):
+        _card_close(g, w)
+    assert P5.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('module', sorted(MAINS))
+def test_entry_points_on_card(card, module):
+    mod = MAINS[module][1]
+    before = mod.launches
+    res = mod.main(48, 2)           # raises beyond its tolerances
+    assert res['err'] >= 0 and mod.launches == before + 2 * 2 + 4
