@@ -29,13 +29,26 @@
    counted (K7 at TX=32, where the JAX kernel itself is wrong); then each
    kernel against its plain version at 512^3, one step and 3 steps of its
    loop over the whole array, and timed beside K1 and K15 against P1.
+8. The copy, compute and launch probes of stencil_probe7: A (K10) with and
+   without write-back at nsplit 1 and 2, B (K11) for every tap ablation,
+   C (K12), D (K13) and E (K14) at depths 2, 3 and 4, each at the JAX
+   script's defaults (N=256, ZA=NY) with its kernel's launches counted;
+   then each kernel against its plain version on seeded inputs at N=256
+   and N=512, and timed beside its bound, its plain version, its library
+   call and P1.
 
 Every failure raises, and the script exits non-zero. The next-to-last
-lines are the kernel records (one JSON line, a record per kernel) and the
-card's name and power limit; the last line is
-{"ok": true, "device": {...}}.
+lines are the kernel records (one JSON line, a record per kernel, each with
+its time, its plain version's, its bound -- the larger of the bytes its
+result needs (each input point it reads once, each output point written
+once) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s, the H100
+SXM's data-sheet peaks -- the one PyTorch call that computes the same
+function, where there is one, and its launches on its own path and on the
+main path, phases 4 and 5, every kernel's count read there) and the card's
+name and power limit; the last line is {"ok": true, "device": {...}}.
 """
 
+import importlib
 import json
 import subprocess
 import sys
@@ -66,7 +79,9 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
             tiled_big={'halo_tiles_step': (32, 32),
                        'neighbour_blocks_step': (8,),
                        'neighbour_blocks_zeroed_step': (8,),
-                       'tiles_step': (16, 32), 'xtiles_step': (16,)})
+                       'tiles_step': (16, 32), 'xtiles_step': (16,)},
+            # stencil_probe7: the entry points' N, then the compared sizes
+            p7_n=256, p7_sizes=(256, 512))
 #: (name, source, TPU kernel replaced, the part of the kernel's mangled name
 #: that picks its ptxas report out of its unit's) of every kernel, in record
 #: order.
@@ -93,14 +108,70 @@ KERNELS = [
      'experiments/stencil_probe4.py:66', ''),
     ('xtiles_step', 'devito_tpu_torch/csrc/probe5_xtiles.cu',
      'experiments/stencil_probe5.py:75', ''),
+    ('copy_windows', 'devito_tpu_torch/csrc/probe7_copy.cu',
+     'experiments/stencil_probe7.py:38', ''),
+    ('resident_step', 'devito_tpu_torch/csrc/probe7_resident.cu',
+     'experiments/stencil_probe7.py:124', ''),
+    ('empty_grid', 'devito_tpu_torch/csrc/probe7_empty.cu',
+     'experiments/stencil_probe7.py:190', ''),
+    ('stream_windows_depth2', 'devito_tpu_torch/csrc/probe7_stream.cu',
+     'experiments/stencil_probe7.py:212', 'stream_kernelILi2E'),
+    ('stream_windows_depth3', 'devito_tpu_torch/csrc/probe7_stream.cu',
+     'experiments/stencil_probe7.py:272', 'stream_kernelILi3E'),
 ]
 FIXED = ['selftest', 'probe9_ring', 'probe6_inplace', 'probe6_window_copy',
          'probe_halo_tiles', 'probe2_neighbour_blocks', 'probe4_tiles',
-         'probe5_xtiles']
+         'probe5_xtiles', 'probe7_copy', 'probe7_resident', 'probe7_empty',
+         'probe7_stream']
+#: The module of devito_tpu_torch.experiments and the launch counter of
+#: every probe kernel, by record name; K13 and K14 share a count keyed by
+#: pipeline depth.
+PROBE_COUNTERS = {
+    'ring_step': ('stencil_probe9', 'launches', None),
+    'inplace_step': ('stencil_probe6', 'inplace_launches', None),
+    'window_copy': ('stencil_probe6', 'window_copy_launches', None),
+    'halo_tiles_step': ('stencil_probe', 'launches', None),
+    'neighbour_blocks_step': ('stencil_probe2', 'launches', None),
+    'neighbour_blocks_zeroed_step': ('stencil_probe3', 'launches', None),
+    'tiles_step': ('stencil_probe4', 'launches', None),
+    'xtiles_step': ('stencil_probe5', 'launches', None),
+    'copy_windows': ('stencil_probe7', 'copy_launches', None),
+    'resident_step': ('stencil_probe7', 'resident_launches', None),
+    'empty_grid': ('stencil_probe7', 'empty_launches', None),
+    'stream_windows_depth2': ('stencil_probe7', 'stream_launches', 2),
+    'stream_windows_depth3': ('stencil_probe7', 'stream_launches', 3)}
+#: The keys every kernel record has.
+RECORD_KEYS = ('name', 'route', 'source', 'replaces', 'launches',
+               'launches_main_path', 'max_abs_err', 'ms', 'plain_ms',
+               'bound_ms', 'bound_by', 'library_ms')
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def probe_launches(zero=False):
+    """Every probe kernel's launch count, by record name; with ``zero``,
+    each count is set to 0 first."""
+    counts = {}
+    for name, (mod, attr, depth) in PROBE_COUNTERS.items():
+        m = importlib.import_module(f'devito_tpu_torch.experiments.{mod}')
+        if depth is None:
+            if zero:
+                setattr(m, attr, 0)
+            counts[name] = getattr(m, attr)
+        else:
+            if zero:
+                getattr(m, attr).clear()
+            counts[name] = getattr(m, attr).get(depth, 0)
+    return counts
+
+
+def star_points(n, faces=6):
+    """Points an SO=8 star stencil reads of its centre field over an n^3
+    interior: the interior and the 4-deep slabs on ``faces`` of its faces
+    (4 where the z taps outside read zero)."""
+    return n ** 3 + faces * 4 * n ** 2
 
 
 def smi():
@@ -294,6 +365,7 @@ def _smoke(device, sizes):
         ms=time_ms(lambda: K.selftest_window_sum(x), sizes['reps'], device),
         plain_ms=time_ms(lambda: K.selftest_window_sum_reference(x),
                          sizes['reps'], device))
+    set_bound(selftest, 4 * (x.numel() + got.numel()), got.numel())
     log(f"[kernel] K2 self-test on random input: max|kernel - plain| "
         f"{err:.3e}; {selftest['ms']:.4f} ms, plain "
         f"{selftest['plain_ms']:.4f} ms")
@@ -323,6 +395,10 @@ def _smoke(device, sizes):
         f"{plain_ms:.3f} ms ({n ** 3 / ms / 1e6:.2f} vs "
         f"{n ** 3 / plain_ms / 1e6:.2f} GPts/s)")
     record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # u[t] at the star's points, u[t-1], vp, damp in the interior read,
+    # u[t+1]'s interior written
+    set_bound(record, 4 * (star_points(n) + 4 * n ** 3),
+              K.point_flops(hplan) * n ** 3)
     del out, ref, ins
 
     # -- 4. headline operator ---------------------------------------------
@@ -355,6 +431,7 @@ def _smoke(device, sizes):
     # device self-tested yet
     K.launches = K.selftest_launches = K.selftests = 0
     K.validated.clear()
+    probe_launches(zero=True)
     summary = head_op.apply(time_m=1, time_M=steps, dt=dt_)
     head_launches = K.launches
     if head_launches != steps * ndense:
@@ -381,6 +458,7 @@ def _smoke(device, sizes):
     sync(device)
     wall = time.perf_counter() - tic
     fwd_launches = K.launches - before           # main path ends here
+    off_path = probe_launches()
     once = int(device.type == 'cuda')     # the CPU runs no K1 kernel
     if (K.selftests, K.selftest_launches) != (once, once):
         raise AssertionError(f"the main path ran {K.selftests} self-tests "
@@ -399,8 +477,16 @@ def _smoke(device, sizes):
         f"({fsum.globals['fdlike'].gpointss:.2f} GPts/s); rec norm "
         f"{np.linalg.norm(r):.6g}; launches {fwd_launches} = {nsteps} "
         f"steps, declined 0")
-    record['launches'] = head_launches + fwd_launches
-    selftest['launches'] = K.selftest_launches
+    record['launches'] = record['launches_main_path'] = \
+        head_launches + fwd_launches
+    selftest['launches'] = selftest['launches_main_path'] = \
+        K.selftest_launches
+    for rec in records:
+        if rec['name'] in off_path:
+            rec['launches_main_path'] = off_path[rec['name']]
+    if any(off_path.values()):
+        raise AssertionError(f"the main path launched probe kernels: "
+                             f"{off_path}")
     if len(K.build_seconds) != nbuilds:
         raise AssertionError("the main path rebuilt a kernel")
     log(f"[forward] kernel builds during the main path: 0 (every apply, "
@@ -427,8 +513,15 @@ def _smoke(device, sizes):
 
     ceiling = probes(device, sizes, gen, records)
     tiled_probes(device, sizes, gen, records, ceiling)
+    probe7(device, sizes, gen, records, ceiling)
     if len(K.build_seconds) != nbuilds:
         raise AssertionError("the probe entry points built a kernel")
+    for rec in records:
+        rec.setdefault('library_ms', None)
+        missing = [k for k in RECORD_KEYS if k not in rec]
+        if missing:
+            raise AssertionError(f"kernel record {rec['name']} lacks "
+                                 f"{missing}")
     return kind, records
 
 
@@ -442,6 +535,17 @@ def ptxas(log_text, entry=''):
         elif keep and ('registers' in ln or 'spill' in ln):
             lines.append(ln.strip())
     return ' '.join(lines)
+
+
+def set_bound(rec, nbytes, flops):
+    """Put into ``rec`` its bound -- the least time the card could take to
+    move the ``nbytes`` its result needs (each input point it reads once,
+    each output point written once) and do ``flops`` -- which of the two
+    binds, and the share of its time."""
+    from devito_tpu_torch.experiments import bound_ms
+    rec['bound_ms'], rec['bound_by'] = bound_ms(nbytes, flops)
+    rec.update(bound_bytes=nbytes, bound_flops=flops,
+               share_of_bound=rec['bound_ms'] / rec['ms'])
 
 
 def check_close(what, got, want):
@@ -539,6 +643,9 @@ def probes(device, sizes, gen, records):
                            device),
                 plain_ms=time_ms(lambda: P9.ring_step_reference(
                     u0, *slab, 1e-4), preps, device))
+    # u0 at the star's points (z compact), u1, vp, dp's interior read
+    set_bound(ring, 4 * (star_points(N, faces=4) + 4 * N ** 3),
+              P9.FLOPS * N ** 3)
     del u0, slab
     NY = N + 2 * H
     ut, utm1, tgt = (torch.randn((NY,) * 3, generator=gen, device=device)
@@ -556,6 +663,10 @@ def probes(device, sizes, gen, records):
                                                  2 * t0), reps, device),
         plain_ms=time_ms(lambda: P6.inplace_step_reference(
             ut, utm1, vp, damp, tgt), preps, device))
+    # ut at the star's points, utm1, vp, damp's interior read; rows
+    # [H, H+N) of tgt written whole ('fullz')
+    set_bound(inplace, 4 * (star_points(N) + 3 * N ** 3 + N * NY * NY),
+              P6.FLOPS['full'] * N ** 3)
     del ut, utm1, tgt, vp, damp, ref
     src = torch.randn((NY,) * 3, generator=gen, device=device)
     by_window = {}
@@ -567,14 +678,20 @@ def probes(device, sizes, gen, records):
         by_window[label] = time_ms(lambda: P6.window_copy(src, window),
                                    reps, device)
     _, mis = P6.p2_windows(N)[1]
+    msl = tuple(slice(a, a + k) for a, k in mis)
+    dst = torch.empty_like(src)
     wcopy.update(max_abs_err=0.0, window=str(mis),
                  ms=by_window[P6.p2_windows(N)[1][0]],
                  plain_ms=time_ms(lambda: P6.window_copy_reference(src, mis),
                                   reps, device),
+                 library_ms=time_ms(lambda: dst[msl].copy_(src[msl]), reps,
+                                    device),
+                 library_call='dst[window].copy_(src[window])',
                  ms_by_window=by_window)
-    del src, got
+    set_bound(wcopy, 2 * 4 * int(np.prod([k for _, k in mis])), 0)
+    del src, got, dst
 
-    nbytes = 5 * N ** 3 * 4 / 1e9      # 4 arrays read, 1 written, fp32
+    nbytes = 5 * N ** 3 * 4 / 1e9      # 4 interiors read, 1 written, fp32
     log(f"[probe] P1 copy at {N + 2 * H}^3 (read + write): {p1['ms']:.3f} "
         f"ms, {ceiling:.1f} GB/s = the card's measured copy ceiling")
     for lab, rec in (('K1 stencil_update', k1), ('K15 ring_step TX=%d' % tx,
@@ -597,8 +714,9 @@ def tiled_cases(N, device, gen, tiles):
     (label, one kernel step, its plain version, 3 steps of the loop through
     the kernel and through the plain version -- each returning the whole
     field -- the loop's step through the kernel and through the plain
-    version, for timing, and the bytes of the padded arrays one step reads
-    and writes, with how they are counted)."""
+    version, for timing, the bytes one step's result needs, the points it
+    updates, and the bytes of the padded arrays one step reads and writes,
+    with how they are counted)."""
     from devito_tpu_torch.experiments import (
         stencil_probe as T3, stencil_probe2 as T4, stencil_probe3 as T5,
         stencil_probe4 as T6, stencil_probe5 as T7)
@@ -613,6 +731,7 @@ def tiled_cases(N, device, gen, tiles):
         return 0.1 + 0.1 * torch.rand(shape, generator=gen, device=device)
 
     c = slice(H, H + N)
+    star = star_points(N)     # of uc: the interior and its 4-deep slabs
 
     def k3():
         tx, ty = tiles['halo_tiles_step']
@@ -629,10 +748,18 @@ def tiled_cases(N, device, gen, tiles):
                                            out=up[c, c, c]),
                 lambda: T3.halo_tiles_step_reference(up, uc, m, damp,
                                                      out=up[c, c, c]),
+                4 * (star + 4 * N ** 3), N ** 3,
                 4 * (2 * NP ** 3 + 3 * N ** 3),
                 f'up, uc {NP}^3 and m, damp {N}^3 read, {N}^3 written')
 
-    def nb(label, name, step, ref, run):
+    def nb(label, name, step, ref, run, zeroed):
+        # K4 computes every x row, K5 zeroes the x halo's; both write the
+        # whole array
+        if zeroed:
+            need, points = star + 2 * N ** 3, N ** 3
+        else:
+            need, points = NP * (N * N + 16 * N) + 2 * NP * N * N, NP * N * N
+
         def case():
             t, = tiles[name]
             up, uc, mf = normal(NP, NP, ZP), normal(NP, NP, ZP), \
@@ -646,7 +773,7 @@ def tiled_cases(N, device, gen, tiles):
                                 plain=True)[1],
                     lambda: step(up, uc, mf, t, out=spare),
                     lambda: ref(up, uc, mf, t, out=spare),
-                    4 * 4 * NP * NP * ZP,
+                    4 * (need + NP * NP * ZP), points, 4 * 4 * NP * NP * ZP,
                     f'uc, up, mfull ({NP}, {NP}, {ZP}) read, out written')
         return case
 
@@ -662,6 +789,7 @@ def tiled_cases(N, device, gen, tiles):
                                  plain=True)[1],
                 lambda: T6.tiles_step(uc, up_i, m_i, tx, ty, out=up_i),
                 lambda: T6.tiles_step_reference(uc, up_i, m_i, out=up_i),
+                4 * (star + 2 * N ** 3 + N * N * ZP), N ** 3,
                 4 * (NP * NP * ZP + 3 * N * N * ZP),
                 f'uc ({NP}, {NP}, {ZP}) and up_i, m_i ({N}, {N}, {ZP}) read, '
                 f'({N}, {N}, {ZP}) written')
@@ -680,17 +808,18 @@ def tiled_cases(N, device, gen, tiles):
                                  plain=True)[1],
                 lambda: T7.xtiles_step(uc, up, mp, tx, out=spare),
                 lambda: T7.xtiles_step_reference(uc, up, mp, out=spare),
+                4 * (star + 2 * N ** 3 + XP * NP * ZP), N ** 3,
                 4 * 4 * XP * NP * ZP,
                 f'uc, up, m_pad ({XP}, {NP}, {ZP}) read, out written')
 
     return {'halo_tiles_step': k3,
             'neighbour_blocks_step': nb(
                 'K4', 'neighbour_blocks_step', T4.neighbour_blocks_step,
-                T4.neighbour_blocks_step_reference, T4.run_C),
+                T4.neighbour_blocks_step_reference, T4.run_C, False),
             'neighbour_blocks_zeroed_step': nb(
                 'K5', 'neighbour_blocks_zeroed_step',
                 T5.neighbour_blocks_zeroed_step,
-                T5.neighbour_blocks_zeroed_step_reference, T5.run_E),
+                T5.neighbour_blocks_zeroed_step_reference, T5.run_E, True),
             'tiles_step': k6, 'xtiles_step': k7}
 
 
@@ -731,8 +860,8 @@ def tiled_probes(device, sizes, gen, records, ceiling):
     reps, preps = sizes['reps'], sizes['plain_reps']
     lines = []
     for name, make in cases.items():
-        (label, step, plain, loop, plain_loop, timed, plain_timed, nbytes,
-         counted) = make()
+        (label, step, plain, loop, plain_loop, timed, plain_timed, need,
+         points, nbytes, counted) = make()
         rec = by_name[name]
         errs = [check_close(f"{label} at {N}^3, 1 step", step(), plain()),
                 check_close(f"{label} at {N}^3, 3 steps", loop(),
@@ -740,19 +869,223 @@ def tiled_probes(device, sizes, gen, records, ceiling):
         rec.update(max_abs_err=max(errs + [rec['max_abs_err']]),
                    ms=time_ms(timed, reps, device),
                    plain_ms=time_ms(plain_timed, preps, device),
-                   bytes=nbytes)
+                   layout_bytes=nbytes)
+        set_bound(rec, need, mods[name].FLOPS * points)
         gbs = nbytes / 1e9 / rec['ms'] * 1e3
         lines.append(
             f"[tiled] {label} at {N}^3: {rec['ms']:.3f} ms "
             f"({N ** 3 / rec['ms'] / 1e6:.2f} GPts/s, {gbs:.0f} GB/s of "
             f"{nbytes / 1e9:.3f} GB = {counted}; {100 * gbs / ceiling:.1f} % "
-            f"of P1's); plain {rec['plain_ms']:.3f} ms; max|kernel - plain| "
-            f"{max(errs):.3e} over 1 and 3 steps")
+            f"of P1's); bound {rec['bound_ms']:.3f} ms of the "
+            f"{need / 1e9:.3f} GB the result needs = "
+            f"{100 * rec['share_of_bound']:.1f} %; plain "
+            f"{rec['plain_ms']:.3f} ms; max|kernel - plain| {max(errs):.3e} "
+            f"over 1 and 3 steps")
         del step, plain, loop, plain_loop, timed, plain_timed
         if device.type == 'cuda':
             torch.cuda.empty_cache()
     for line in lines:
         log(line)
+
+
+def probe7(device, sizes, gen, records, ceiling):
+    """Phase 8: stencil_probe7's probes, each driven with its kernel's
+    launch count at 0 just before and read just after; then each kernel
+    against its plain version on seeded inputs at every N of p7_sizes, and
+    timed there beside its bound, its plain version, its library call and
+    P1's ``ceiling`` GB/s. The records hold the times at the last N."""
+    from devito_tpu_torch.experiments import stencil_probe7 as P7
+    from devito_tpu_torch.experiments import HBM_BYTES_S
+    by_name = {r['name']: r for r in records}
+    k10, k11, k12, k13, k14 = (by_name[k] for k in (
+        'copy_windows', 'resident_step', 'empty_grid',
+        'stream_windows_depth2', 'stream_windows_depth3'))
+    dev, n, H = device.type, sizes['p7_n'], P7.H
+    on_card = int(dev == 'cuda')     # the CPU runs the plain versions
+    timed = on_card * (2 + P7.REPS)  # compared, warm-up, timed
+    reps, preps = sizes['reps'], sizes['plain_reps']
+
+    def counted(label, got, want):
+        if got != want:
+            raise AssertionError(f"probe {label} launched its kernel {got} "
+                                 f"times, not {want}")
+        return got
+
+    # -- the probes at the JAX script's defaults ------------------------------
+    k10['launches'] = k11['launches'] = 0
+    for wb in (True, False):
+        for ns in (1, 2):
+            P7.copy_launches = 0
+            P7.probe_A(16, 4, wb, ns, n=n, device=dev)
+            k10['launches'] += counted(f"A wb={wb} nsplit={ns}",
+                                       P7.copy_launches, timed)
+    b_ms = {}
+    for taps in P7.TAPS:
+        P7.resident_launches = 0
+        b_ms[taps] = P7.probe_B(16, 16, taps, n, dev)['ms']
+        k11['launches'] += counted(f"B taps={taps}", P7.resident_launches,
+                                   timed)
+    P7.empty_launches = 0
+    c = P7.probe_C(16, dev)
+    k12.update(launches=counted("C", P7.empty_launches,
+                                on_card * (1 + 2 * 4 * P7.LOOP)),
+               us_per_call_added=c['us'], us_per_call_bare=c['us_bare'])
+    streams = {2: 0, 3: 0, 4: 0}
+    for depth in (None, 2, 3, 4):        # D, then E at each depth
+        P7.stream_launches.clear()
+        if depth is None:
+            P7.probe_D(16, 4, n=n, device=dev)
+        else:
+            P7.probe_E(16, 4, depth, n=n, device=dev)
+        d = depth or 2
+        streams[d] += counted(f"{'E' if depth else 'D'} depth={d}",
+                              P7.stream_launches.get(d, 0), timed)
+        counted("D/E at other depths", sum(P7.stream_launches.values()),
+                timed)
+    k13['launches'], k14['launches'] = streams[2], streams[3]
+    log(f"[probe7] entry points at N={n}: launches K10 {k10['launches']}, "
+        f"K11 {k11['launches']}, K12 {k12['launches']}, K13 "
+        f"{k13['launches']}, K14 {k14['launches']}, depth 4 "
+        f"{streams[4]}; B ms by taps " + ', '.join(f"{k} {v:.4f}"
+                                               for k, v in b_ms.items()))
+
+    # -- each kernel against its plain version, and timed ---------------------
+    # K11: probe_B's fills, a second constant set, and u varying with
+    # position (the only one in which the Laplacian does not cancel)
+    k11_sets = [(P7.FILLS, 0.0), ((0.02, 0.01, 2.0, 0.3), 0.0), P7.VARIED]
+    for N in sizes['p7_sizes']:
+        NY = N + 2 * H
+        src = torch.randn((NY,) * 3, generator=gen, device=device)
+        S = N * NY * NY * 4                # bytes of src[H:H+N]
+        for wb, ns in ((True, 1), (True, 2), (False, 1)):
+            got = P7.copy_windows(src, 16, 4, wb, ns)
+            if got.shape != src.shape or wb and not torch.equal(
+                    got[H:H + N], P7.copy_windows_reference(src)[H:H + N]):
+                raise AssertionError(f"K10 at N={N} wb={wb} nsplit={ns}")
+        errs = []
+        for taps in P7.TAPS:
+            for fills, vary in k11_sets:
+                errs.append(check_close(
+                    f"K11 at N={N} taps={taps} fills={fills} vary={vary}",
+                    P7.resident_step(16, N // 16, taps, fills, N, device,
+                                     vary),
+                    P7.resident_step_reference(16, N // 16, taps, fills, N,
+                                               device, vary)))
+        for r in (1, 16, 300):
+            if not torch.equal(P7.empty_grid(r, device),
+                               P7.empty_grid_reference(r, device)):
+                raise AssertionError(f"K12 with {r} CTAs")
+        for depth in (2, 3, 4):
+            if not torch.equal(P7.stream_windows(src, 16, 4, depth),
+                               P7.stream_windows_reference(src, 16, 4,
+                                                           depth)):
+                raise AssertionError(f"K13/K14 at N={N} depth={depth}")
+
+        out = torch.empty_like(src)
+        lib_out = torch.empty((8, 128), device=device)
+        last = N == sizes['p7_sizes'][-1]
+        need, adds = P7.stream_needs(N, 16)
+        res = {
+            'copy_windows': (
+                lambda: P7.copy_windows(src, 16, 4),
+                lambda: P7.copy_windows_reference(src),
+                lambda: torch.add(src[H:H + N], 1.0, out=out[H:H + N]),
+                'torch.add(src[H:H+N], 1.0, out=out[H:H+N])', 2 * S,
+                S // 4, 0.0),
+            'resident_step': (
+                lambda: P7.resident_step(16, N // 16, 'full', P7.FILLS, N,
+                                         device),
+                lambda: P7.resident_step_reference(16, N // 16, 'full',
+                                                   P7.FILLS, N, device),
+                None, None, 4 * 8 * 128, P7.FLOPS['full'] * N ** 3,
+                max(errs)),
+            'empty_grid': (
+                lambda: P7.empty_grid(16, device),
+                lambda: P7.empty_grid_reference(16, device),
+                lambda: lib_out.fill_(15.0), 'out.fill_(reps - 1)',
+                4 * 8 * 128, 0, 0.0),
+            **{name: (
+                lambda d=d: P7.stream_windows(src, 16, 4, d),
+                lambda d=d: P7.stream_windows_reference(src, 16, 4, d),
+                lambda: src[H:H + N:16, :8, :128].sum(0),
+                'src[H:H+N:t0, :8, :128].sum(0)', need, adds, 0.0)
+               for name, d in (('stream_windows_depth2', 2),
+                               ('stream_windows_depth3', 3))}}
+        for name, (kern, plain, lib, call, nbytes, flops, err) in \
+                res.items():
+            rec = by_name[name]
+            ms = time_ms(kern, reps, device)
+            row = {'ms': ms, 'plain_ms': time_ms(plain, preps, device),
+                   'library_ms': time_ms(lib, reps, device) if lib else None}
+            if not last:
+                rec.update({f'{k}_n{N}': v for k, v in row.items()})
+                continue
+            rec.update(row, n=N, max_abs_err=err, library_call=call)
+            set_bound(rec, nbytes, flops)
+            if name.startswith('stream_windows'):
+                # the traffic the probe exists to measure: src[H:H+N]
+                # streamed once, against the call that reads it once
+                sb = S + 4 * 8 * 128
+                rec.update(stream_bytes=sb,
+                           stream_bound_ms=sb / HBM_BYTES_S * 1e3,
+                           stream_library_ms=time_ms(
+                               lambda: src[H:H + N].sum(), reps, device),
+                           stream_library_call='src[H:H+N].sum()')
+                rec['stream_share'] = rec['stream_bound_ms'] / ms
+        if last:
+            k11.update(ms_2x_reps=time_ms(lambda: P7.resident_step(
+                16, 2 * N // 16, 'full', P7.FILLS, N, device), reps, device),
+                ms_by_taps={t: time_ms(lambda t=t: P7.resident_step(
+                    16, N // 16, t, P7.FILLS, N, device), reps, device)
+                    for t in P7.TAPS})
+        del src, out, got
+        if device.type == 'cuda':
+            torch.cuda.empty_cache()
+        log(f"[probe7] N={N}: K10 interior rows, K12 and K13/K14 at depths "
+            f"2-4 equal their plain versions to the bit; K11 max|kernel - "
+            f"plain| {max(errs):.3e} over 3 ablations x 3 fill sets (one "
+            f"varying with position)")
+
+    # the bare entry point of K12, without the wrapper's Python
+    if on_card:
+        fn = P7.empty_launcher()
+        o = torch.empty((8, 128), device=device)
+        st = torch.cuda.current_stream(device).cuda_stream
+
+        def raw():
+            for _ in range(P7.LOOP):
+                fn(o.data_ptr(), 16, st)
+
+        k12['us_per_call_ctypes'] = time_ms(raw, 3, device) / P7.LOOP * 1e3
+    N = sizes['p7_sizes'][-1]
+    for lab, rec in (('K10 copy_windows wb, nwin 4', k10),
+                     ('K11 resident_step full', k11),
+                     ('K12 empty_grid 16 CTAs', k12),
+                     ('K13 stream_windows depth 2', k13),
+                     ('K14 stream_windows depth 3', k14)):
+        moved = rec.get('stream_bytes', rec['bound_bytes'])
+        gbs = moved / rec['ms'] / 1e6
+        rate = (f"{gbs:.0f} GB/s unique = {100 * gbs / ceiling:.1f} % of "
+                f"P1's" if moved > 1e6 else
+                f"{rec['bound_flops'] / rec['ms'] / 1e9:.2f} TFLOP/s")
+        if 'stream_bytes' in rec:
+            rate += (f"; streamed-bytes bound {rec['stream_bound_ms']:.4f} "
+                     f"ms = {100 * rec['stream_share']:.1f} %, "
+                     f"{rec['stream_library_call']} "
+                     f"{rec['stream_library_ms']:.4f} ms")
+        log(f"[probe7] {lab} at N={N}: {rec['ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}) = "
+            f"{100 * rec['share_of_bound']:.3f} %; {rate}; plain "
+            f"{rec['plain_ms']:.4f} ms; library "
+            + (f"{rec['library_ms']:.4f} ms ({rec['library_call']})"
+               if rec['library_ms'] is not None else 'none'))
+    log(f"[probe7] K11 at N={N}: full {k11['ms']:.4f} ms, twice the reps "
+        f"{k11['ms_2x_reps']:.4f} ms; by taps " + ', '.join(
+            f"{k} {v:.4f}" for k, v in k11['ms_by_taps'].items())
+        + f"; K12 per call: {k12['us_per_call_bare']:.1f} us through the "
+        f"wrapper, {k12.get('us_per_call_ctypes', float('nan')):.1f} us "
+        f"through ctypes alone, {k12['us_per_call_added']:.1f} us with the "
+        f"add")
 
 
 def main():

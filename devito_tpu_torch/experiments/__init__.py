@@ -15,7 +15,11 @@ kernel and that kernel's plain PyTorch version:
 - ``stencil_probe4``: K6, (x, y) tiles with a double-buffered window
   (``python -m devito_tpu_torch.experiments.stencil_probe4 [N] [STEPS] [TX] [TY]``);
 - ``stencil_probe5``: K7, x-tiles writing the whole padded array
-  (``python -m devito_tpu_torch.experiments.stencil_probe5 [N] [STEPS] [TX]``).
+  (``python -m devito_tpu_torch.experiments.stencil_probe5 [N] [STEPS] [TX]``);
+- ``stencil_probe7``: the parts of an x-tiled step's cost -- K10 streamed
+  window copies, K11 arithmetic on resident windows, K12 an empty launch,
+  K13 and K14 copy pipelines of depth 2 and d in one launch
+  (``python -m devito_tpu_torch.experiments.stencil_probe7 A|B|C|D|E ...``).
 
 All take ``--device cuda`` (the default) or ``--device cpu``; on the CPU
 the plain versions run. Asking for ``cuda`` without CUDA raises.
@@ -27,7 +31,21 @@ import torch
 
 from ..parameters import switchconfig, torch_device
 
-__all__ = ['device_for', 'time_ms']
+__all__ = ['device_for', 'time_ms', 'bound_ms', 'HBM_BYTES_S', 'FP32_FLOP_S']
+
+#: Data-sheet peaks of one H100 SXM at its 700 W limit (NVIDIA): device
+#: memory bytes per second, and fp32 operations per second outside the
+#: tensor cores.
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+
+
+def bound_ms(nbytes, flops):
+    """The least milliseconds the card could take to move ``nbytes`` to or
+    from device memory and do ``flops`` fp32 operations, at the data-sheet
+    peaks, and which of the two binds: ('bytes' or 'operations')."""
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    return (tb, 'bytes') if tb >= tf else (tf, 'operations')
 
 
 def device_for(name):

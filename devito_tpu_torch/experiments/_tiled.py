@@ -14,13 +14,17 @@ from . import time_ms
 
 __all__ = ['H', 'W', 'TOL', 'SMEM', 'YZ_PLANE', 'lap', 'lap_interior',
            'run_interior', 'check', 'apart', 'aligned', 'stream', 'z_chunk',
-           'close', 'timed_run']
+           'close', 'timed_run', 'FLOPS']
 
 H = 4  # SO=8 stencil radius, and the halo of every layout
 #: SO=8 second-derivative weights, centre at index 4, as the JAX scripts'.
 W = [np.float32(w) for w in [-1/560, 8/315, -1/5, 8/5, -205/72, 8/5, -1/5,
                              8/315, -1/560]]
 TOL = 1e-5      # times max |plain|: fp32 sums in another order
+#: fp32 operations per point of 2 uc - up + m lap(uc): 27 taps as a multiply
+#: and an add, less the first add, and 4 for the rest (K3's ``- damp uc``
+#: adds 2).
+FLOPS = 57
 SMEM = 232448   # bytes of shared memory a block may use on Hopper
 #: Floats of one halo'd (SY, SZ) = (8, 32) plane of the shared windows of
 #: the x-tiled kernels (probe2_neighbour_blocks.cu, probe5_xtiles.cu).

@@ -29,13 +29,17 @@ import torch
 from . import device_for
 from ._tiled import H, aligned, apart, check, close, lap_interior, \
     run_interior, stream, timed_run, z_chunk
+from ._tiled import FLOPS as _TILED_FLOPS
 from ..kernels import _nvcc
 
 __all__ = ['halo_tiles_step', 'halo_tiles_step_reference', 'run_xla',
-           'run_pallas', 'inputs', 'main']
+           'run_pallas', 'inputs', 'main', 'FLOPS']
 
 #: K3 kernel launches.
 launches = 0
+#: fp32 operations per point: those of 2 uc - up + m lap(uc), and the 2 of
+#: ``- damp uc``.
+FLOPS = _TILED_FLOPS + 2
 
 
 def _check(up, uc, m, damp, out):

@@ -34,12 +34,12 @@ import numpy as np
 import torch
 
 from . import device_for
-from ._tiled import H, W, SMEM, YZ_PLANE, aligned, apart, check, close, \
-    lap, run_interior, stream, timed_run
+from ._tiled import FLOPS, H, W, SMEM, YZ_PLANE, aligned, apart, check, \
+    close, lap, run_interior, stream, timed_run
 from ..kernels import _nvcc
 
 __all__ = ['neighbour_blocks_step', 'neighbour_blocks_step_reference',
-           'lap_full', 'run_A', 'run_B', 'run_C', 'inputs', 'main']
+           'lap_full', 'run_A', 'run_B', 'run_C', 'inputs', 'main', 'FLOPS']
 
 #: K4 kernel launches.
 launches = 0

@@ -28,12 +28,12 @@ import torch
 import torch.nn.functional as F
 
 from . import device_for
-from ._tiled import H, W, close, run_interior, timed_run
+from ._tiled import FLOPS, H, W, close, run_interior, timed_run
 from .stencil_probe2 import nb_check, nb_launch, nb_reference
 
 __all__ = ['neighbour_blocks_zeroed_step',
            'neighbour_blocks_zeroed_step_reference', 'run_A', 'run_D',
-           'run_E', 'inputs', 'main']
+           'run_E', 'inputs', 'main', 'FLOPS']
 
 #: K5 kernel launches.
 launches = 0

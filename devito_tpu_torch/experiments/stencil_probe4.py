@@ -30,12 +30,12 @@ import numpy as np
 import torch
 
 from . import device_for
-from ._tiled import H, aligned, apart, check, close, lap_interior, \
-    run_interior, stream, timed_run, z_chunk
+from ._tiled import FLOPS, H, aligned, apart, check, close, \
+    lap_interior, run_interior, stream, timed_run, z_chunk
 from ..kernels import _nvcc
 
 __all__ = ['tiles_step', 'tiles_step_reference', 'run_A', 'run_E', 'inputs',
-           'main']
+           'main', 'FLOPS']
 
 #: K6 kernel launches.
 launches = 0

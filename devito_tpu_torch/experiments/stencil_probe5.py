@@ -31,12 +31,12 @@ import numpy as np
 import torch
 
 from . import device_for
-from ._tiled import H, SMEM, YZ_PLANE, aligned, apart, check, close, \
-    lap_interior, run_interior, stream, timed_run
+from ._tiled import FLOPS, H, SMEM, YZ_PLANE, aligned, apart, check, \
+    close, lap_interior, run_interior, stream, timed_run
 from ..kernels import _nvcc
 
 __all__ = ['xtiles_step', 'xtiles_step_reference', 'run_A', 'run_E',
-           'inputs', 'main']
+           'inputs', 'main', 'FLOPS']
 
 X0 = 2 * H   # first interior x row
 

@@ -24,6 +24,7 @@ the same data movement and raises on a wrong answer.
 """
 
 import ctypes
+import re
 from collections import OrderedDict
 
 import numpy as np
@@ -40,8 +41,8 @@ from ..types.basic import AbstractFunction, retrieve_functions
 from ..types.dense import torch_dtype
 from ..types.dimension import Dimension
 
-__all__ = ['StencilPlan', 'plan_for', 'build', 'stencil_update',
-           'stencil_update_reference', 'validate_backend',
+__all__ = ['StencilPlan', 'plan_for', 'build', 'point_flops',
+           'stencil_update', 'stencil_update_reference', 'validate_backend',
            'selftest_window_sum', 'selftest_window_sum_reference']
 
 #: Kernel launches since import (or since the caller last reset it).
@@ -254,6 +255,15 @@ def build(plan):
     fn.argtypes = [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
+
+
+def point_flops(plan):
+    """Operations per point of ``plan``'s kernel: the binary +, -, * and /
+    of its generated point expression, outside the loads' index
+    arithmetic."""
+    body = plan.source.split('return', 1)[1].split(';', 1)[0]
+    body = re.sub(r'DTPU_LD\([^()]*\)', 'v', body)
+    return sum(body.count(f' {op} ') for op in '+-*/')
 
 
 def _check_rows(plan, rows):

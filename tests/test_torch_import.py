@@ -35,6 +35,7 @@ def test_import_pulls_in_no_jax():
             "import devito_tpu_torch.experiments.stencil_probe3\n"
             "import devito_tpu_torch.experiments.stencil_probe4\n"
             "import devito_tpu_torch.experiments.stencil_probe5\n"
+            "import devito_tpu_torch.experiments.stencil_probe7\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'devito_tpu'))\n"
             "print(bad)\n"

@@ -1,0 +1,474 @@
+"""K10-K14 (devito_tpu_torch/experiments/stencil_probe7.py) against the
+TPU kernels they port, the probes of experiments/stencil_probe7.py, which
+run here in Pallas interpret mode: the tests cut the JAX script's sizes to
+N, NY, ZA = 16, 32, 160, skip its timing loops, build every ``pallas_call``
+with ``interpret=True`` in JAX's 32-bit mode (which the probes were written
+for) and call the callables on seeded numpy inputs.
+
+On the CPU the port's wrappers run their kernels' plain PyTorch versions;
+the CUDA kernels are held against those versions by the ``cuda``-marked
+tests, on the card. K10's interior rows, K12 and K13/K14 are compared to
+the bit; K11 within 1e-5 * max|reference| (fp32 sums in another order)."""
+
+import importlib
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from devito_tpu_torch.exceptions import DevitoTpuError
+from devito_tpu_torch.experiments import stencil_probe7 as P7
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+TOL = 1e-5
+N, H, NY, ZA, T0 = 16, 8, 32, 160, 4
+#: probe_B's fills, and a second set whose fields all differ
+FILL_SETS = [P7.FILLS, (0.02, 0.01, 2.0, 0.3)]
+#: Faults of a stencil kernel that constant fields cannot show
+FAULTS = ('tap offset', 'x taps read y', 'weights 3 and 4 swapped',
+          'no Laplacian')
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """Every ``pallas_call`` made while the test runs is built with
+    ``interpret=True``; the list collects the callables, in order. The
+    test runs in JAX's default 32-bit mode (importing devito_tpu turns on
+    64-bit mode, in which ``lax.rem(program_id, 2)`` does not trace)."""
+    import jax
+    from jax.experimental import pallas as pl
+    orig, calls = pl.pallas_call, []
+
+    def wrap(*args, **kwargs):
+        kwargs['interpret'] = True
+        call = orig(*args, **kwargs)
+        calls.append(call)
+        return call
+
+    monkeypatch.setattr(pl, 'pallas_call', wrap)
+    with jax.enable_x64(False):
+        yield calls
+
+
+@pytest.fixture
+def p7(monkeypatch):
+    """experiments/stencil_probe7.py at N, NY, ZA = 16, 32, 160, its timing
+    loops skipped: the tests take the ``pallas_call`` callables."""
+    mod = importlib.import_module('experiments.stencil_probe7')
+    for k, v in dict(N=N, NY=NY, ZA=ZA).items():
+        monkeypatch.setattr(mod, k, v)
+    monkeypatch.setattr(mod, 'timeit', lambda fn, *a, **k: 1.0)
+    return mod
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card)")
+    return torch.device('cuda', 0)
+
+
+def _src(seed):
+    return P7.inputs(N, ZA, seed, 'cpu').numpy()
+
+
+def _close(got, ref):
+    return np.abs(got - ref).max() <= TOL * np.abs(ref).max()
+
+
+# -- K10 -----------------------------------------------------------------------
+
+@pytest.mark.parametrize('nwin,wb,nsplit', [(1, True, 1), (2, True, 2),
+                                            (4, True, 1), (2, False, 1)])
+def test_copy_windows_matches_pallas_kernel(nwin, wb, nsplit, p7, interpret,
+                                            capsys):
+    p7.probe_A(t0=T0, nwin=nwin, writeback=wb, nsplit=nsplit)
+    assert f'A t0={T0} nwin={nwin}' in capsys.readouterr().out
+    call = interpret[-1]
+    src = _src(nwin)
+    ref, got = jnp.asarray(src), torch.from_numpy(src)
+    want = src[H:H + N]
+    for i in range(3):           # each call fed the last one's output
+        ref = call(ref)
+        got = P7.copy_windows(got, T0, nwin, wb, nsplit)
+        assert got.shape == ref.shape == (NY, NY, ZA)
+        want = want + np.float32(1.0)
+        if wb and i in (0, 2):
+            assert np.array_equal(got.numpy()[H:H + N],
+                                  np.asarray(ref)[H:H + N])
+            assert np.array_equal(got.numpy()[H:H + N], want)
+
+
+def test_copy_windows_leaves_halo_rows_unset(p7, interpret):
+    """The JAX kernel writes only rows [H, H+N): interpret mode leaves the
+    rest NaN, and the port does not write them either."""
+    p7.probe_A(t0=T0, nwin=1)
+    ref = np.asarray(interpret[-1](jnp.asarray(_src(0))))
+    assert np.isnan(ref[:H]).all() and np.isnan(ref[H + N:]).all()
+    assert np.isfinite(ref[H:H + N]).all()
+
+
+def test_copy_windows_checks_arguments():
+    src = P7.inputs(N, ZA, 0, 'cpu')
+    with pytest.raises(ValueError, match='does not divide'):
+        P7.copy_windows(src, 5)
+    with pytest.raises(ValueError, match='nsplit=3 does not divide'):
+        P7.copy_windows(src, 4, 2, True, 3)
+    with pytest.raises(ValueError, match='at least one window'):
+        P7.copy_windows(src, 4, 0)
+    with pytest.raises(ValueError, match='expected'):
+        P7.copy_windows(src[:, :, :24].contiguous(), 4)
+    with pytest.raises(TypeError, match='fp32'):
+        P7.copy_windows(src.double(), 4)
+    with pytest.raises(ValueError, match='no window-copy kernel'):
+        P7.copy_windows(src.to('meta'), 4)
+
+
+# -- K11 -----------------------------------------------------------------------
+
+def _probe_b_numpy(fills, taps):
+    """probe_B's update (stencil_probe7.py:136-156) of constant fields, in
+    numpy fp32 scalars."""
+    f32 = np.float32
+    u, u1, vp, dp = map(f32, fills)
+    lap = f32(3.0 * P7.W[0]) * u
+    if taps != 'none':
+        for k in range(1, 5):
+            terms = u + u
+            if taps == 'full':
+                terms = terms + u + u + u + u
+            lap = lap + f32(P7.W[k]) * terms
+    lap = lap * f32(0.01)
+    a = (f32(1.0) / (vp * vp)) * f32(100.0)
+    b = dp * f32(5.0)
+    return (f32(2.0) * a * u - (a - b) * u1 + lap) / (a + b)
+
+
+@pytest.mark.parametrize('fills', FILL_SETS)
+def test_resident_reference_matches_ref_step(fills, monkeypatch):
+    """'full' on constant (N+16)^3 fields against the JAX probe 6's
+    ``ref_step``, which uses the same DT = 0.1 and h = 10."""
+    p6 = importlib.import_module('experiments.stencil_probe6')
+    for k, v in dict(N=N, NY=NY, ZA=NY).items():
+        monkeypatch.setattr(p6, k, v)
+    fields = [np.full((NY, NY, NY), f, np.float32) for f in fills]
+    ref = np.asarray(p6.ref_step(*map(jnp.asarray, fields)))
+    want = np.zeros((8, 128), np.float32)
+    want[:, :N] = ref[0, :8, :N]
+    got = P7.resident_step(T0, 2, 'full', fills, N, 'cpu').numpy()
+    assert _close(got, want)
+    assert not got[:, N:].any()
+
+
+@pytest.mark.parametrize('fills', FILL_SETS)
+@pytest.mark.parametrize('taps', P7.TAPS)
+def test_resident_ablations_match_numpy(taps, fills):
+    got = P7.resident_step(T0, 3, taps, fills, N, 'cpu').numpy()
+    want = np.zeros((8, 128), np.float32)
+    want[:, :N] = _probe_b_numpy(fills, taps)
+    assert _close(got, want)
+
+
+def test_resident_ablations_differ():
+    """On constant fields a tap-offset fault shows only through the
+    ablations, so their values must tell them apart."""
+    vals = [P7.resident_step(T0, 1, t, P7.FILLS, N, 'cpu')[0, 0].item()
+            for t in P7.TAPS]
+    assert all(abs(a - b) > TOL * abs(b) for a, b in
+               zip(vals, vals[1:] + vals[:1]))
+
+
+def _probe_b_varied(fills, vary, t0, n, taps, fault=None):
+    """probe_B's update of the first x-row at y < min(8, n), z < min(128,
+    n), in numpy fp32, u varying with position as ``P7.u_window`` says;
+    ``fault`` breaks it as a faulty kernel would."""
+    f32 = np.float32
+    fu, u1, vp, dp = map(f32, fills)
+    x, y, z = np.ogrid[:t0 + 8, :n + 8, :n + 8]
+    ut = fu * (f32(1.0) + f32(vary) * ((7 * x + 13 * y + 29 * z) % 17)
+               .astype(f32))
+    ny, nz = min(8, n), min(128, n)
+
+    def at(dx, dy, dz):
+        return ut[4 + dx, 4 + dy:4 + dy + ny, 4 + dz:4 + dz + nz]
+
+    w = [f32(v) for v in P7.W]
+    if fault == 'weights 3 and 4 swapped':
+        w[3], w[4] = w[4], w[3]
+    u = at(0, 0, 0)
+    lap = f32(3.0 * P7.W[0]) * u
+    if taps != 'none':
+        for k in range(1, 5):
+            terms = at(0, 0, k) + at(0, 0, -k)
+            if taps == 'full':
+                xk = k + 1 if fault == 'tap offset' and k == 1 else k
+                xs = (at(0, k, 0), at(0, -k, 0)) \
+                    if fault == 'x taps read y' else \
+                    (at(xk, 0, 0), at(-k, 0, 0))
+                terms = (terms + xs[0] + xs[1] + at(0, k, 0)
+                         + at(0, -k, 0))
+            lap = lap + w[k] * terms
+    lap = lap * f32(0.01)
+    if fault == 'no Laplacian':
+        lap = np.zeros_like(u)
+    a = (f32(1.0) / (vp * vp)) * f32(100.0)
+    b = dp * f32(5.0)
+    out = np.zeros((8, 128), np.float32)
+    out[:ny, :nz] = (f32(2.0) * a * u - (a - b) * u1 + lap) / (a + b)
+    return out
+
+
+@pytest.mark.parametrize('taps', P7.TAPS)
+def test_resident_varied_field_matches_numpy(taps):
+    """With u varying with position the Laplacian does not cancel."""
+    fills, vary = P7.VARIED
+    got = P7.resident_step(T0, 2, taps, fills, N, 'cpu', vary).numpy()
+    assert _close(got, _probe_b_varied(fills, vary, T0, N, taps))
+    assert np.array_equal(
+        P7.u_window((T0 + 8, N + 8, N + 8), 0.5, vary).numpy(),
+        0.5 * (1 + vary * np.fromfunction(
+            lambda x, y, z: (7 * x + 13 * y + 29 * z) % 17,
+            (T0 + 8, N + 8, N + 8))).astype(np.float32))
+
+
+@pytest.mark.parametrize('fault', FAULTS)
+def test_resident_varied_field_shows_faults(fault):
+    """Each fault that constant fields hide moves the 'full' output on the
+    varied field by more than the tolerance the card's check uses; on
+    probe_B's constant fills, where the Laplacian cancels, each stays
+    inside it."""
+    fills, vary = P7.VARIED
+    good = P7.resident_step_reference(T0, 2, 'full', fills, N, 'cpu',
+                                      vary).numpy()
+    assert not _close(_probe_b_varied(fills, vary, T0, N, 'full', fault),
+                      good)
+    const = P7.resident_step_reference(T0, 2, 'full', P7.FILLS, N).numpy()
+    assert _close(_probe_b_varied(P7.FILLS, 0.0, T0, N, 'full', fault),
+                  const)
+
+
+def test_resident_output_at_small_interior():
+    out = P7.resident_step(2, 1, 'z', P7.FILLS, 5, 'cpu').numpy()
+    assert (out[:5, :5] != 0).all() and not out[5:].any() and \
+        not out[:, 5:].any()
+
+
+def test_resident_reference_reads_unwritten_scratch(p7, interpret):
+    """The JAX kernel's output is ow[0, 0:8, 0:128], scratch rows y < H that
+    the stencil never writes: not finite in interpret mode. The port's is
+    the interior value."""
+    p7.probe_B(t0=T0, reps=2, taps='full')
+    ref = np.asarray(interpret[-1](jnp.zeros((1,), jnp.int32)))
+    assert ref.shape == (8, 128) and not np.isfinite(ref).any()
+    got = P7.resident_step(T0, 2, 'full', P7.FILLS, N, 'cpu').numpy()
+    assert np.isfinite(got).all()
+    assert np.allclose(got[:, :N], _probe_b_numpy(P7.FILLS, 'full'),
+                       rtol=TOL, atol=0)
+
+
+def test_resident_step_checks_arguments():
+    with pytest.raises(ValueError, match='taps'):
+        P7.resident_step(4, 1, 'x', device='cpu')
+    with pytest.raises(ValueError, match='positive'):
+        P7.resident_step(0, 1, device='cpu')
+    with pytest.raises(ValueError, match='four values'):
+        P7.resident_step(4, 1, 'z', (1.0, 2.0), device='cpu')
+    with pytest.raises(ValueError, match='no resident-step kernel'):
+        P7.resident_step(4, 1, device='meta')
+    with pytest.raises(ValueError, match='four values'):
+        P7.resident_step_reference(4, 1, 'z', (1.0,))
+
+
+# -- K12 -----------------------------------------------------------------------
+
+@pytest.mark.parametrize('reps', [1, 4, 16])
+def test_empty_grid_matches_pallas_kernel(reps, p7, interpret):
+    p7.probe_C(reps)
+    ref = np.asarray(interpret[-1]())
+    assert ref.shape == (8, 128) and (ref == reps - 1).all()
+    assert np.array_equal(P7.empty_grid(reps, 'cpu').numpy(), ref)
+
+
+def test_empty_grid_checks_arguments():
+    with pytest.raises(ValueError, match='at least one'):
+        P7.empty_grid(0, 'cpu')
+    with pytest.raises(ValueError, match='no empty-grid kernel'):
+        P7.empty_grid(4, 'meta')
+
+
+# -- K13, K14 ------------------------------------------------------------------
+
+def _chunk_sum(src, t0):
+    acc = np.zeros((8, 128), np.float32)
+    for i in range(N // t0):
+        acc = acc + src[H + i * t0, 0:8, 0:128]
+    return acc
+
+
+@pytest.mark.parametrize('nwin', [1, 2, 4])
+@pytest.mark.parametrize('depth', [2, 3, 4])
+def test_stream_windows_matches_pallas_kernel(depth, nwin, p7, interpret):
+    p7.probe_E(t0=T0, nwin=nwin, depth=depth)
+    src = _src(10 * depth + nwin)
+    ref = np.asarray(interpret[-1](jnp.asarray(src)))
+    got = P7.stream_windows(torch.from_numpy(src), T0, nwin, depth).numpy()
+    assert np.array_equal(got, ref)
+    assert np.array_equal(got, _chunk_sum(src, T0))
+
+
+@pytest.mark.parametrize('nwin', [1, 2, 4])
+def test_probe_d_is_e_at_depth_2(nwin, p7, interpret):
+    p7.probe_D(t0=T0, nwin=nwin)
+    src = _src(nwin)
+    ref = np.asarray(interpret[-1](jnp.asarray(src)))
+    got = P7.stream_windows(torch.from_numpy(src), T0, nwin, 2).numpy()
+    assert np.array_equal(got, ref)
+
+
+def test_stream_windows_checks_arguments():
+    src = P7.inputs(N, ZA, 0, 'cpu')
+    with pytest.raises(ValueError, match='depth=0'):
+        P7.stream_windows(src, 4, 2, 0)
+    with pytest.raises(ValueError, match='depth=9'):
+        P7.stream_windows(src, 4, 2, 9)
+    with pytest.raises(ValueError, match='z 0:128'):
+        P7.stream_windows(P7.inputs(N, 64, 0, 'cpu'), 4, 2, 2)
+    with pytest.raises(ValueError, match='does not divide'):
+        P7.stream_windows(src, 3)
+    with pytest.raises(ValueError, match='no window-stream kernel'):
+        P7.stream_windows(src.to('meta'), 4)
+
+
+def test_stream_needs():
+    assert P7.stream_needs(256, 16) == (4 * 1024 * 17, 1024 * 16)
+
+
+def test_tiles_fit_shared_memory():
+    ty, smem, ctas = P7.window_tile(2, 4, 16)      # A's defaults
+    assert (ty, smem, ctas) == (2, 65536, 3)
+    assert P7.window_tile(4, 4, 16)[::2] == (1, 3)  # E at depth 4
+    assert P7.resident_tile(16) == (8, 110592, 2)
+    with pytest.raises(ValueError, match='do not fit'):
+        P7.window_tile(8, 8, 64)
+
+
+# -- the entry point -------------------------------------------------------------
+
+@pytest.mark.parametrize('which,args', [
+    ('A', ['4', '2', 'wb', '2']), ('A', ['4', '1', 'nowb']), ('B', ['z']),
+    ('C', []), ('D', ['4', '2']), ('E', ['4', '2', '3'])])
+def test_probe_main_on_cpu(which, args, capsys):
+    counts = (P7.copy_launches, P7.resident_launches, P7.empty_launches,
+              dict(P7.stream_launches))
+    rec = P7.main(which, *args, device='cpu', n=N, za=ZA)
+    out = capsys.readouterr().out
+    assert rec['probe'] == which and rec['device'] == 'cpu'
+    assert re.search(rf'^{which}\b.*(ms/|us per)', out, re.M)
+    if which in 'ADE':
+        assert 'GB/s agg DMA' in out and 'GB/s unique' in out
+        assert rec['share'] is None       # no bound share off the card
+        # A's result needs the bytes it streams; D's and E's only the
+        # (8, 128) tile of each chunk
+        assert rec['bytes_needed'] == (
+            rec['bytes_unique'] if which == 'A' else P7.stream_needs(N, 4)[0])
+        assert rec['bound_ms'] <= rec['stream_bound_ms']
+    assert counts == (P7.copy_launches, P7.resident_launches,
+                      P7.empty_launches, P7.stream_launches)
+
+
+@pytest.mark.parametrize('which,args,match', [
+    ('F', [], 'expected one of'), ('A', ['4', '2', 'maybe'], 'wb or nowb'),
+    ('B', ['x'], 'taps'), ('C', ['1'], 'at most 0'),
+    ('D', ['4', '2', '3'], 'at most 2'), ('E', ['5'], 'does not divide')])
+def test_probe_main_checks_arguments(which, args, match):
+    with pytest.raises(ValueError, match=match):
+        P7.main(which, *args, device='cpu', n=N, za=ZA)
+
+
+@pytest.mark.parametrize('args', [['D', '4', '2'], ['A', '4', '2', 'nowb'],
+                                  ['B', 'none'], ['C']])
+def test_entry_point_runs_as_script(args):
+    res = subprocess.run(
+        [sys.executable, '-m', 'devito_tpu_torch.experiments.stencil_probe7',
+         *args, '--device', 'cpu', '--n', '16', '--za', '160'], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env={'PATH': '/usr/bin:/bin', 'OMP_NUM_THREADS': '1'})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith(args[0])
+
+
+def test_entry_point_needs_cuda_when_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(DevitoTpuError, match='is_available'):
+        P7.main('C')
+
+
+# -- on the card -----------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,t0,za', [(22, 2, 60), (22, 11, 40), (40, 8, 68)])
+@pytest.mark.parametrize('nwin,nsplit', [(1, 1), (3, 1), (4, 2)])
+def test_copy_kernel_on_card(card, n, t0, za, nwin, nsplit):
+    if t0 % nsplit:
+        nsplit = 1
+    src = P7.inputs(n, za, n + t0, card)
+    before = P7.copy_launches
+    for wb in (True, False):
+        got = P7.copy_windows(src, t0, nwin, wb, nsplit)
+        torch.cuda.synchronize()
+        if wb:
+            assert torch.equal(got[H:H + n], src[H:H + n] + 1.0)
+    assert P7.copy_launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fills,vary', [(f, 0.0) for f in FILL_SETS]
+                         + [P7.VARIED])
+@pytest.mark.parametrize('n,t0', [(40, 3), (20, 16), (7, 5)])
+def test_resident_kernel_on_card(card, n, t0, fills, vary):
+    before = P7.resident_launches
+    for taps in P7.TAPS:
+        got = P7.resident_step(t0, 3, taps, fills, n, card, vary)
+        want = P7.resident_step_reference(t0, 3, taps, fills, n, card, vary)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= \
+            TOL * want.abs().max().item()
+    assert P7.resident_launches == before + 3
+
+
+@pytest.mark.cuda
+def test_empty_kernel_on_card(card):
+    before = P7.empty_launches
+    for reps in (1, 7, 300):
+        assert torch.equal(P7.empty_grid(reps, card),
+                           P7.empty_grid_reference(reps, card))
+    assert P7.empty_launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,t0,za', [(22, 2, 132), (40, 8, 140)])
+@pytest.mark.parametrize('depth', [1, 2, 3, 4, 8])
+def test_stream_kernel_on_card(card, n, t0, za, depth):
+    src = P7.inputs(n, za, depth, card)
+    before = P7.stream_launches.get(depth, 0)
+    for nwin in (1, 3):
+        got = P7.stream_windows(src, t0, nwin, depth)
+        assert torch.equal(got, P7.stream_windows_reference(src, t0, nwin,
+                                                            depth))
+    assert P7.stream_launches[depth] == before + 2
+
+
+@pytest.mark.cuda
+def test_probe_entry_points_on_card(card, capsys):
+    for which, args in (('A', ('8', '2', 'wb')), ('B', ('full',)), ('C', ()),
+                        ('D', ('8', '2')), ('E', ('8', '2', '4'))):
+        rec = P7.main(which, *args, n=64, za=128)
+        assert rec['device'] == torch.cuda.get_device_name(card)
+    assert 'of the bound' in capsys.readouterr().out
