@@ -6,17 +6,25 @@
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. Build: nvcc builds every stencil kernel the phases below need.
 3. K1, the stencil kernel, against its plain PyTorch version on the card:
-   one update per case (2-D diffusion, 3-D damped acoustic at SO=2/4/8, a
-   ragged grid, fp32 and fp64), then both timed at 512^3 SO=8 fp32.
+   one update per case (2-D diffusion on the point design; 3-D damped
+   acoustic at SO=2/4/8, a ragged grid and an x not divisible by the
+   tile's x-chunk on the streaming design, each also against the point
+   design; fp32 and fp64), then the streaming design, the point design
+   and the plain version timed at 512^3 SO=8 fp32, with a sweep of the
+   streaming design's tiles and stages there.
 4. The headline operator (bench.py's damped acoustic, 512^3 SO=8 fp32):
    4 steps against the same operator on the plain version, then 100 steps
-   through Operator.apply, which must launch the kernel once per step.
+   through Operator.apply, which must launch the streaming kernel once per
+   step and the point kernel never.
 5. The seismic forward model, AcousticWaveSolver.forward, on a 512^3
-   layered model: a finite, non-zero shot record and one launch per step;
-   then the same forward at 96^3 through the kernel and, on the CPU,
-   through the plain version, compared. Phases 4 and 5 start as a new
-   process would, with no device self-tested: the first K1 launch runs
-   K2, the self-test, once for both.
+   layered model: a finite, non-zero shot record and one streaming launch
+   per step, with the loop's host time beside its device time, and the
+   same shot again, warm; then the
+   same forward at 96^3 through the kernel and, on the CPU, through the
+   plain version, compared; then a profile of a short warm forward at
+   512^3 (device time by kernel, idle share). Phases 4 and 5 start as a
+   new process would, with no device self-tested: the first K1 launch
+   runs K2, the self-test, once for both.
 6. The probe entry points (devito_tpu_torch/experiments): stencil_probe9's
    main (K15, the sliding-ring step) at N=256, TX=32, and stencil_probe6's
    main (P1 copy bandwidth, K8 window copies, K9 the in-place step) at
@@ -64,10 +72,16 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
                    ('3-D acoustic SO=2', (128, 128, 128), 2, 'acoustic'),
                    ('3-D acoustic SO=4', (128, 128, 128), 4, 'acoustic'),
                    ('3-D acoustic SO=8', (128, 128, 128), 8, 'acoustic'),
-                   ('ragged 61x77x93 SO=8', (61, 77, 93), 8, 'acoustic')],
+                   ('ragged 61x77x93 SO=8', (61, 77, 93), 8, 'acoustic'),
+                   ('x-chunk ragged 100x40x50 SO=4', (100, 40, 50), 4,
+                    'acoustic')],
             head_n=512, head_steps=100, head_compare=4,
             fwd_n=512, fwd_compare_n=96, fwd_nbl=10, fwd_tn=500.,
-            fwd_nrec=512, reps=20, plain_reps=3,
+            fwd_nrec=512, prof_tn=72., reps=20, plain_reps=3,
+            # the streaming design's (TY, TZ, PY, STAGES, TX) swept at
+            # head_n (the chosen tile is timed as the record)
+            sweep=[(16, 64, 4, 2, 32), (16, 64, 4, 3, 48), (16, 64, 2, 2, 32),
+                   (8, 64, 2, 2, 32), (8, 128, 4, 3, 32)],
             p9_n=256, p9_tx=32, p9_steps=64, p6_n=256, p6_t0=16, big_n=512,
             # main's (N, STEPS, tiles) of each tiled-design entry point, the
             # JAX scripts' TPU defaults; and each kernel's tiles at big_n
@@ -86,7 +100,7 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
 #: that picks its ptxas report out of its unit's) of every kernel, in record
 #: order.
 KERNELS = [
-    ('stencil_update', 'devito_tpu_torch/csrc/stencil.cuh',
+    ('stencil_update', 'devito_tpu_torch/csrc/stencil_stream.cuh',
      'experiments/pallas_backend.py:303', ''),
     ('selftest_window_sum', 'devito_tpu_torch/csrc/selftest.cu',
      'experiments/pallas_backend.py:54', ''),
@@ -140,10 +154,12 @@ PROBE_COUNTERS = {
     'empty_grid': ('stencil_probe7', 'empty_launches', None),
     'stream_windows_depth2': ('stencil_probe7', 'stream_launches', 2),
     'stream_windows_depth3': ('stencil_probe7', 'stream_launches', 3)}
-#: The keys every kernel record has.
+#: The keys every kernel record has. ``point_ms``: K1's point design
+#: (csrc/stencil.cuh) at the record's shape beside its streaming design's
+#: ``ms``; None for the other kernels, which have one design.
 RECORD_KEYS = ('name', 'route', 'source', 'replaces', 'launches',
-               'launches_main_path', 'max_abs_err', 'ms', 'plain_ms',
-               'bound_ms', 'bound_by', 'library_ms')
+               'launches_main_path', 'max_abs_err', 'ms', 'point_ms',
+               'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
 
 
 def log(*args):
@@ -221,21 +237,116 @@ def random_rows(plan, device, gen):
     return out, out.clone(), ins
 
 
-def compare_once(plan, device, gen):
-    """One kernel update against the plain version on the same inputs:
-    (max |kernel - plain|, tolerance)."""
+def compare_once(plan, device, gen, point=None):
+    """One kernel update against the plain version on the same inputs,
+    and against ``point`` (the same equation on the point design) when
+    given: (max |kernel - plain|, tolerance, max |kernel - point| or
+    None). Raises when either is beyond the tolerance."""
     from devito_tpu_torch.kernels import stencil as K
     out, ref, ins = random_rows(plan, device, gen)
     params = {n: 0.7 for n in plan.param_names}
     K.stencil_update(plan, (out, ins), params)
     K.stencil_update_reference(plan, (ref, ins), params)
+    diff = None
+    if point is not None:
+        pout = ref.new_zeros(ref.shape)
+        K.stencil_update(point, (pout, ins), params)
     sync(device)
     err = (out - ref).abs().max().item()
     tol = TOL[plan.dtype.type] * ref.abs().max().item()
-    if not err <= tol:
-        raise AssertionError(f"kernel disagrees: max|err| {err:.3e} > "
+    if point is not None:
+        diff = (out - pout).abs().max().item()
+    if not err <= tol or (diff is not None and not diff <= tol):
+        raise AssertionError(f"kernel disagrees: max|err| {err:.3e}, "
+                             f"against the point design {diff} > "
                              f"{tol:.3e} for {plan.eq!r}")
-    return err, tol
+    return err, tol, diff
+
+
+def occupancy(K, plan, device):
+    """CTAs of ``plan``'s streaming kernel an SM holds, from the CUDA
+    runtime (registers, shared memory, threads); None off the card."""
+    return K.stream_occupancy(plan) if device.type == 'cuda' else None
+
+
+def host_us_per_call(fn, device, calls=20):
+    """Host microseconds a call of ``fn`` takes to return (the enqueue),
+    over ``calls`` calls after one warm-up; the device is synchronised
+    before and after, outside the clock."""
+    fn()
+    sync(device)
+    tic = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - tic
+    sync(device)
+    return host / calls * 1e6
+
+
+def time_host(op):
+    """Wrap ``op``'s time loop so that the host seconds it takes to
+    return -- to enqueue every step, before Operator.apply waits for the
+    device -- land in the returned dict's ``'s'``."""
+    runner, out = op._runner, {}
+
+    def timed(*args):
+        tic = time.perf_counter()
+        runner(*args)
+        out['s'] = time.perf_counter() - tic
+        op._runner = runner
+
+    timed.plans = runner.plans
+    op._runner = timed
+    return out
+
+
+def forward_profile(device, sizes):
+    """Device time of a short warm forward at fwd_n (+nbl), tn=prof_tn,
+    by kernel, and the device's idle share, from torch.profiler; the
+    second of two runs is profiled. Only device events count (kernels,
+    copies, fills): a torch op and the kernel it launches would otherwise
+    both carry the kernel's time. Logs the table and returns it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile, ProfilerActivity
+    solver = forward_solver(sizes['fwd_n'], sizes['fwd_nbl'],
+                            sizes['prof_tn'], sizes['fwd_nrec'])
+    solver.forward()
+    sync(device)
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == 'cuda' else [])
+    with profile(activities=acts) as prof:
+        tic = time.perf_counter()
+        summary = solver.forward()[2]
+        sync(device)
+        wall = time.perf_counter() - tic
+    nsteps = solver.geometry.nt - 2
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, 'self_device_time_total', None)
+        if dev_us is None:
+            dev_us = getattr(e, 'self_cuda_time_total', 0)
+        if dev_us > 0:
+            rows.append((e.key, dev_us / 1e3 / nsteps, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    loop = summary.globals['fdlike'].time * 1e3 / nsteps
+    res = dict(steps=nsteps, wall_ms_per_step=wall * 1e3 / nsteps,
+               loop_ms_per_step=loop, busy_ms_per_step=busy,
+               idle_share=1 - busy / loop if loop else None,
+               kernels=[dict(name=k[:120], ms_per_step=m, calls=c)
+                        for k, m, c in rows[:12]])
+    log(f"[profile] warm forward, {nsteps} steps: loop {loop:.3f} ms/step, "
+        f"device busy {busy:.3f} ms/step, idle share "
+        f"{100 * (res['idle_share'] or 0):.1f} % of the loop; by kernel:")
+    for k, m, c in rows[:12]:
+        log(f"[profile]   {m:.4f} ms/step ({100 * m / (busy or 1):.1f} %), "
+            f"{c} calls: {k[:100]}")
+    del solver
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    return res
 
 
 def sync(device):
@@ -331,8 +442,31 @@ def _smoke(device, sizes):
          for _, p in op.kernel_plans]
     if any(p is None for p in plans):
         raise AssertionError("an equation of the smoke path was declined")
+    hplan = head_op.kernel_plans[0][1]
+    main_plans = [p for op in (head_op, solver.op_fwd(None))
+                  for _, p in op.kernel_plans]
+    if any(p.design != 'stream' for p in main_plans) or any(
+            (p.design == 'stream') != (p.ndim == 3) for _, p in cases):
+        raise AssertionError("a 3-D acoustic equation took the point design "
+                             "or a 2-D one the streaming design: " + '; '.join(
+                                 f"{p.design} ({p.design_reason})"
+                                 for p in main_plans + [p for _, p in cases]))
+    # the headline's equation in fp64; the point design of each 3-D case;
+    # the tiles of the sweep
+    h64 = operator_for('acoustic', (sizes['head_n'],) * 3, 8,
+                       np.float64)[0].kernel_plans[0][1]
+    points = {id(p): K.plan_for(p.eq, _design='point')
+              for p in [p for _, p in cases] + [hplan, h64] if p.ndim == 3}
+    sweep = [K.plan_for(hplan.eq, _tile=t) for t in sizes['sweep']]
+    if any(p.design != 'stream' for p in sweep):
+        raise AssertionError("a tile of the sweep does not fit")
+    log(f"[design] headline and forward: {hplan.design} "
+        f"({hplan.design_reason}); tile {hplan.tile}; 2-D case: "
+        f"{cases[0][1].design} "
+        f"({cases[0][1].design_reason})")
     if device.type == 'cuda':
-        uniq = list({p.key: p for p in plans}.values())
+        uniq = list({p.key: p for p in
+                     plans + [h64] + list(points.values()) + sweep}.values())
         tic = time.perf_counter()
         with ThreadPoolExecutor(8) as pool:
             list(pool.map(K.build, uniq))
@@ -340,14 +474,15 @@ def _smoke(device, sizes):
         log(f"[build] {len(uniq) + len(FIXED)} kernels in "
             f"{time.perf_counter() - tic:.2f} s wall "
             f"(nvcc {sum(K.build_seconds.values()):.2f} s); headline "
-            f"kernel: " + ptxas(K.build_log.get(
-                head_op.kernel_plans[0][1].key, '')))
+            f"kernel (stream): " + ptxas(K.build_log.get(hplan.key, ''))
+            + "; point design: " + ptxas(K.build_log.get(
+                points[id(hplan)].key, '')))
         for name in FIXED:
             log(f"[build] {name}: "
                 + ptxas(K.build_log.get(_nvcc.fixed_key(name), '')))
         for rec, (_, src, _, entry) in zip(records, KERNELS):
             unit = Path(src).stem
-            key = head_op.kernel_plans[0][1].key if unit == 'stencil' \
+            key = hplan.key if unit == 'stencil_stream' \
                 else _nvcc.fixed_key(unit)
             rec['ptxas'] = ptxas(K.build_log.get(key, ''), entry)
     K.validate_backend(device)
@@ -369,37 +504,115 @@ def _smoke(device, sizes):
     log(f"[kernel] K2 self-test on random input: max|kernel - plain| "
         f"{err:.3e}; {selftest['ms']:.4f} ms, plain "
         f"{selftest['plain_ms']:.4f} ms")
+    errs, vs_point = [], []
     for lab, plan in cases:
-        err, tol = compare_once(plan, device, gen)
-        log(f"[kernel] {lab}: max|kernel - plain| {err:.3e} "
-            f"(tolerance {tol:.3e})")
-    hplan = head_op.kernel_plans[0][1]
+        err, tol, diff = compare_once(plan, device, gen, points.get(id(plan)))
+        errs.append(err)
+        line = (f"[kernel] {lab} ({plan.design}): max|kernel - plain| "
+                f"{err:.3e} (tolerance {tol:.3e})")
+        if diff is not None:
+            vs_point.append((lab, diff))
+            line += (f"; max|stream - point| {diff:.3e}"
+                     + (" (bit-equal)" if diff == 0 else ""))
+        log(line)
     out, ref, ins = random_rows(hplan, device, gen)
+    pout = out.clone()
     params = {'dt': 0.7}
+    hpoint = points[id(hplan)]
     K.stencil_update(hplan, (out, ins), params)
+    K.stencil_update(hpoint, (pout, ins), params)
     K.stencil_update_reference(hplan, (ref, ins), params)
     sync(device)
     err = (out - ref).abs().max().item()
+    diff = (out - pout).abs().max().item()
     tol = TOL[np.float32] * ref.abs().max().item()
-    if not err <= tol:
+    if not (err <= tol and diff <= tol):
         raise AssertionError(f"kernel disagrees at the headline shape: "
-                             f"{err:.3e} > {tol:.3e}")
+                             f"{err:.3e} (plain), {diff:.3e} (point) > "
+                             f"{tol:.3e}")
+    n = sizes['head_n']
+    # u[t] at the star's points, u[t-1], vp, damp in the interior read,
+    # u[t+1]'s interior written
+    nbytes, flops = 4 * (star_points(n) + 4 * n ** 3), \
+        K.point_flops(hplan) * n ** 3
+    sweep_rows = []
+    for p in sweep:
+        ms = time_ms(lambda: K.stencil_update(p, (out, ins), params),
+                     sizes['reps'], device)
+        sweep_rows.append(dict(tile=p.tile, ms=ms,
+                               ctas_per_sm=occupancy(K, p, device),
+                               ptxas=ptxas(K.build_log.get(p.key, ''))))
     ms = time_ms(lambda: K.stencil_update(hplan, (out, ins), params),
                  sizes['reps'], device)
+    point_ms = time_ms(lambda: K.stencil_update(hpoint, (pout, ins), params),
+                       sizes['reps'], device)
     plain_ms = time_ms(
         lambda: K.stencil_update_reference(hplan, (ref, ins), params),
         sizes['plain_reps'], device)
-    n = sizes['head_n']
-    log(f"[kernel] {n}^3 SO=8 fp32: max|kernel - plain| {err:.3e} "
-        f"(tolerance {tol:.3e}); per update kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms ({n ** 3 / ms / 1e6:.2f} vs "
-        f"{n ** 3 / plain_ms / 1e6:.2f} GPts/s)")
-    record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    # u[t] at the star's points, u[t-1], vp, damp in the interior read,
-    # u[t+1]'s interior written
-    set_bound(record, 4 * (star_points(n) + 4 * n ** 3),
-              K.point_flops(hplan) * n ** 3)
-    del out, ref, ins
+    host_us = {d: host_us_per_call(lambda: K.stencil_update(p, (o, ins),
+                                                            params), device)
+               for d, p, o in (('stream', hplan, out),
+                               ('point', hpoint, pout))}
+    record.update(max_abs_err=max(errs + [err]), ms=ms, point_ms=point_ms,
+                  plain_ms=plain_ms, point_source='devito_tpu_torch/csrc/'
+                  'stencil.cuh', tile=hplan.tile,
+                  ctas_per_sm=occupancy(K, hplan, device),
+                  max_abs_stream_minus_point=max([diff] + [d for _, d in
+                                                           vs_point]),
+                  host_us_per_call=host_us, sweep=sweep_rows)
+    set_bound(record, nbytes, flops)
+    for row in sweep_rows:
+        row['share_of_bound'] = record['bound_ms'] / row['ms']
+        t = row['tile']
+        log(f"[sweep] {n}^3 SO=8 fp32 tile TYxTZ {t['ty']}x{t['tz']}, "
+            f"{t['py']} points a thread, {t['stages']} stages, TX "
+            f"{t['tx']}: {row['ms']:.4f} ms = {100 * row['share_of_bound']:.1f} % of "
+            f"the {record['bound_ms']:.3f} ms bound; {row['ctas_per_sm']} "
+            f"CTAs/SM ({t['smem_bytes']} B shared); {row['ptxas']}")
+    t = hplan.tile
+    log(f"[kernel] chosen tile (stream_tile): TYxTZ {t['ty']}x{t['tz']}, "
+        f"{t['py']} points a thread, {t['stages']} stages, TX {t['tx']}, "
+        f"{t['threads']} threads, {t['smem_bytes']} B shared; {record['ctas_per_sm']} "
+        f"CTAs/SM on the card; {record.get('ptxas', '')}")
+    log(f"[kernel] {n}^3 SO=8 fp32: max|kernel - plain| {err:.3e}, "
+        f"max|stream - point| {diff:.3e} (tolerance {tol:.3e}); per update "
+        f"stream {ms:.4f} ms = {100 * record['share_of_bound']:.1f} % of "
+        f"the {record['bound_ms']:.3f} ms bound ({n ** 3 / ms / 1e6:.2f} "
+        f"GPts/s), point {point_ms:.4f} ms ({n ** 3 / point_ms / 1e6:.2f} "
+        f"GPts/s), plain {plain_ms:.3f} ms; host time a call: stream "
+        f"{host_us['stream']:.1f} us, point {host_us['point']:.1f} us")
+    del out, ref, ins, pout
+    # the same update in fp64: the streaming design's fp64 tile
+    out, ref, ins = random_rows(h64, device, gen)
+    pout = out.clone()
+    K.stencil_update(h64, (out, ins), params)
+    K.stencil_update(points[id(h64)], (pout, ins), params)
+    K.stencil_update_reference(h64, (ref, ins), params)
+    sync(device)
+    err64 = max((out - ref).abs().max().item(),
+                (out - pout).abs().max().item())
+    if not err64 <= TOL[np.float64] * ref.abs().max().item():
+        raise AssertionError(f"fp64 kernel disagrees at {n}^3: {err64:.3e}")
+    del ref
+    fp64 = dict(
+        tile=h64.tile, ctas_per_sm=occupancy(K, h64, device),
+        ptxas=ptxas(K.build_log.get(h64.key, '')),
+        ms=time_ms(lambda: K.stencil_update(h64, (out, ins), params),
+                   sizes['reps'], device),
+        point_ms=time_ms(lambda: K.stencil_update(points[id(h64)],
+                                                  (pout, ins), params),
+                         sizes['reps'], device),
+        bound_ms=2 * record['bound_ms'])
+    record['fp64'] = fp64
+    t = h64.tile
+    log(f"[kernel] {n}^3 SO=8 fp64, tile TYxTZ {t['ty']}x{t['tz']}, "
+        f"{t['py']} points a thread, {t['stages']} stages, TX {t['tx']}: "
+        f"stream {fp64['ms']:.4f} ms = "
+        f"{100 * fp64['bound_ms'] / fp64['ms']:.1f} % of the "
+        f"{fp64['bound_ms']:.3f} ms bound, point {fp64['point_ms']:.4f} ms; "
+        f"{fp64['ctas_per_sm']} CTAs/SM; {fp64['ptxas']}; max|stream - "
+        f"plain or point| {err64:.3e}")
+    del out, ins, pout, points, sweep, h64
 
     # -- 4. headline operator ---------------------------------------------
     dt_ = 0.6 * 10.0 / 1.5 / (3 ** 0.5) / 4   # bench.py's dt
@@ -427,23 +640,28 @@ def _smoke(device, sizes):
     steps = sizes['head_steps']
     ndense = len(head_op.kernel_plans)
     nbuilds = len(K.build_seconds)
+    on_card = int(device.type == 'cuda')     # the CPU runs no K1 kernel
     # main path starts here, as in a new process: counts at 0 and no
     # device self-tested yet
     K.launches = K.selftest_launches = K.selftests = 0
+    K.launches_by_design.update(point=0, stream=0)
     K.validated.clear()
     probe_launches(zero=True)
     summary = head_op.apply(time_m=1, time_M=steps, dt=dt_)
     head_launches = K.launches
-    if head_launches != steps * ndense:
-        raise AssertionError(f"headline operator launched the kernel "
-                             f"{head_launches} times for {steps} steps x "
+    by_design = dict(K.launches_by_design)
+    if by_design != {'stream': on_card * steps * ndense, 'point': 0} or \
+            head_launches != on_card * steps * ndense:
+        raise AssertionError(f"headline operator launched the kernels "
+                             f"{by_design} times for {steps} steps x "
                              f"{ndense} dense equations")
     if not bool(torch.isfinite(u._device_array()).all()):
         raise AssertionError("headline operator: non-finite wavefield")
     g = summary.globals['fdlike']
     log(f"[headline] {steps} steps through Operator.apply: "
         f"{g.time * 1e3 / steps:.3f} ms/step, {g.gpointss:.2f} GPts/s on "
-        f"{summary.device}; launches {head_launches} = {steps} x {ndense}, "
+        f"{summary.device}; launches {head_launches} = {steps} x {ndense} "
+        f"(stream {by_design['stream']}, point {by_design['point']}), "
         f"declined 0")
     del head_op, head, u
     if device.type == 'cuda':
@@ -452,33 +670,42 @@ def _smoke(device, sizes):
     # -- 5. seismic forward -------------------------------------------------
     fop = solver.op_fwd(None)
     nsteps = solver.geometry.nt - 2      # time_m=1 .. time_M=nt-2
-    before = K.launches
+    before = dict(K.launches_by_design)
+    host = time_host(fop)
     tic = time.perf_counter()
     rec, _, fsum = solver.forward()
     sync(device)
     wall = time.perf_counter() - tic
-    fwd_launches = K.launches - before           # main path ends here
+    by_design = {d: K.launches_by_design[d] - before[d] for d in before}
+    fwd_launches = sum(by_design.values())       # main path ends here
     off_path = probe_launches()
-    once = int(device.type == 'cuda')     # the CPU runs no K1 kernel
-    if (K.selftests, K.selftest_launches) != (once, once):
+    if (K.selftests, K.selftest_launches) != (on_card, on_card):
         raise AssertionError(f"the main path ran {K.selftests} self-tests "
                              f"({K.selftest_launches} launches), not "
-                             f"{once}")
+                             f"{on_card}")
     r = np.array(rec.data)
     if not (np.isfinite(r).all() and np.linalg.norm(r) > 0):
         raise AssertionError("forward: rec is not finite and non-zero")
-    if fwd_launches != nsteps * len(fop.kernel_plans):
-        raise AssertionError(f"forward launched the kernel {fwd_launches} "
+    want = on_card * nsteps * len(fop.kernel_plans)
+    if by_design != {'stream': want, 'point': 0}:
+        raise AssertionError(f"forward launched the kernels {by_design} "
                              f"times for {nsteps} steps")
     nf = sizes['fwd_n'] + 2 * sizes['fwd_nbl']
+    loop = fsum.globals['fdlike'].time
     log(f"[forward] {sizes['fwd_n']}^3 (+nbl {sizes['fwd_nbl']}: {nf}^3) "
         f"SO=8, {nsteps} steps, {r.shape[1]} receivers: wall {wall:.2f} s, "
-        f"loop {fsum.globals['fdlike'].time:.3f} s "
-        f"({fsum.globals['fdlike'].gpointss:.2f} GPts/s); rec norm "
+        f"loop {loop:.3f} s = {loop * 1e3 / nsteps:.3f} ms/step "
+        f"({fsum.globals['fdlike'].gpointss:.2f} GPts/s), host time in the "
+        f"loop {host['s'] * 1e3 / nsteps:.3f} ms/step; rec norm "
         f"{np.linalg.norm(r):.6g}; launches {fwd_launches} = {nsteps} "
-        f"steps, declined 0")
+        f"steps (stream {by_design['stream']}, point {by_design['point']}), "
+        f"declined 0")
     record['launches'] = record['launches_main_path'] = \
         head_launches + fwd_launches
+    record['launches_by_design'] = {
+        d: K.launches_by_design[d] for d in K.launches_by_design}
+    record['forward_ms_per_step'] = loop * 1e3 / nsteps
+    record['forward_host_ms_per_step'] = host['s'] * 1e3 / nsteps
     selftest['launches'] = selftest['launches_main_path'] = \
         K.selftest_launches
     for rec in records:
@@ -493,6 +720,14 @@ def _smoke(device, sizes):
         f"with its own dt and grid, reused the phase-2 builds); K2 "
         f"self-test ran once before the first K1 launch, not once per "
         f"apply")
+    # the main path ends above; the same shot again, warm
+    host = time_host(fop)
+    wloop = solver.forward()[2].globals['fdlike'].time
+    record['forward_warm_ms_per_step'] = wloop * 1e3 / nsteps
+    record['forward_warm_host_ms_per_step'] = host['s'] * 1e3 / nsteps
+    log(f"[forward] the same shot again (warm): loop "
+        f"{wloop * 1e3 / nsteps:.3f} ms/step, host time in the loop "
+        f"{host['s'] * 1e3 / nsteps:.3f} ms/step")
     del solver, rec, fop
     if device.type == 'cuda':
         torch.cuda.empty_cache()
@@ -510,6 +745,17 @@ def _smoke(device, sizes):
     log(f"[forward] {sizes['fwd_compare_n']}^3: rec through the kernel vs "
         f"the plain version (CPU): max|diff| {err:.3e} (tolerance "
         f"{tol:.3e}), rec norm {np.linalg.norm(rk):.6g}")
+    sop = small.op_fwd(None)
+    host = time_host(sop)
+    ssum = small.forward()[2]
+    snt = small.geometry.nt - 2
+    record['forward_small_host_ms_per_step'] = host['s'] * 1e3 / snt
+    log(f"[forward] {sizes['fwd_compare_n']}^3, second run: host time in "
+        f"the loop {host['s'] * 1e3 / snt:.3f} ms/step against "
+        f"{ssum.globals['fdlike'].time * 1e3 / snt:.3f} ms/step of loop: "
+        f"the host's own cost a step, the device being idle there")
+    del small, sop
+    record['forward_profile'] = forward_profile(device, sizes)
 
     ceiling = probes(device, sizes, gen, records)
     tiled_probes(device, sizes, gen, records, ceiling)
@@ -518,6 +764,7 @@ def _smoke(device, sizes):
         raise AssertionError("the probe entry points built a kernel")
     for rec in records:
         rec.setdefault('library_ms', None)
+        rec.setdefault('point_ms', None)
         missing = [k for k in RECORD_KEYS if k not in rec]
         if missing:
             raise AssertionError(f"kernel record {rec['name']} lacks "

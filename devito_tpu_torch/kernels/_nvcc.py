@@ -15,13 +15,14 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 from ..exceptions import CompilationError
 
-__all__ = ['source_key', 'build', 'fixed', 'fixed_key', 'entry',
-           'check_launch']
+__all__ = ['source_key', 'unit_key', 'headers', 'build', 'fixed',
+           'fixed_key', 'entry', 'check_launch']
 
 #: Seconds spent in nvcc, by build key.
 build_seconds = {}
@@ -34,6 +35,7 @@ _BUILD = _PKG / '_build'
 _NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 _libs = {}
+_locks = {}
 _fixed = {}
 
 
@@ -41,6 +43,29 @@ def source_key(*texts):
     """The build key of a translation unit made of ``texts``."""
     return hashlib.sha256(
         (''.join(texts) + ' '.join(_NVCC_FLAGS)).encode()).hexdigest()[:20]
+
+
+def headers(text):
+    """The ``csrc/`` headers the translation unit ``text`` includes,
+    directly or through another header, in include order."""
+    seen = []
+
+    def scan(t):
+        for h in re.findall(r'#include "([^"]+)"', t):
+            if h not in seen:
+                seen.append(h)
+                scan((_CSRC / h).read_text())
+
+    scan(text)
+    return seen
+
+
+def unit_key(source):
+    """The build key of the translation unit ``source``: every ``csrc/``
+    header it includes, then its text, so that an edited header never
+    reuses a stale library."""
+    return source_key(*[(_CSRC / h).read_text() for h in headers(source)],
+                      source)
 
 
 def _nvcc():
@@ -57,10 +82,19 @@ def _nvcc():
 def build(key, stem, source):
     """The ctypes library of the translation unit ``source`` (its text,
     which may include headers of ``csrc/``), compiled with nvcc into
-    ``_build/{stem}_{key}.so`` at the first call and cached after."""
+    ``_build/{stem}_{key}.so`` at the first call and cached after. Safe
+    to call from several threads, for one key or many."""
     lib = _libs.get(key)
     if lib is not None:
         return lib
+    with _locks.setdefault(key, threading.Lock()):
+        lib = _libs.get(key)
+        if lib is None:
+            lib = _libs[key] = _compile(key, stem, source)
+    return lib
+
+
+def _compile(key, stem, source):
     so = _BUILD / f'{stem}_{key}.so'
     if not so.exists():
         nvcc = _nvcc()
@@ -78,20 +112,16 @@ def build(key, stem, source):
         os.replace(tmp, so)
         build_seconds[key] = time.perf_counter() - tic
         build_log[key] = res.stderr
-    lib = ctypes.CDLL(str(so))
-    _libs[key] = lib
-    return lib
+    return ctypes.CDLL(str(so))
 
 
 def fixed(name):
     """The ctypes library of ``csrc/{name}.cu``, keyed on its text and the
-    ``csrc/`` headers it includes."""
+    ``csrc/`` headers it includes (``unit_key``)."""
     hit = _fixed.get(name)
     if hit is None:
         source = (_CSRC / f'{name}.cu').read_text()
-        headers = [(_CSRC / h).read_text()
-                   for h in re.findall(r'#include "([^"]+)"', source)]
-        key = source_key(source, *headers)
+        key = unit_key(source)
         hit = _fixed[name] = (key, build(key, name, source))
     return hit[1]
 

@@ -6,12 +6,30 @@ from the equation's shape alone, whether a lowered dense equation can run
 in the kernel; ``stencil_update`` runs one update of the target's time row
 in place; ``stencil_update_reference`` is its plain PyTorch version.
 
-The kernel's source is ``csrc/stencil.cuh`` (the hand-written template:
-indexing, bounds mask, 64-bit offsets, store) plus one point expression
-printed from the equation's right-hand side by ``compiler.translate.
-cuda_expr``. At its first CUDA launch the combined source is written to
-``devito_tpu_torch/_build/`` under the hash of its text and the nvcc
-flags, compiled with nvcc into a shared library and loaded with ctypes
+The kernel has two designs, both a hand-written template plus one point
+expression printed from the equation's right-hand side by
+``compiler.translate.cuda_expr``. ``plan_for`` picks one from the
+equation's shape alone, records it on the plan (``plan.design`` and
+``plan.design_reason``), logs it and counts it in ``designs``:
+
+- ``'stream'`` (``csrc/stencil_stream.cuh``): a 3-D equation whose staged
+  groups -- those read off their centre, u[t] in the acoustic update --
+  are read along the axes only (a star), at most ``MAX_STAGED`` of them
+  and none beyond ``MAX_RADIUS`` per axis, the reach the card tests
+  check. Each CTA streams a (TY, TZ) tile along x: the staged planes, and
+  with them the other groups' tiles, arrive by TMA into a small ring in
+  shared memory, and the x taps live in per-thread register queues.
+  ``stream_tile`` checks that the tile lets two or more CTAs share an SM.
+- ``'point'`` (``csrc/stencil.cuh``): one thread per point, every tap
+  through the read-only cache. Every other equation: 2-D regions, taps
+  off the axes (cross derivatives), wider stars, windows the tile does
+  not fit.
+
+On a CUDA tensor the chosen design launches or raises; nothing falls back
+to the other design or to the plain version. At its first CUDA launch the
+generated source is written to ``devito_tpu_torch/_build/`` under the hash
+of its text, the ``csrc/`` headers it includes and the nvcc flags,
+compiled with nvcc into a shared library and loaded with ctypes
 (``kernels/_nvcc.py``). Parameters (dt, spacings, Constants), row
 pointers, strides and region extents are runtime arguments, so no value
 and no grid size is baked into a build: ``apply(dt=...)`` never rebuilds,
@@ -42,11 +60,16 @@ from ..types.dense import torch_dtype
 from ..types.dimension import Dimension
 
 __all__ = ['StencilPlan', 'plan_for', 'build', 'point_flops',
-           'stencil_update', 'stencil_update_reference', 'validate_backend',
+           'stream_tile', 'stream_occupancy', 'stencil_update',
+           'stencil_update_reference', 'validate_backend',
            'selftest_window_sum', 'selftest_window_sum_reference']
 
 #: Kernel launches since import (or since the caller last reset it).
 launches = 0
+#: The same launches by design.
+launches_by_design = {'point': 0, 'stream': 0}
+#: Plans made, by the design ``plan_for`` chose.
+designs = {'point': 0, 'stream': 0}
 #: Equations ``plan_for`` declined since import.
 declines = 0
 #: Self-test kernel (K2) launches.
@@ -65,14 +88,25 @@ class StencilPlan:
 
     ``groups``: one entry per (function, time access) read by the
     right-hand side, in first-read order: ``{'fn', 'tk', 'toff', 'key'}``.
-    ``source``: the generated CUDA translation unit.
+    ``design``: ``'stream'`` or ``'point'``, with ``design_reason``.
+    ``staged`` and ``centre``: the indices into ``groups`` of the groups
+    read off their centre and of those read at offset 0 only; ``radii``:
+    the staged taps' reach per axis; ``tile``: ``stream_tile``'s choice
+    (stream design only). ``source``: the generated CUDA translation unit;
+    ``key`` hashes it with every ``csrc/`` header it includes.
     """
 
-    def __init__(self, eq, groups, param_names, source):
+    def __init__(self, eq, groups, param_names, design, reason, staged,
+                 centre, radii, tile):
         self.eq = eq
         self.groups = groups
         self.param_names = param_names
-        self.source = source
+        self.design = design
+        self.design_reason = reason
+        self.staged = staged
+        self.centre = centre
+        self.radii = radii
+        self.tile = tile
         self.dtype = np.dtype(eq.target.dtype)
         self.ndim = len(eq.region)
         self.extents = tuple(b - a for a, b in eq.region)
@@ -80,13 +114,22 @@ class StencilPlan:
         # row: the target's, then each group's
         self.origins = [_origin(eq, eq.target)] + [
             _origin(eq, g['fn']) for g in groups]
-        self.key = _nvcc.source_key(
-            (_nvcc._CSRC / 'stencil.cuh').read_text(), source)
+        self.source = (_generate_stream(self) if design == 'stream'
+                       else _generate(eq, groups, param_names))
+        self.key = _nvcc.unit_key(self.source)
         n = len(groups) + 1
         self._ptrs = (ctypes.c_void_p * n)()
         self._strides = (ctypes.c_longlong * (2 * n))()
         self._n = (ctypes.c_int * 3)(*(self.extents + (1,) * (3 - self.ndim)))
         self._params = (ctypes.c_double * max(len(param_names), 1))()
+        if design == 'stream':
+            # rows in the launch's order: target, staged, centre
+            self._rows = [0] + [1 + k for k in staged + centre]
+            fns = [eq.target] + [g['fn'] for g in groups]
+            self._dims = (ctypes.c_longlong * (3 * n))(*[
+                d for r in self._rows for d in fns[r]._allocated_space()])
+            self._org = (ctypes.c_int * (3 * n))(*[
+                o for r in self._rows for o in self.origins[r]])
 
 
 def _access_key(e):
@@ -108,10 +151,13 @@ def _decline(eq, reason):
     return None
 
 
-def plan_for(eq):
+def plan_for(eq, _design=None, _tile=None):
     """A StencilPlan for a lowered dense equation, or None (logged and
-    counted in ``declines``) when the kernel cannot take it. The decision
-    rests on the equation's shape only, as the TPU backend's did."""
+    counted in ``declines``) when the kernel cannot take it. The decision,
+    and the choice of design, rest on the equation's shape only, as the
+    TPU backend's did. ``_design`` ('point') and ``_tile`` (a (TY, TZ,
+    PY, STAGES, TX) tuple for ``stream_tile``) override the choice: chip_smoke.py's
+    comparisons and tile sweep use them; nothing else does."""
     fn = eq.target
     if fn.grid is None:
         return _decline(eq, "target has no grid")
@@ -129,6 +175,7 @@ def plan_for(eq):
     own = [d.root.name if d.is_Derived else d.name
            for d in fn.space_dimensions]
     groups = OrderedDict()
+    offsets = {}
     for a in retrieve_functions(eq.rhs):
         f = a.function
         if f.is_SparseFunction:
@@ -155,6 +202,8 @@ def plan_for(eq):
                 return _decline(eq, f"{a} reads outside its allocation")
         groups.setdefault(_access_key(a), {'fn': f, 'tk': tk, 'toff': toff,
                                            'key': _access_key(a)})
+        offsets.setdefault(_access_key(a), set()).add(
+            tuple(int(o) for o in offs))
 
     params, coords = [], []
 
@@ -174,11 +223,111 @@ def plan_for(eq):
         return _decline(eq, "coordinate-dependent right-hand side")
     groups = list(groups.values())
     param_names = sorted(set(params))
+    design, reason, staged, centre, radii, tile = _choose_design(
+        eq, groups, [offsets[g['key']] for g in groups], _design, _tile)
     try:
-        source = _generate(eq, groups, param_names)
+        plan = StencilPlan(eq, groups, param_names, design, reason, staged,
+                           centre, radii, tile)
     except CompilationError as e:
         return _decline(eq, str(e))
-    return StencilPlan(eq, groups, param_names, source)
+    designs[design] += 1
+    debug(f"stencil kernel: {eq} runs in the {design} design ({reason})")
+    return plan
+
+
+# -- the choice of design ----------------------------------------------------
+
+#: H100 (sm_90): shared memory an SM gives its CTAs, the most one CTA may
+#: take, what the runtime reserves for each CTA, and threads an SM holds.
+SM_SMEM, BLOCK_SMEM, CTA_RESERVED, SM_THREADS = 233472, 232448, 1024, 2048
+#: 32-bit registers a thread may spend on its register queues. The kernel
+#: asks for two CTAs per SM (__launch_bounds__), which caps a 256-thread
+#: CTA at 128 registers, and the expression needs the rest.
+QUEUE_REGS = 48
+#: The streaming design's tile (TY, TZ, PY, STAGES, TX) by element size.
+#: fp32: within 2 % of the fastest tile of chip_smoke.py's sweep at 512^3
+#: SO=8 on an H100; fp64: half the points a thread and two stages, so its
+#: queues and ring take what fp32's take (PERF.md §6).
+STREAM_TILE = {4: (16, 64, 4, 3, 32), 8: (8, 64, 2, 2, 32)}
+#: The most staged groups, and the largest radius per axis, the streaming
+#: design takes: what its card tests (tests/test_torch_stencil_stream.py)
+#: build and check, spills and CTAs per SM included.
+MAX_STAGED, MAX_RADIUS = 2, 4
+
+
+def _round_up(v, m):
+    return -(-v // m) * m
+
+
+def stream_tile(dtype, radii, nstaged=1, ncentre=0, tile=None):
+    """``STREAM_TILE``'s tile of ``dtype`` -- or ``tile``, a (TY, TZ, PY,
+    STAGES, TX) tuple -- for ``nstaged`` staged groups read up to
+    ``radii`` = (rx, ry, rz) off their centre and ``ncentre`` centre
+    groups, if its ring of shared memory lets two or more CTAs share an SM
+    and its queues fit ``QUEUE_REGS``. Returns a dict of the tile (``ty,
+    tz, py, stages, tx``), its threads, TMA box (``box``: rows, elements a
+    row; ``box_row_bytes``), plane pitch, ``smem_bytes``, ``ctas_per_sm``
+    (from shared memory and threads; the registers cannot lower it below
+    2, see QUEUE_REGS) and ``queue_regs``; or None when it does not fit.
+    Mirrors ``csrc/stencil_stream.cuh`` ``StreamTile``."""
+    size = np.dtype(dtype).itemsize
+    rx, ry, rz = radii
+    ty, tz, py, stages, tx = tile or STREAM_TILE[size]
+    al = 16 // size        # boxes start and end on 16-byte boundaries
+    by, bz = ty + 2 * ry, _round_up(tz + 2 * rz + al - 1, al)
+    nslot = rx + stages
+    # barriers, the staged planes' ring, the centre tiles of each stage
+    smem = (128 + _round_up(8 * nslot, 128)
+            + nslot * nstaged * _round_up(by * bz * size, 128)
+            + stages * ncentre * _round_up(ty * (tz + al) * size, 128))
+    threads = tz * (ty // py)
+    ctas = min(SM_SMEM // (smem + CTA_RESERVED), SM_THREADS // threads,
+               32) if smem <= BLOCK_SMEM else 0
+    qregs = py * nstaged * (2 * rx + 1) * size // 4
+    if ctas < 2 or qregs > QUEUE_REGS or by > 256 or bz > 256:
+        return None
+    return dict(ty=ty, tz=tz, py=py, stages=stages, tx=tx, threads=threads,
+                box=(by, bz), box_row_bytes=bz * size, pitch=bz,
+                smem_bytes=smem, ctas_per_sm=ctas, queue_regs=qregs)
+
+
+def _choose_design(eq, groups, offsets, force=None, tile=None):
+    """(design, reason, staged, centre, radii, tile) for ``eq``, whose
+    groups are read at the sets of space offsets ``offsets``."""
+    centred = {(0,) * len(eq.region)}
+    staged = [k for k, o in enumerate(offsets) if o != centred]
+    centre = [k for k, o in enumerate(offsets) if o == centred]
+
+    def point(reason):
+        return 'point', reason, staged, centre, None, None
+
+    if force == 'point':
+        return point("asked for")
+    if len(eq.region) != 3:
+        return point(f"{len(eq.region)}-D region")
+    if not staged:
+        return point("no group is read off its centre")
+    for k in staged:
+        for o in sorted(offsets[k]):
+            if sum(1 for v in o if v) > 1:
+                return point(f"{groups[k]['fn'].name} is read at {o}, off "
+                             f"the axes")
+    radii = tuple(max(abs(o[d]) for k in staged for o in offsets[k])
+                  for d in range(3))
+    if len(staged) > MAX_STAGED or max(radii) > MAX_RADIUS:
+        return point(f"{len(staged)} staged groups, radii {radii}: the "
+                     f"streaming design takes up to {MAX_STAGED}, of radius "
+                     f"up to {MAX_RADIUS}")
+    fit = stream_tile(eq.target.dtype, radii, len(staged), len(centre),
+                      tile)
+    if fit is None:
+        return point(f"{len(staged)} staged groups, radii {radii}: the tile "
+                     f"does not fit two CTAs per SM and {QUEUE_REGS} queue "
+                     f"registers")
+    names = ', '.join(groups[k]['fn'].name for k in staged)
+    return ('stream', f"3-D star of {names}, radii {radii}, tile "
+            f"{fit['ty']}x{fit['tz']}x{fit['tx']}, {fit['ctas_per_sm']} "
+            f"CTAs/SM", staged, centre, radii, fit)
 
 
 def _distinct_rows(eq, tk, toff):
@@ -246,15 +395,108 @@ extern "C" int dtpu_stencil_launch(void* const* ptrs, const long long* strides,
 """
 
 
+class _StreamCtx(_CudaCtx):
+    """cuda_expr context of the streaming design: a staged group's x taps
+    read its register queue ``q[s]``, its y and z taps the current plane
+    in shared memory at ``sp[s]``; a centre group is the value ``cv[c]``
+    the kernel loaded from global memory for the point."""
+
+    def __init__(self, plan, ctype):
+        super().__init__(plan.groups, plan.param_names, ctype)
+        self.staged = {k: s for s, k in enumerate(plan.staged)}
+        self.centre = {k: c for c, k in enumerate(plan.centre)}
+        self.rx = plan.radii[0]
+
+    def access(self, e):
+        k = self.index[_access_key(e)]
+        if k in self.centre:
+            return f'cv[{self.centre[k]}]'
+        s = self.staged[k]
+        dx, dy, dz = space_offsets_of(e)
+        if dy:
+            return f'sp[{s}][{dy} * PZ]'
+        if dz:
+            return f'sp[{s}][{dz}]'
+        return f'q[{s}][{self.rx + dx}]'
+
+
+def _generate_stream(plan):
+    """The streaming design's translation unit of ``plan``: the template
+    at the plan's radii and tile, the point expression, and C entry
+    points for ctypes."""
+    eq, t = plan.eq, plan.tile
+    ctype = _CTYPE[plan.dtype]
+    expr = cuda_expr(eq.rhs, _StreamCtx(plan, ctype))
+    names = [', '.join(plan.groups[k]['fn'].name for k in ks) or '-'
+             for ks in (plan.staged, plan.centre)]
+    rx, ry, rz = plan.radii
+    return f"""// Generated from: {eq!r}
+#include "stencil_stream.cuh"
+
+using T = {ctype};
+constexpr int NS = {len(plan.staged)};  // staged groups: {names[0]}
+constexpr int NC = {len(plan.centre)};  // centre groups: {names[1]}
+constexpr int NP = {len(plan.param_names)};
+using Tile = dtpu::StreamTile<T, NS, NC, {rx}, {ry}, {rz}, {t['ty']}, \
+{t['tz']}, {t['py']}, {t['stages']}>;
+using Args = dtpu::StreamArgs<T, NS, NC, NP>;
+constexpr int PZ = Tile::PZ;
+
+// In an unnamed namespace, so that the kernel and the launch template
+// instantiated with it have internal linkage: another equation's library
+// in the same process instantiates the same names, and a local static of
+// an inline template would otherwise be one object for all of them.
+namespace {{
+struct Point {{
+  static __device__ __forceinline__ T eval(const T (&q)[NS][Tile::Q],
+                                           const T* const (&sp)[NS],
+                                           const T (&cv)[NC > 0 ? NC : 1],
+                                           const Args& a) {{
+    return {expr};
+  }}
+}};
+}}  // namespace
+
+extern "C" int dtpu_stream_launch(void* const* ptrs, const long long* dims,
+                                  const int* org, const int* n,
+                                  const double* params, int tx,
+                                  void* stream) {{
+  return dtpu::stream_launch<Tile, NP, Point>(ptrs, dims, org, n, params, tx,
+                                              stream);
+}}
+
+extern "C" int dtpu_stream_occupancy(int* ctas) {{
+  return dtpu::stream_occupancy<Tile, NP, Point>(ctas);
+}}
+"""
+
+
 def build(plan):
     """The ctypes entry point of ``plan``'s kernel: compiled with nvcc
     into ``_build/`` and loaded at the first call, cached after."""
-    fn = _nvcc.build(plan.key, 'stencil', plan.source).dtpu_stencil_launch
+    lib = _nvcc.build(plan.key, 'stencil', plan.source)
     # every pointer and the stream as c_void_p: a default int would cut
     # them to 32 bits
-    fn.argtypes = [ctypes.c_void_p] * 5
+    if plan.design == 'stream':
+        fn = lib.dtpu_stream_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn = lib.dtpu_stencil_launch
+        fn.argtypes = [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
+
+
+def stream_occupancy(plan):
+    """CTAs of ``plan``'s streaming kernel that fit on one SM of the
+    current device, as the CUDA runtime computes them from the kernel's
+    registers, shared memory and threads (builds the kernel)."""
+    fn = _nvcc.build(plan.key, 'stencil', plan.source).dtpu_stream_occupancy
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ctas = ctypes.c_int(0)
+    check_launch(fn(ctypes.addressof(ctas)), "occupancy query")
+    return ctas.value
 
 
 def point_flops(plan):
@@ -262,7 +504,8 @@ def point_flops(plan):
     of its generated point expression, outside the loads' index
     arithmetic."""
     body = plan.source.split('return', 1)[1].split(';', 1)[0]
-    body = re.sub(r'DTPU_LD\([^()]*\)', 'v', body)
+    body = re.sub(r'DTPU_LD\([^()]*\)|sp\[\d+\]\[[^]]*\]|cv\[\d+\]|'
+                  r'q\[\d+\]\[\d+\]', 'v', body)
     return sum(body.count(f' {op} ') for op in '+-*/')
 
 
@@ -305,14 +548,37 @@ def stencil_update(plan, rows, params):
     if out.device not in validated:
         validate_backend(out.device)
     entry = build(plan)
+    for i, name in enumerate(plan.param_names):
+        plan._params[i] = float(params[name])
+    if plan.design == 'stream':
+        rows = [out] + list(ins)
+        for i, r in enumerate(plan._rows):
+            if rows[r].data_ptr() % 16:
+                raise ValueError("the streaming kernel's rows must start on "
+                                 "16-byte boundaries (TMA)")
+            plan._ptrs[i] = rows[r].data_ptr()
+        with torch.cuda.device(out.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = entry(ctypes.addressof(plan._ptrs),
+                       ctypes.addressof(plan._dims),
+                       ctypes.addressof(plan._org),
+                       ctypes.addressof(plan._n),
+                       ctypes.addressof(plan._params), plan.tile['tx'],
+                       stream)
+        if rc < 0:
+            raise RuntimeError(f"streaming stencil kernel for {plan.eq!r}: "
+                               f"no tensor map (cuTensorMapEncodeTiled "
+                               f"returned {-rc}; 100000: not found)")
+        check_launch(rc, f"streaming stencil kernel for {plan.eq!r}")
+        launches += 1
+        launches_by_design['stream'] += 1
+        return
     for i, (r, org) in enumerate(zip([out] + list(ins), plan.origins)):
         st = r.stride()
         plan._ptrs[i] = r.data_ptr() + r.element_size() * sum(
             o * s for o, s in zip(org, st))
         plan._strides[2 * i] = st[0]
         plan._strides[2 * i + 1] = st[1] if plan.ndim == 3 else 0
-    for i, name in enumerate(plan.param_names):
-        plan._params[i] = float(params[name])
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = entry(ctypes.addressof(plan._ptrs),
@@ -321,6 +587,7 @@ def stencil_update(plan, rows, params):
                    ctypes.addressof(plan._params), stream)
     check_launch(rc, f"stencil kernel for {plan.eq!r}")
     launches += 1
+    launches_by_design['point'] += 1
 
 
 class _RowsCtx:

@@ -5,6 +5,7 @@ of its bounds."""
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,3 +45,40 @@ def test_star_points():
     # the interior and 4-deep slabs on each face of a 2^3 cube
     assert C.star_points(2) == 8 + 6 * 4 * 4
     assert C.star_points(2, faces=4) == 8 + 4 * 4 * 4
+
+
+def test_every_record_has_the_point_design_key():
+    assert 'point_ms' in C.RECORD_KEYS
+    assert C.KERNELS[0][:3] == ('stencil_update',
+                                'devito_tpu_torch/csrc/stencil_stream.cuh',
+                                'experiments/pallas_backend.py:303')
+
+
+@pytest.mark.parametrize('tile', C.FULL['sweep'])
+def test_sweep_tiles_fit_the_headline_equation(tile):
+    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch.kernels import stencil as K
+    with switchconfig(device='cpu'):
+        op, _ = C.operator_for('acoustic', (12, 13, 14), 8, np.float32)
+    plan = K.plan_for(op.kernel_plans[0][1].eq, _tile=tile)
+    assert plan.design == 'stream' and plan.tile['ctas_per_sm'] >= 2
+    assert tuple(plan.tile[k] for k in ('ty', 'tz', 'py', 'stages', 'tx')) \
+        == tile
+
+
+def test_time_host_measures_one_apply_and_restores_the_loop():
+    from devito_tpu_torch import switchconfig
+    with switchconfig(device='cpu'):
+        op, fns = C.operator_for('acoustic', (8, 9, 10), 4, np.float32)
+        fns['vp'].data[:] = 1.5
+        runner = op._runner
+        host = C.time_host(op)
+        op.apply(time_M=2, dt=0.1)
+    assert host['s'] > 0 and op._runner is runner
+
+
+def test_host_us_per_call_counts_every_call():
+    calls = []
+    us = C.host_us_per_call(lambda: calls.append(1), torch.device('cpu'),
+                            calls=5)
+    assert len(calls) == 6 and us >= 0

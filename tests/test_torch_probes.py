@@ -406,7 +406,8 @@ def test_entry_points_on_card(card, capsys):
 # -- the build helper ------------------------------------------------------------
 
 def test_stencil_build_key_unchanged():
-    """K1's build key is still the hash of stencil.cuh, the generated
+    """K1's build key (of its point design, which this 3-D star takes
+    only on request) is still the hash of stencil.cuh, the generated
     source and the nvcc flags, as before the helper was taken out."""
     import hashlib
     from devito_tpu_torch.ir.lowering import lower_expressions
@@ -416,7 +417,7 @@ def test_stencil_build_key_unchanged():
     eq = dt.Eq(u.forward, dt.solve(u.dt2 - u.laplace, u.forward))
     (item,) = [i for i in lower_expressions([eq], subs=g.spacing_map)
                .all_items if getattr(i, 'kind', '') == 'dense']
-    plan = K.plan_for(item)
+    plan = K.plan_for(item, _design='point')
     text = ((REPO / 'devito_tpu_torch/csrc/stencil.cuh').read_text()
             + plan.source + ' '.join(_nvcc._NVCC_FLAGS))
     assert plan.key == hashlib.sha256(text.encode()).hexdigest()[:20]

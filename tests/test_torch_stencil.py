@@ -108,6 +108,7 @@ def test_one_step_matches_pallas_kernel(shape, so, dtype):
     (it,) = _dense_items(lower_t([et], subs=gt.spacing_map))
     pj, pt = pb.plan_for(ij, None), K.plan_for(it)
     assert pj is not None and pt is not None
+    assert pt.design == ('stream' if len(shape) == 3 else 'point')
     params = {'dt': 0.7}
 
     rng = np.random.default_rng(so)
@@ -171,10 +172,11 @@ def test_increment_runs_in_translator():
 def test_generated_source():
     """What the CUDA printer emits: fp32 literals with the f suffix,
     small powers as products, symbols as kernel parameters, loads at
-    fixed offsets from the access groups' row pointers."""
+    fixed offsets from the access groups' row pointers (the point design;
+    a 3-D star streams by default, tests/test_torch_stencil_stream.py)."""
     g, e = _acoustic_eq(dt, (8, 9, 10), 4, np.float32)
     (it,) = _dense_items(lower_t([e], subs=g.spacing_map))
-    plan = K.plan_for(it)
+    plan = K.plan_for(it, _design='point')
     src = plan.source
     assert 'using T = float;' in src and 'constexpr int NG = 4;' in src
     assert plan.param_names == ['dt']
