@@ -44,6 +44,20 @@
    then each kernel against its plain version on seeded inputs at N=256
    and N=512, and timed beside its bound, its plain version, its library
    call and P1.
+9. The inverse problem on phase 5's solver (512^3 + nbl 10, SO=8, fp32,
+   412 steps), each entry point with K1's counts at 0 just before it and
+   read just after: (a) AcousticWaveSolver.adjoint of the forward shot's
+   record, one streaming launch a step; (b) builtins.smooth of vp, then
+   Born (jacobian) of a seeded dm about the smoothed model, with each
+   update's design and the launches its plan implies; (c) the
+   checkpointed gradient (jacobian_adjoint, checkpointing=True) of Born's
+   record, with the Revolver's snapshots and forward steps (the optimal
+   count + 1), the peak device memory, the cost of a reverse step and of
+   each apply, and the device time of the gradient's increment (torch
+   translator) under torch.profiler; (d) at 64^3 + nbl 10 in fp64: the F
+   and J dot tests, the checkpointed gradient against the full-save one,
+   and the adjoint and the gradient against the plain versions on the
+   CPU.
 
 Every failure raises, and the script exits non-zero. The next-to-last
 lines are the kernel records (one JSON line, a record per kernel, each with
@@ -52,8 +66,9 @@ result needs (each input point it reads once, each output point written
 once) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s, the H100
 SXM's data-sheet peaks -- the one PyTorch call that computes the same
 function, where there is one, and its launches on its own path and on the
-main path, phases 4 and 5, every kernel's count read there) and the card's
-name and power limit; the last line is {"ok": true, "device": {...}}.
+main path, phases 4, 5 and 9, every kernel's count read there) and the
+card's name and power limit; the last line is {"ok": true, "device":
+{...}}.
 """
 
 import importlib
@@ -68,6 +83,8 @@ import torch
 
 SEED = 1234
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
+#: Kernel against plain version over a whole run of many steps, x max
+RUN_TOL = {np.float32: 1e-4, np.float64: 1e-10}
 FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
                    ('3-D acoustic SO=2', (128, 128, 128), 2, 'acoustic'),
                    ('3-D acoustic SO=4', (128, 128, 128), 4, 'acoustic'),
@@ -95,7 +112,11 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
                        'neighbour_blocks_zeroed_step': (8,),
                        'tiles_step': (16, 32), 'xtiles_step': (16,)},
             # stencil_probe7: the entry points' N, then the compared sizes
-            p7_n=256, p7_sizes=(256, 512))
+            p7_n=256, p7_sizes=(256, 512),
+            # phase 9: the fp64 checks' model (+fwd_nbl), tn and receivers;
+            # the steps the gradient's increment and its reverse step are
+            # profiled over
+            inv_n=64, inv_tn=100., inv_nrec=64, inc_steps=10)
 #: (name, source, TPU kernel replaced, the part of the kernel's mangled name
 #: that picks its ptxas report out of its unit's) of every kernel, in record
 #: order.
@@ -306,7 +327,6 @@ def forward_profile(device, sizes):
     second of two runs is profiled. Only device events count (kernels,
     copies, fills): a torch op and the kernel it launches would otherwise
     both carry the kernel's time. Logs the table and returns it."""
-    from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
     solver = forward_solver(sizes['fwd_n'], sizes['fwd_nbl'],
                             sizes['prof_tn'], sizes['fwd_nrec'])
@@ -320,16 +340,7 @@ def forward_profile(device, sizes):
         sync(device)
         wall = time.perf_counter() - tic
     nsteps = solver.geometry.nt - 2
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, 'self_device_time_total', None)
-        if dev_us is None:
-            dev_us = getattr(e, 'self_cuda_time_total', 0)
-        if dev_us > 0:
-            rows.append((e.key, dev_us / 1e3 / nsteps, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = [(k, ms / nsteps, c) for k, ms, c in device_rows(prof)]
     busy = sum(r[1] for r in rows)
     loop = summary.globals['fdlike'].time * 1e3 / nsteps
     res = dict(steps=nsteps, wall_ms_per_step=wall * 1e3 / nsteps,
@@ -347,6 +358,47 @@ def forward_profile(device, sizes):
     if device.type == 'cuda':
         torch.cuda.empty_cache()
     return res
+
+
+def device_rows(prof):
+    """(name, device ms, calls) of every device event (kernels, copies,
+    fills) of a torch.profiler run, longest first. Only device events
+    count: a torch op and the kernel it launches would otherwise both
+    carry the kernel's time."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, 'self_device_time_total', None)
+        if dev_us is None:
+            dev_us = getattr(e, 'self_cuda_time_total', 0)
+        if dev_us > 0:
+            rows.append((e.key, dev_us / 1e3, e.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profiled(fn, device):
+    """``device_rows`` of one call of ``fn`` under torch.profiler."""
+    from torch.profiler import profile, ProfilerActivity
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == 'cuda' else [])
+    with profile(activities=acts) as prof:
+        fn()
+        sync(device)
+    return device_rows(prof)
+
+
+def release(device):
+    """Free the device memory of the Functions that earlier work dropped:
+    sympy's cache keeps every Function it has seen, and with it the
+    function's tensor, until it is cleared."""
+    import gc
+    from sympy.core.cache import clear_cache
+    clear_cache()
+    gc.collect()
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
 
 
 def sync(device):
@@ -389,14 +441,15 @@ def headline_operator(n, device):
     return op, fns
 
 
-def forward_solver(n, nbl, tn, nrec):
+def forward_solver(n, nbl, tn, nrec, dtype=np.float32):
     """AcousticWaveSolver on demo_model('layers-isotropic') at n^3, 10 m
-    spacing, SO=8; a 10 Hz Ricker at the centre of the surface at z=20 m;
-    ``nrec`` receivers along x at y centre, z=20 m."""
+    spacing, SO=8, in ``dtype``; a 10 Hz Ricker at the centre of the
+    surface at z=20 m; ``nrec`` receivers along x at y centre, z=20 m."""
     from devito_tpu_torch.models.seismic import (
         demo_model, AcquisitionGeometry, AcousticWaveSolver)
     model = demo_model('layers-isotropic', shape=(n, n, n),
-                       spacing=(10., 10., 10.), nbl=nbl, space_order=8)
+                       spacing=(10., 10., 10.), nbl=nbl, space_order=8,
+                       dtype=dtype)
     ext = 10. * (n - 1)
     src = np.array([[ext / 2, ext / 2, 20.]])
     rec = np.stack([np.linspace(0, ext, nrec), np.full(nrec, ext / 2),
@@ -404,6 +457,29 @@ def forward_solver(n, nbl, tn, nrec):
     geom = AcquisitionGeometry(model, rec, src, 0., tn, f0=0.010,
                                src_type='Ricker')
     return AcousticWaveSolver(model, geom, space_order=8)
+
+
+def inverse_ops(solver, full_save):
+    """(label, Operator) of the inverse problem on ``solver``, built as its
+    entry points build them (memoized on the solver): the adjoint, Born,
+    the checkpointed gradient and its rolling forward; with ``full_save``,
+    also the full-save gradient and forward."""
+    ops = [('op_adj', solver.op_adj()), ('op_born', solver.op_born()),
+           ('op_grad(save=False)', solver.op_grad(save=False)),
+           ('op_fwd(save=False)', solver.op_fwd(save=False))]
+    if full_save:
+        ops += [('op_grad', solver.op_grad()),
+                ('op_fwd(True)', solver.op_fwd(True))]
+    return ops
+
+
+def smooth_plan(f, g):
+    """The plan of the operator ``builtins.smooth(f, g)`` builds (a moving
+    average along the last axis)."""
+    from devito_tpu_torch import Eq, Operator
+    op = Operator(Eq(f, g.avg(dims=g.dimensions[-1])), name='smoother')
+    (_, plan), = op.kernel_plans
+    return plan
 
 
 def smoke(device, sizes):
@@ -415,7 +491,7 @@ def smoke(device, sizes):
 
 
 def _smoke(device, sizes):
-    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch import Function, switchconfig
     from devito_tpu_torch.compiler.executor import plan_rows
     from devito_tpu_torch.kernels import stencil as K, _nvcc
     from concurrent.futures import ThreadPoolExecutor
@@ -437,9 +513,26 @@ def _smoke(device, sizes):
                             sizes['fwd_tn'], sizes['fwd_nrec'])
     small = forward_solver(sizes['fwd_compare_n'], sizes['fwd_nbl'],
                            sizes['fwd_tn'], sizes['fwd_nrec'])
+    # phase 9's operators: on the forward shot's solver, and on an fp64
+    # solver of its own; smooth's operator into vp0
+    small64 = forward_solver(sizes['inv_n'], sizes['fwd_nbl'],
+                             sizes['inv_tn'], sizes['inv_nrec'], np.float64)
+    vp0 = Function(name='vp0', grid=solver.model.grid, space_order=8)
+    inv_plans = [(lab, eq, p) for s_, full in ((solver, False),
+                                               (small64, True))
+                 for lab, op in inverse_ops(s_, full)
+                 for eq, p in op.kernel_plans]
+    bad = [(lab, K.decline_reason(eq)) for lab, eq, p in inv_plans
+           if p is None and not (lab.startswith('op_grad') and
+                                 K.decline_reason(eq) == 'increment')]
+    if bad:
+        raise AssertionError(f"phase 9 declined more than the gradient's "
+                             f"increment: {bad}")
     plans = [p for _, p in cases] + \
         [p for op in (head_op, solver.op_fwd(None), small.op_fwd(None))
-         for _, p in op.kernel_plans]
+         for _, p in op.kernel_plans] + \
+        [p for _, _, p in inv_plans if p is not None] + \
+        [smooth_plan(vp0, solver.model.vp)]
     if any(p is None for p in plans):
         raise AssertionError("an equation of the smoke path was declined")
     hplan = head_op.kernel_plans[0][1]
@@ -728,7 +821,7 @@ def _smoke(device, sizes):
     log(f"[forward] the same shot again (warm): loop "
         f"{wloop * 1e3 / nsteps:.3f} ms/step, host time in the loop "
         f"{host['s'] * 1e3 / nsteps:.3f} ms/step")
-    del solver, rec, fop
+    del rec, fop        # the solver stays for phase 9
     if device.type == 'cuda':
         torch.cuda.empty_cache()
 
@@ -738,7 +831,7 @@ def _smoke(device, sizes):
                                sizes['fwd_tn'], sizes['fwd_nrec'])
         rp = np.array(plain.forward()[0].data)
     err = np.abs(rk - rp).max()
-    tol = 1e-4 * np.abs(rp).max()
+    tol = RUN_TOL[np.float32] * np.abs(rp).max()
     if not err <= tol:
         raise AssertionError(f"forward at {sizes['fwd_compare_n']}^3: "
                              f"kernel and plain recs differ by {err:.3e}")
@@ -762,6 +855,11 @@ def _smoke(device, sizes):
     probe7(device, sizes, gen, records, ceiling)
     if len(K.build_seconds) != nbuilds:
         raise AssertionError("the probe entry points built a kernel")
+    inverse(device, sizes, solver, r, vp0, small64, record)
+    if len(K.build_seconds) != nbuilds:
+        raise AssertionError("the inverse problem built a kernel")
+    if (K.selftests, K.selftest_launches) != (on_card, on_card):
+        raise AssertionError("the inverse problem ran the self-test again")
     for rec in records:
         rec.setdefault('library_ms', None)
         rec.setdefault('point_ms', None)
@@ -1335,6 +1433,377 @@ def probe7(device, sizes, gen, records, ceiling):
         f"add")
 
 
+def call_stats(op):
+    """Wrap ``op``'s apply, argument preparation and time loop so that
+    each call adds to the returned dict: ``calls``, the seconds apply
+    takes (``wall``), the host seconds in ``_prepare`` and in the loop's
+    enqueue (``prepare``, ``loop_host``), and the loop's device seconds
+    (``loop``, CUDA events, from the summary). Returns (the dict, a
+    function that undoes the wrapping)."""
+    st = dict(calls=0, wall=0., prepare=0., loop_host=0., loop=0.)
+    apply, prepare, runner = op.apply, op._prepare, op._runner
+
+    def _apply(**kwargs):
+        tic = time.perf_counter()
+        summary = apply(**kwargs)
+        st['wall'] += time.perf_counter() - tic
+        st['calls'] += 1
+        st['loop'] += summary.globals['fdlike'].time
+        return summary
+
+    def _prepare(kwargs):
+        tic = time.perf_counter()
+        out = prepare(kwargs)
+        st['prepare'] += time.perf_counter() - tic
+        return out
+
+    def _run(*args):
+        tic = time.perf_counter()
+        runner(*args)
+        st['loop_host'] += time.perf_counter() - tic
+
+    _run.plans = runner.plans
+    op.apply, op._prepare, op._runner = _apply, _prepare, _run
+
+    def undo():
+        del op.apply, op._prepare
+        op._runner = runner
+    return st, undo
+
+
+def per_call_ms(st):
+    """``call_stats``'s sums as milliseconds a call."""
+    n = max(st['calls'], 1)
+    return {k: v * 1e3 / n for k, v in st.items() if k != 'calls'}
+
+
+def step_kernels(label, rows, steps):
+    """Log and return ``profiled``'s rows of a run of ``steps`` steps as
+    device ms a step by kernel, with the busy total."""
+    busy = sum(m for _, m, _ in rows) / steps
+    log(f"[profile] {label}: device busy {busy:.4f} ms a step ({steps} "
+        f"steps); by kernel: " + '; '.join(
+            f"{m / steps:.4f} ms x{c / steps:g}: {n[:70]}"
+            for n, m, c in rows[:6]))
+    return dict(busy_ms_per_step=busy, kernels=[
+        dict(name=n[:120], ms_per_step=m / steps, calls=c)
+        for n, m, c in rows[:8]])
+
+
+def inverse(device, sizes, solver, shot, vp0, small, record):
+    """Phase 9: the inverse problem on the forward shot's solver, each
+    entry point driven with K1's counts at 0 just before it and read just
+    after: (a) the adjoint of the shot's record; (b) smooth, then Born
+    about the smoothed model; (c) the checkpointed gradient of Born's
+    record (J^T J dm), with its Revolver's counts, its peak memory, its
+    cost a reverse step and the increment's device time; then (d) the fp64
+    checks on ``small``: the dot tests, the checkpointed gradient against
+    the full-save one, and the adjoint and the gradient against the plain
+    versions on the CPU. Adds its launches to K1's ``record``."""
+    from devito_tpu_torch import Function, TimeFunction
+    from devito_tpu_torch import checkpointing as CK
+    from devito_tpu_torch.builtins import inner, norm, smooth
+    from devito_tpu_torch.compiler.executor import _exec_dense
+    from devito_tpu_torch.experiments import bound_ms
+    from devito_tpu_torch.kernels import stencil as K
+    on_card = int(device.type == 'cuda')     # the CPU runs no K1 kernel
+    nsteps = solver.geometry.nt - 2
+    nf = sizes['fwd_n'] + 2 * sizes['fwd_nbl']
+    inv = record['inverse'] = {}
+    paths = record.setdefault('launches_by_path', {})
+    rng = np.random.default_rng(SEED)
+    release(device)
+    if on_card:
+        log(f"[inverse] device memory allocated at the start of phase 9: "
+            f"{torch.cuda.memory_allocated(device) / 1e9:.2f} GB")
+
+    def drive(label, fn, plans, steps, extra_stream=0):
+        """``fn()`` with every kernel's count at 0 just before and read
+        just after (K2's, which runs once a process, is read before and
+        after); raises unless each plan launched its design ``steps``
+        times (and the streaming design ``extra_stream`` more) and no other
+        kernel launched. Returns fn's result, the launches by design and
+        the wall seconds."""
+        K.launches = 0
+        K.launches_by_design.update(point=0, stream=0)
+        probe_launches(zero=True)
+        k2 = K.selftest_launches
+        tic = time.perf_counter()
+        out = fn()
+        sync(device)
+        wall = time.perf_counter() - tic
+        by = dict(K.launches_by_design)
+        want = {d: on_card * (steps * sum(p.design == d for p in plans)
+                              + (extra_stream if d == 'stream' else 0))
+                for d in ('stream', 'point')}
+        if by != want or K.launches != sum(by.values()):
+            raise AssertionError(f"{label} launched K1 {by} times, not "
+                                 f"{want}")
+        off = {n: c for n, c in probe_launches().items() if c}
+        if off or K.selftest_launches != k2:
+            raise AssertionError(f"{label} launched kernels off its path: "
+                                 f"{off}, K2 {K.selftest_launches - k2}")
+        paths[label] = by
+        return out, by, wall
+
+    def finite_nonzero(label, a):
+        a = np.asarray(a)
+        if not (np.isfinite(a).all() and np.abs(a).max() > 0):
+            raise AssertionError(f"{label} is not finite and non-zero")
+        return float(np.linalg.norm(a))
+
+    # -- (a) the adjoint of the forward shot's record ---------------------
+    aop = solver.op_adj()
+    (_, aplan), = aop.kernel_plans
+    rec = solver.geometry.rec
+    rec.data[:] = shot
+    host = time_host(aop)
+    (srca, _, asum), by, wall = drive(
+        'adjoint', lambda: solver.adjoint(rec), [aplan], nsteps)
+    loop = asum.globals['fdlike'].time
+    inv['adjoint'] = dict(
+        design=aplan.design, design_reason=aplan.design_reason,
+        ms_per_step=loop * 1e3 / nsteps,
+        host_ms_per_step=host['s'] * 1e3 / nsteps, wall_s=wall,
+        srca_norm=finite_nonzero('adjoint: srca', srca.data))
+    log(f"[adjoint] {nf}^3 SO=8 fp32, {nsteps} steps back from the forward "
+        f"shot's {rec.npoint} receivers: v.backward in the {aplan.design} "
+        f"design ({aplan.design_reason}); launches stream {by['stream']}, "
+        f"point {by['point']} (one streaming launch a step); loop "
+        f"{loop * 1e3 / nsteps:.3f} ms/step, host time in the loop "
+        f"{host['s'] * 1e3 / nsteps:.3f} ms/step; wall {wall:.2f} s; srca "
+        f"norm {inv['adjoint']['srca_norm']:.6g}")
+    k = sizes['inc_steps']
+    inv['adjoint']['device_by_kernel'] = step_kernels(
+        'adjoint', profiled(lambda: solver.adjoint(rec, time_m=nsteps + 1 - k),
+                            device), k)
+    del srca, rec
+    release(device)
+
+    # -- (b) smooth, then Born about the smoothed model ---------------------
+    _, by, wall = drive('smooth', lambda: smooth(vp0, solver.model.vp), [],
+                        0, extra_stream=1)
+    log(f"[born] smooth(vp0, vp) at {nf}^3: one streaming launch, wall "
+        f"{wall:.2f} s")
+    dm = Function(name='dm', grid=solver.model.grid, space_order=0)
+    dm.data[:] = 1e-3 * rng.standard_normal(dm.shape, dtype=np.float32)
+    bop = solver.op_born()
+    bplans = [p for _, p in bop.kernel_plans]
+    host = time_host(bop)
+    (lin, u, U, bsum), by, wall = drive(
+        'born', lambda: solver.jacobian(dm, vp=vp0), bplans, nsteps)
+    del u, U
+    loop = bsum.globals['fdlike'].time
+    inv['born'] = dict(
+        designs={eq.target.name: (p.design, p.design_reason)
+                 for eq, p in bop.kernel_plans},
+        ms_per_step=loop * 1e3 / nsteps,
+        host_ms_per_step=host['s'] * 1e3 / nsteps, wall_s=wall,
+        rec_norm=finite_nonzero('Born: the linearized record', lin.data))
+    log(f"[born] {nsteps} steps about smooth(vp), dm seeded normal x 1e-3: "
+        + '; '.join(f"{eq.target.name}.forward in the {p.design} design "
+                    f"({p.design_reason})" for eq, p in bop.kernel_plans)
+        + f"; launches stream {by['stream']}, point {by['point']} ("
+        f"{by['stream'] // max(nsteps, 1)} + {by['point'] // max(nsteps, 1)}"
+        f" a step, as the plans imply); loop {loop * 1e3 / nsteps:.3f} "
+        f"ms/step, host time in the loop {host['s'] * 1e3 / nsteps:.3f} "
+        f"ms/step; wall {wall:.2f} s; linearized record norm "
+        f"{inv['born']['rec_norm']:.6g}")
+    inv['born']['device_by_kernel'] = step_kernels(
+        'born', profiled(lambda: solver.jacobian(dm, vp=vp0, time_M=k),
+                         device), k)
+    release(device)
+
+    # -- (c) the checkpointed gradient of Born's record ----------------------
+    gop, fop = solver.op_grad(save=False), solver.op_fwd(save=False)
+    gplan, fplan = gop.kernel_plans[0][1], fop.kernel_plans[0][1]
+    (inc_eq,) = [eq for eq, p in gop.kernel_plans if p is None]
+    made, revolver = [], CK.Revolver
+
+    class Timed(revolver):
+        """The Revolver, with the wall seconds of its two sweeps."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def apply_forward(self):
+            tic = time.perf_counter()
+            super().apply_forward()
+            sync(device)
+            self.forward_s = time.perf_counter() - tic
+
+        def apply_reverse(self):
+            tic = time.perf_counter()
+            super().apply_reverse()
+            sync(device)
+            self.reverse_s = time.perf_counter() - tic
+
+    # the Revolver's default: sqrt(nt) snapshots, the optimal count + 1
+    ncp = max(1, int(np.sqrt(nsteps)))
+    opt = CK.optimal_forward_count(nsteps, ncp - 1)
+    gst, gundo = call_stats(gop)
+    fst, fundo = call_stats(fop)
+    CK.Revolver = Timed
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device) if on_card else None
+    try:
+        (grad, _), by, wall = drive(
+            'gradient', lambda: solver.jacobian_adjoint(
+                lin, None, vp=vp0, checkpointing=True), [gplan], nsteps,
+            extra_stream=(opt + 1) * len(fop.kernel_plans))
+    finally:
+        CK.Revolver = revolver
+        gundo()
+        fundo()
+    (rv,) = made
+    if (rv.n_checkpoints, rv.nt, rv.forward_steps) != (ncp, nsteps, opt + 1):
+        raise AssertionError(f"Revolver: {rv.n_checkpoints} snapshots, "
+                             f"{rv.forward_steps} forward steps over "
+                             f"{rv.nt}, not {ncp}, {opt} + 1 over {nsteps}")
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    snap_bytes = rv.n_checkpoints * rv.cp.size * 4
+    g = finite_nonzero('the gradient', grad.data)
+    t1, t2 = inner(grad, dm), norm(lin) ** 2
+    gpc, fpc = per_call_ms(gst), per_call_ms(fst)
+    inv['gradient'] = dict(
+        snapshots=rv.n_checkpoints, snapshot_bytes=snap_bytes,
+        max_memory_allocated=peak, memory_allocated_before=held,
+        forward_steps=rv.forward_steps,
+        reverse_recompute_steps=rv.reverse_recompute_steps,
+        optimal_forward_count=opt, forward_sweep_s=rv.forward_s,
+        reverse_sweep_s=rv.reverse_s,
+        reverse_ms_per_step=rv.reverse_s * 1e3 / nsteps,
+        grad_apply_calls=gst['calls'], grad_apply_ms=gpc,
+        fwd_apply_calls=fst['calls'], fwd_apply_ms=fpc, wall_s=wall,
+        grad_norm=g, dot_J_fp32=(t1 - t2) / t1)
+    log(f"[gradient] checkpointed, {rv.nt} steps, {rv.n_checkpoints} "
+        f"snapshots of u ({snap_bytes / 1e9:.2f} GB on the device); peak "
+        f"device memory {peak / 1e9 if peak else float('nan'):.2f} GB "
+        f"(torch.cuda.max_memory_allocated), of it "
+        f"{held / 1e9 if held else float('nan'):.2f} GB allocated before the "
+        f"call; Revolver forward_steps "
+        f"{rv.forward_steps} = optimal_forward_count({rv.nt}, "
+        f"{rv.n_checkpoints - 1}) {opt} + 1, reverse_recompute_steps "
+        f"{rv.reverse_recompute_steps}; launches stream {by['stream']} = "
+        f"{rv.forward_steps} forward + {rv.nt} reverse, point "
+        f"{by['point']}; gradient's v.backward {gplan.design}, its Inc "
+        f"declined ({K.decline_reason(inc_eq)}): the torch translator")
+    log(f"[gradient] forward sweep {rv.forward_s:.2f} s, reverse sweep "
+        f"{rv.reverse_s:.2f} s = {rv.reverse_s * 1e3 / nsteps:.3f} ms a "
+        f"reversed step; a reverse apply ({gst['calls']} calls): wall "
+        f"{gpc['wall']:.3f} ms, of it host {gpc['prepare']:.3f} ms in "
+        f"_prepare and {gpc['loop_host']:.3f} ms in the loop, loop "
+        f"{gpc['loop']:.3f} ms (CUDA events); a forward apply "
+        f"({fst['calls']} calls): wall {fpc['wall']:.3f} ms, prepare "
+        f"{fpc['prepare']:.3f} ms; wall {wall:.2f} s; gradient norm {g:.6g}; "
+        f"<dm, J^T J dm> against |J dm|^2 in fp32: {(t1 - t2) / t1:.3e}")
+
+    # the increment alone, and whole reverse steps, under torch.profiler
+    v = TimeFunction(name='v', grid=solver.model.grid, time_order=2,
+                     space_order=8)
+    args = dict(rec=lin, grad=grad, v=v, vp=vp0, dt=solver.dt)
+    bufs, params = gop.arguments(**args)
+
+    def incs():
+        for t in range(1, k + 1):
+            _exec_dense(inc_eq, None, bufs, params, t)
+
+    def reverse_steps():
+        for t in range(nsteps, nsteps - k, -1):
+            gop.apply(time_m=t, time_M=t, **args)
+    inc = step_kernels('Inc(grad, -u*v.dt2)', profiled(incs, device), k)
+    step = step_kernels('a reverse step', profiled(reverse_steps, device), k)
+    inc_ms, step_ms = inc['busy_ms_per_step'], step['busy_ms_per_step']
+    inc_event_ms = time_ms(incs, 1, device) / k
+    # u, v[t-1], v[t], v[t+1] and grad read, grad written, once each
+    inc_bound = bound_ms(6 * 4 * nf ** 3, 0)[0]
+    inv['gradient'].update(
+        inc_device_ms_per_step=inc_ms, inc_event_ms_per_step=inc_event_ms,
+        reverse_step_device_ms=step_ms,
+        inc_share=inc_ms / step_ms if step_ms else None,
+        inc_bound_ms=inc_bound, inc_kernels=inc['kernels'],
+        reverse_step_kernels=step['kernels'])
+    log(f"[gradient] Inc(grad, -u*v.dt2) at {nf}^3: device time "
+        f"{inc_ms:.4f} ms a step (torch.profiler; CUDA events "
+        f"{inc_event_ms:.4f} ms) = {100 * inc_ms / (step_ms or 1):.1f} % of "
+        f"a reverse step's {step_ms:.4f} ms device time; the bytes it "
+        f"needs bound it at {inc_bound:.4f} ms")
+    del grad, lin, dm, v, bufs, params, args
+    release(device)
+    for by in paths.values():
+        record['launches'] += sum(by.values())
+        for d in by:
+            record['launches_by_design'][d] += by[d]
+    record['launches_main_path'] = record['launches']
+
+    # -- (d) fp64 checks at a small size --------------------------------------
+    inv['fp64'] = inverse_fp64(device, sizes, small, rng)
+
+
+def inverse_fp64(device, sizes, small, rng):
+    """Phase 9 (d) on ``small`` (fp64): the F and J dot tests, the
+    checkpointed gradient against the full-save one, and the adjoint's and
+    the full-save gradient's results against the same operators on the
+    plain versions (the CPU), from the same inputs."""
+    from devito_tpu_torch import Function, switchconfig
+    from devito_tpu_torch.builtins import inner, norm
+    n = sizes['inv_n'] + 2 * sizes['fwd_nbl']
+    rec = small.forward(save=False)[0]
+    srca = small.adjoint(rec)[0]
+    t1, t2 = inner(srca, small.geometry.src), norm(rec) ** 2
+    dot_f = (t1 - t2) / t1
+    dm = Function(name='dm', grid=small.model.grid, space_order=0)
+    dm.data[:] = 1e-2 * rng.standard_normal(dm.shape)
+    du = small.jacobian(dm)[0]
+    u0 = small.forward(save=True)[1]
+    g_full = np.array(small.jacobian_adjoint(du, u0)[0].data)
+    t1 = float(np.dot(g_full.ravel(), np.asarray(dm.data).ravel()))
+    t2 = norm(du) ** 2
+    dot_j = (t1 - t2) / t1
+    g_ck = np.array(small.jacobian_adjoint(du, None,
+                                           checkpointing=True)[0].data)
+    ck_diff = float(np.abs(g_ck - g_full).max())
+    with switchconfig(device='cpu'):
+        plain = forward_solver(sizes['inv_n'], sizes['fwd_nbl'],
+                               sizes['inv_tn'], sizes['inv_nrec'],
+                               np.float64)
+        prec = plain.geometry.rec
+        prec.data[:] = np.array(rec.data)
+        s_plain = np.array(plain.adjoint(prec)[0].data)
+        pdu = plain.geometry.rec
+        pdu.data[:] = np.array(du.data)
+        pu0 = plain.forward(save=True)[1]
+        g_plain = np.array(plain.jacobian_adjoint(pdu, pu0)[0].data)
+    s_card = np.array(srca.data)
+    err_s = float(np.abs(s_card - s_plain).max())
+    err_g = float(np.abs(g_full - g_plain).max())
+    tol = RUN_TOL[np.float64]
+    res = dict(n=n, steps=small.geometry.nt - 2, dot_F=dot_f, dot_J=dot_j,
+               ck_minus_full=ck_diff, ck_bit_equal=ck_diff == 0.,
+               adjoint_vs_plain=err_s, gradient_vs_plain=err_g,
+               srca_max=float(np.abs(s_plain).max()),
+               grad_max=float(np.abs(g_plain).max()))
+    log(f"[inverse-fp64] {n}^3 SO=8 fp64, {res['steps']} steps: dot test "
+        f"F {dot_f:.3e} (atol 1e-11), J {dot_j:.3e} (atol 1e-12); "
+        f"checkpointed - full-save gradient: max|diff| {ck_diff:.3e}"
+        + (" (bit-equal)" if ck_diff == 0 else "")
+        + f"; against the plain versions on the CPU: srca max|diff| "
+        f"{err_s:.3e} of {res['srca_max']:.3e}, gradient {err_g:.3e} of "
+        f"{res['grad_max']:.3e} (tolerance {tol:g} x max)")
+    if not (abs(dot_f) <= 1e-11 and abs(dot_j) <= 1e-12):
+        raise AssertionError(f"fp64 dot tests: F {dot_f:.3e}, J {dot_j:.3e}")
+    if not ck_diff <= TOL[np.float64] * np.abs(g_full).max():
+        raise AssertionError(f"checkpointed gradient differs from the "
+                             f"full-save one by {ck_diff:.3e}")
+    if not (err_s <= tol * res['srca_max'] and
+            err_g <= tol * res['grad_max'] and res['grad_max'] > 0):
+        raise AssertionError(f"fp64 adjoint/gradient against the plain "
+                             f"versions: {err_s:.3e}, {err_g:.3e}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
@@ -1345,7 +1814,9 @@ def main():
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    tic = time.perf_counter()
     kind, records = smoke(torch.device('cuda', 0), FULL)
+    log(f"[smoke] phases 2-9 in {time.perf_counter() - tic:.1f} s")
     print(json.dumps({'kernels': records}))
     print(smi())
     print(json.dumps({'ok': True, 'device': {

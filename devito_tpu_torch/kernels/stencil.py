@@ -59,8 +59,8 @@ from ..types.basic import AbstractFunction, retrieve_functions
 from ..types.dense import torch_dtype
 from ..types.dimension import Dimension
 
-__all__ = ['StencilPlan', 'plan_for', 'build', 'point_flops',
-           'stream_tile', 'stream_occupancy', 'stencil_update',
+__all__ = ['StencilPlan', 'plan_for', 'decline_reason', 'build',
+           'point_flops', 'stream_tile', 'stream_occupancy', 'stencil_update',
            'stencil_update_reference', 'validate_backend',
            'selftest_window_sum', 'selftest_window_sum_reference']
 
@@ -144,33 +144,52 @@ def _origin(eq, fn):
                  in zip(eq.region, fn.halo, fn.origin_offset))
 
 
-def _decline(eq, reason):
-    global declines
-    declines += 1
-    debug(f"stencil kernel: {eq} runs in the torch translator ({reason})")
-    return None
-
-
 def plan_for(eq, _design=None, _tile=None):
     """A StencilPlan for a lowered dense equation, or None (logged and
     counted in ``declines``) when the kernel cannot take it. The decision,
     and the choice of design, rest on the equation's shape only, as the
     TPU backend's did. ``_design`` ('point') and ``_tile`` (a (TY, TZ,
-    PY, STAGES, TX) tuple for ``stream_tile``) override the choice: chip_smoke.py's
-    comparisons and tile sweep use them; nothing else does."""
+    PY, STAGES, TX) tuple for ``stream_tile``) override the choice:
+    chip_smoke.py's comparisons and tile sweep use them; nothing else
+    does."""
+    global declines
+    plan, reason = _plan_or_reason(eq, _design, _tile)
+    if plan is None:
+        declines += 1
+        debug(f"stencil kernel: {eq} runs in the torch translator ({reason})")
+        return None
+    designs[plan.design] += 1
+    debug(f"stencil kernel: {eq} runs in the {plan.design} design "
+          f"({reason})")
+    return plan
+
+
+def decline_reason(eq):
+    """Why ``plan_for`` declines ``eq``, or None when it plans it; counts
+    and logs nothing."""
+    plan, reason = _plan_or_reason(eq)
+    return None if plan is not None else reason
+
+
+def _plan_or_reason(eq, _design=None, _tile=None):
+    """``(plan, design_reason)``, or ``(None, why the kernel declines
+    eq)``."""
     fn = eq.target
     if fn.grid is None:
-        return _decline(eq, "target has no grid")
+        return None, "target has no grid"
     if any(a < 0 for a, _ in eq.region):
-        return _decline(eq, "halo-extended region")
+        return None, "halo-extended region"
     ndim = len(eq.region)
     if ndim not in (2, 3):
-        return _decline(eq, f"{ndim}-D region")
-    if eq.condition is not None or eq.reduction is not None or \
-            eq.increment:
-        return _decline(eq, "condition, reduction or increment")
+        return None, f"{ndim}-D region"
+    if eq.condition is not None:
+        return None, "condition"
+    if eq.reduction is not None:
+        return None, "reduction"
+    if eq.increment:
+        return None, "increment"
     if np.dtype(fn.dtype) not in _CTYPE:
-        return _decline(eq, f"dtype {np.dtype(fn.dtype)}")
+        return None, f"dtype {np.dtype(fn.dtype)}"
 
     own = [d.root.name if d.is_Derived else d.name
            for d in fn.space_dimensions]
@@ -179,27 +198,27 @@ def plan_for(eq, _design=None, _tile=None):
     for a in retrieve_functions(eq.rhs):
         f = a.function
         if f.is_SparseFunction:
-            return _decline(eq, "sparse read")
+            return None, "sparse read"
         if np.dtype(f.dtype) != np.dtype(fn.dtype):
-            return _decline(eq, f"mixed dtypes ({f.name})")
+            return None, f"mixed dtypes ({f.name})"
         dims = [d.root.name if d.is_Derived else d.name
                 for d in f.space_dimensions]
         if dims != own:
-            return _decline(eq, f"{f.name} is not indexed like the target")
+            return None, f"{f.name} is not indexed like the target"
         try:
             offs = space_offsets_of(a)
         except InvalidOperator:
-            return _decline(eq, "absolute or non-affine index")
+            return None, "absolute or non-affine index"
         tk, toff = time_access_of(a)
         if f.name == fn.name and not _distinct_rows(eq, tk, toff):
             # the kernel writes in place: a read of the written row
             # would see other threads' new values
-            return _decline(eq, "reads its own written row")
+            return None, "reads its own written row"
         for (s, e), (hl, hr), oo, o, n in zip(
                 eq.region, f.halo, f.origin_offset, offs,
                 f._allocated_space()):
             if hl + s - oo + o < 0 or hl + e - oo + o > n:
-                return _decline(eq, f"{a} reads outside its allocation")
+                return None, f"{a} reads outside its allocation"
         groups.setdefault(_access_key(a), {'fn': f, 'tk': tk, 'toff': toff,
                                            'key': _access_key(a)})
         offsets.setdefault(_access_key(a), set()).add(
@@ -220,7 +239,7 @@ def plan_for(eq, _design=None, _tile=None):
 
     _scan(sympy.sympify(eq.rhs))
     if coords:
-        return _decline(eq, "coordinate-dependent right-hand side")
+        return None, "coordinate-dependent right-hand side"
     groups = list(groups.values())
     param_names = sorted(set(params))
     design, reason, staged, centre, radii, tile = _choose_design(
@@ -229,10 +248,8 @@ def plan_for(eq, _design=None, _tile=None):
         plan = StencilPlan(eq, groups, param_names, design, reason, staged,
                            centre, radii, tile)
     except CompilationError as e:
-        return _decline(eq, str(e))
-    designs[design] += 1
-    debug(f"stencil kernel: {eq} runs in the {design} design ({reason})")
-    return plan
+        return None, str(e)
+    return plan, reason
 
 
 # -- the choice of design ----------------------------------------------------

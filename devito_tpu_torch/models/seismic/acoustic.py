@@ -1,23 +1,29 @@
-"""Acoustic wave propagation: the Forward operator and the
-AcousticWaveSolver's forward model.
+"""Acoustic wave propagators: Forward/Adjoint/Gradient/Born operators and
+the AcousticWaveSolver.
 
 Reference parity: examples/seismic/acoustic/operators.py (iso_stencil:71 —
 ``m u.dt2 - H - q + damp u.dt = 0`` with OT2/OT4 kernels:50-69) and
-wavesolver.py:8 (memoized op_fwd). Same discretization, injected and
-interpolated terms, and dt conventions (OT4 runs at 1.73x the OT2
-critical dt). Adjoint, gradient and Born operators are not ported yet
-(ROADMAP.md).
+wavesolver.py:8 (memoized op_fwd/op_adj/op_grad/op_born, checkpointed
+gradient). Same discretizations, injected/interpolated terms, and dt
+conventions (OT4 runs at 1.73x the OT2 critical dt).
+
+On the card each operator's stencil updates run in K1
+(kernels/stencil.py): the adjoint's and the gradient's ``v.backward``
+and Born's ``u.forward`` take the streaming design; Born's ``U.forward``
+reads too many centre groups for the streaming tile and takes the point
+design; the gradient's ``Inc`` runs in the torch translator, as the
+increment ran in XLA, not in Pallas, on the TPU.
 """
 
 import sympy
 
-from ...types import Eq, TimeFunction
+from ...types import Eq, Inc, Function, TimeFunction
 from ...operator import Operator
 from ...operations.solve import solve
 from ...utils import memoized_meth
 
-__all__ = ['iso_stencil', 'laplacian', 'ForwardOperator',
-           'AcousticWaveSolver']
+__all__ = ['iso_stencil', 'laplacian', 'ForwardOperator', 'AdjointOperator',
+           'GradientOperator', 'BornOperator', 'AcousticWaveSolver']
 
 
 def laplacian(field, model, kernel):
@@ -109,9 +115,68 @@ def ForwardOperator(model, geometry, space_order=4, save=False,
                     name='Forward', **kwargs)
 
 
+def AdjointOperator(model, geometry, space_order=4, kernel='OT2', **kwargs):
+    """Adjoint modeling (reference: operators.py:153)."""
+    m = model.m
+    v = TimeFunction(name='v', grid=model.grid, save=None,
+                     time_order=2, space_order=space_order)
+    srca = geometry.new_src(name='srca', src_type=None)
+    rec = geometry.rec
+    s = model.grid.stepping_dim.spacing
+
+    eqn = iso_stencil(v, model, kernel, forward=False)
+    receivers = rec.inject(field=v.backward, expr=rec * s ** 2 / m)
+    source_a = srca.interpolate(expr=v)
+    return Operator(eqn + [receivers, source_a], subs=model.spacing_map,
+                    name='Adjoint', **kwargs)
+
+
+def GradientOperator(model, geometry, space_order=4, save=True,
+                     kernel='OT2', **kwargs):
+    """FWI gradient: backpropagate receivers, correlate with the saved
+    forward wavefield (reference: operators.py:191, Inc(grad, -u*v.dt2))."""
+    m = model.m
+    grad = Function(name='grad', grid=model.grid)
+    u = TimeFunction(name='u', grid=model.grid,
+                     save=geometry.nt if save else None,
+                     time_order=2, space_order=space_order)
+    v = TimeFunction(name='v', grid=model.grid, save=None,
+                     time_order=2, space_order=space_order)
+    rec = geometry.rec
+    s = model.grid.stepping_dim.spacing
+
+    eqn = iso_stencil(v, model, kernel, forward=False)
+    if kernel == 'OT2':
+        gradient_update = Inc(grad, - u * v.dt2)
+    else:
+        gradient_update = Inc(grad, - u * v.dt2 - s ** 2 / 12.0 *
+                              u.biharmonic(m ** (-2)) * v)
+    receivers = rec.inject(field=v.backward, expr=rec * s ** 2 / m)
+    return Operator(eqn + [receivers, gradient_update],
+                    subs=model.spacing_map, name='Gradient', **kwargs)
+
+
+def BornOperator(model, geometry, space_order=4, kernel='OT2', **kwargs):
+    """Linearized Born modeling (reference: operators.py:235)."""
+    m = model.m
+    src, rec = geometry.src, geometry.rec
+    u = TimeFunction(name='u', grid=model.grid, save=None,
+                     time_order=2, space_order=space_order)
+    U = TimeFunction(name='U', grid=model.grid, save=None,
+                     time_order=2, space_order=space_order)
+    dm = Function(name='dm', grid=model.grid, space_order=0)
+    s = model.grid.stepping_dim.spacing
+
+    eqn1 = iso_stencil(u, model, kernel)
+    eqn2 = iso_stencil(U, model, kernel, q=-dm * u.dt2)
+    source = src.inject(field=u.forward, expr=src * s ** 2 / m)
+    receivers = rec.interpolate(expr=U)
+    return Operator(eqn1 + [source] + eqn2 + [receivers],
+                    subs=model.spacing_map, name='Born', **kwargs)
+
+
 class AcousticWaveSolver:
-    """Seismic solver facade (reference: wavesolver.py:8); the forward
-    model only, so far."""
+    """Seismic-inversion solver facade (reference: wavesolver.py:8)."""
 
     def __init__(self, model, geometry, kernel='OT2', space_order=4,
                  **kwargs):
@@ -134,6 +199,24 @@ class AcousticWaveSolver:
                                geometry=self.geometry, kernel=self.kernel,
                                space_order=self.space_order, **self._kwargs)
 
+    @memoized_meth
+    def op_adj(self):
+        return AdjointOperator(self.model, geometry=self.geometry,
+                               kernel=self.kernel,
+                               space_order=self.space_order, **self._kwargs)
+
+    @memoized_meth
+    def op_grad(self, save=True):
+        return GradientOperator(self.model, save=save,
+                                geometry=self.geometry, kernel=self.kernel,
+                                space_order=self.space_order, **self._kwargs)
+
+    @memoized_meth
+    def op_born(self):
+        return BornOperator(self.model, geometry=self.geometry,
+                            kernel=self.kernel,
+                            space_order=self.space_order, **self._kwargs)
+
     def forward(self, src=None, rec=None, u=None, model=None, save=None,
                 **kwargs):
         src = src if src is not None else self.geometry.src
@@ -147,3 +230,67 @@ class AcousticWaveSolver:
                                           dt=kwargs.pop('dt', self.dt),
                                           **kwargs)
         return rec, u, summary
+
+    def adjoint(self, rec, srca=None, v=None, model=None, **kwargs):
+        srca = srca if srca is not None else \
+            self.geometry.new_src(name='srca', src_type=None)
+        v = v or TimeFunction(name='v', grid=self.model.grid,
+                              time_order=2, space_order=self.space_order)
+        model = model or self.model
+        kwargs.update(model.physical_params(**kwargs))
+        summary = self.op_adj().apply(srca=srca, rec=rec, v=v,
+                                      dt=kwargs.pop('dt', self.dt), **kwargs)
+        return srca, v, summary
+
+    def jacobian_adjoint(self, rec, u, src=None, v=None, grad=None,
+                         model=None, checkpointing=False, **kwargs):
+        dt = kwargs.pop('dt', self.dt)
+        grad = grad or Function(name='grad', grid=self.model.grid)
+        v = v or TimeFunction(name='v', grid=self.model.grid,
+                              time_order=2, space_order=self.space_order)
+        model = model or self.model
+        kwargs.update(model.physical_params(**kwargs))
+        if checkpointing:
+            # reference: wavesolver.py checkpointed-gradient path via
+            # Revolver; here the native sqrt store/recompute schedule
+            from ...checkpointing import (CheckpointOperator,
+                                          DevitoCheckpoint, Revolver)
+            u_ck = TimeFunction(name='u', grid=self.model.grid,
+                                time_order=2,
+                                space_order=self.space_order)
+            cp = DevitoCheckpoint([u_ck])
+            nt = self.geometry.nt
+            tm, tM = 1, nt - 2
+            wrap_fw = CheckpointOperator(
+                self.op_fwd(save=False),
+                src=src if src is not None else self.geometry.src,
+                u=u_ck, dt=dt, **kwargs)
+            wrap_rev = CheckpointOperator(
+                self.op_grad(save=False), u=u_ck, v=v, rec=rec,
+                grad=grad, dt=dt, **kwargs)
+            wrp = Revolver(cp, wrap_fw, wrap_rev, None, tM - tm + 1,
+                           t_min=tm)
+            wrp.apply_forward()
+            wrp.apply_reverse()
+            return grad, None
+        summary = self.op_grad().apply(rec=rec, grad=grad, v=v, u=u, dt=dt,
+                                       **kwargs)
+        return grad, summary
+
+    def jacobian(self, dmin, src=None, rec=None, u=None, U=None, model=None,
+                 **kwargs):
+        src = src if src is not None else self.geometry.src
+        rec = rec if rec is not None else self.geometry.rec
+        u = u or TimeFunction(name='u', grid=self.model.grid,
+                              time_order=2, space_order=self.space_order)
+        U = U or TimeFunction(name='U', grid=self.model.grid,
+                              time_order=2, space_order=self.space_order)
+        model = model or self.model
+        kwargs.update(model.physical_params(**kwargs))
+        summary = self.op_born().apply(dm=dmin, u=u, U=U, src=src, rec=rec,
+                                       dt=kwargs.pop('dt', self.dt),
+                                       **kwargs)
+        return rec, u, U, summary
+
+    born = jacobian
+    gradient = jacobian_adjoint

@@ -25,11 +25,44 @@ from ..types.basic import AbstractFunction, retrieve_functions
 from ..types.constant import Constant
 from ..types.dimension import Dimension
 from ..exceptions import InvalidArgument, ExecutionError
-from ..logger import perf as log_perf
+from ..logger import debug, perf as log_perf
 from ..parameters import configuration
 from .profiling import PerformanceSummary
 
 __all__ = ['Operator']
+
+#: ``opt`` options that steer the CIRE and invariant-hoisting passes: no-ops
+#: while 'advanced' lowers as 'noop'.
+LOWERING_OPTIONS = ('cire', 'hoist-invariants', 'hoist-trig-taps')
+#: ``opt`` options devito_tpu honours that this package does not implement
+#: yet (ROADMAP.md Queue 1, item 7).
+UNPORTED_OPTIONS = ('storage-dtype', 'storage-dtype-scope', 'errctl')
+
+
+def _parse_opt(opt):
+    """The mode of an ``opt`` argument: a mode string, or a tuple of a mode
+    and option dicts. Raises InvalidArgument on an unknown mode and on any
+    option outside ``LOWERING_OPTIONS``."""
+    mode, options = opt, {}
+    if isinstance(opt, (tuple, list)):
+        mode = opt[0] if opt else None
+        for o in opt[1:]:
+            if not isinstance(o, dict):
+                raise InvalidArgument(f"opt options must be dicts, got {o!r}")
+            options.update(o)
+    mode = mode or configuration['opt']
+    if mode not in ('noop', 'advanced'):
+        raise InvalidArgument(f"Unknown opt mode {mode!r}")
+    for k in options:
+        if k in UNPORTED_OPTIONS:
+            raise InvalidArgument(f"opt option {k!r} is not implemented in "
+                                  f"devito_tpu_torch yet")
+        if k not in LOWERING_OPTIONS:
+            raise InvalidArgument(f"Unknown opt option {k!r}")
+    if options:
+        debug(f"opt options {sorted(options)} accepted as no-ops: "
+              f"'{mode}' lowers as 'noop'")
+    return mode
 
 
 class Operator:
@@ -39,18 +72,19 @@ class Operator:
     run with ``op.apply(dt=..., time_M=...)`` (also accepts ``time`` as an
     alias for ``time_M``, and per-function data overrides by name).
 
-    ``opt``: 'noop' or 'advanced' (also as ``('advanced', {options})``).
-    Until the CIRE and invariant-hoisting passes are ported (ROADMAP.md),
-    'advanced' lowers exactly as 'noop' does.
+    ``opt``: 'noop' or 'advanced', also as ``(mode, {options})``. Until
+    the CIRE and invariant-hoisting passes are ported (ROADMAP.md),
+    'advanced' lowers exactly as 'noop' does, and the options that steer
+    those passes (``LOWERING_OPTIONS``) are accepted as no-ops. Every
+    other option raises InvalidArgument: those devito_tpu honours and this
+    package does not yet (``UNPORTED_OPTIONS``: narrow storage, the errctl
+    stability scan), and unknown ones.
     """
 
     def __init__(self, expressions, subs=None, name='Kernel', opt=None,
                  **kwargs):
         self._name = name
-        mode = opt[0] if isinstance(opt, (tuple, list)) and opt else opt
-        self._opt = mode or configuration['opt']
-        if self._opt not in ('noop', 'advanced'):
-            raise InvalidArgument(f"Unknown opt mode {self._opt!r}")
+        self._opt = _parse_opt(opt)
         tic = _time.perf_counter()
         self._schedule = lower_expressions(expressions, subs=subs)
         self._collect()

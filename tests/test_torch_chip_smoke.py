@@ -77,6 +77,31 @@ def test_time_host_measures_one_apply_and_restores_the_loop():
     assert host['s'] > 0 and op._runner is runner
 
 
+def test_inverse_phase_runs_on_the_cpu():
+    """Phase 9 at a tiny size on the CPU, where no kernel launches: every
+    path's counts stay at 0, the Revolver takes the optimal count + 1, and
+    the fp64 checks (dot tests, checkpointed against full-save gradient)
+    hold."""
+    from devito_tpu_torch import Function, switchconfig
+    sizes = dict(C.FULL, fwd_n=16, fwd_nbl=4, fwd_tn=60., fwd_nrec=8,
+                 inv_n=12, inv_tn=60., inv_nrec=6, inc_steps=3)
+    record = {'launches': 0, 'launches_by_design': {'stream': 0, 'point': 0}}
+    with switchconfig(device='cpu'):
+        solver = C.forward_solver(16, 4, 60., 8)
+        shot = np.array(solver.forward()[0].data)
+        small = C.forward_solver(12, 4, 60., 6, np.float64)
+        vp0 = Function(name='vp0', grid=solver.model.grid, space_order=8)
+        C.inverse(torch.device('cpu'), sizes, solver, shot, vp0, small,
+                  record)
+    inv = record['inverse']
+    assert record['launches'] == 0 and set(record['launches_by_path']) == \
+        {'adjoint', 'smooth', 'born', 'gradient'}
+    g = inv['gradient']
+    assert g['forward_steps'] == g['optimal_forward_count'] + 1
+    assert g['grad_apply_calls'] == solver.geometry.nt - 2
+    assert inv['fp64']['ck_bit_equal'] and abs(inv['fp64']['dot_F']) < 1e-11
+
+
 def test_host_us_per_call_counts_every_call():
     calls = []
     us = C.host_us_per_call(lambda: calls.append(1), torch.device('cpu'),

@@ -1,0 +1,71 @@
+"""The ``opt`` argument of devito_tpu_torch's Operator: every option the
+port does not implement raises InvalidArgument (narrow storage, the errctl
+scan, unknown keys), and the lowering options are no-ops that build the
+schedule 'noop' builds, while 'advanced' lowers as 'noop'."""
+
+import numpy as np
+import pytest
+import torch
+
+import devito_tpu_torch as dt
+from devito_tpu_torch import InvalidArgument
+
+dt.configuration['device'] = 'cpu'
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def clear_port_cache():
+    yield
+    dt.clear_cache()
+
+
+def _bench_eq(n=10):
+    """bench.py's damped acoustic update at n^3 SO=4, seeded."""
+    grid = dt.Grid(shape=(n,) * 3, extent=(10. * (n - 1),) * 3)
+    u = dt.TimeFunction(name='u', grid=grid, time_order=2, space_order=4)
+    vp = dt.Function(name='vp', grid=grid, space_order=4)
+    damp = dt.Function(name='damp', grid=grid, space_order=4)
+    rng = np.random.default_rng(5)
+    vp.data[:] = 1.5 + rng.random(vp.shape)
+    u.data[:2] = rng.standard_normal((2,) + grid.shape)
+    pde = (1 / (vp * vp)) * u.dt2 - u.laplace + damp * u.dt
+    return grid, u, dt.Eq(u.forward, dt.solve(pde, u.forward))
+
+
+@pytest.mark.parametrize('options', [
+    {'storage-dtype': 'bfloat16'},            # bench.py's second row
+    {'storage-dtype': 'float16', 'storage-dtype-scope': 'all'},
+    {'storage-dtype-scope': 'fields'},
+    {'errctl': 'max'},
+    {'cire': False, 'errctl': 'max'},
+    {'no-such-option': True},
+])
+def test_options_the_port_does_not_honour_raise(options):
+    grid, _, eq = _bench_eq()
+    with pytest.raises(InvalidArgument):
+        dt.Operator(eq, subs=grid.spacing_map, opt=('advanced', options))
+
+
+@pytest.mark.parametrize('opt', ['aggressive', ('noop', 'cire'), 3])
+def test_bad_modes_and_option_containers_raise(opt):
+    grid, _, eq = _bench_eq()
+    with pytest.raises(InvalidArgument):
+        dt.Operator(eq, subs=grid.spacing_map, opt=opt)
+
+
+@pytest.mark.parametrize('options', [{'cire': False},
+                                     {'hoist-invariants': False},
+                                     {'hoist-trig-taps': True},
+                                     {}])
+def test_lowering_options_build_the_noop_schedule(options):
+    grid, u, eq = _bench_eq()
+    op = dt.Operator(eq, subs=grid.spacing_map, opt=('advanced', options))
+    noop = dt.Operator(eq, subs=grid.spacing_map, opt='noop')
+    assert str(op) == str(noop)
+    start = u.data_with_halo.copy()
+    noop.apply(time_M=3, dt=1.2)
+    want = u.data_with_halo.copy()
+    u.data_with_halo[:] = start
+    op.apply(time_M=3, dt=1.2)
+    assert np.array_equal(u.data_with_halo, want)
