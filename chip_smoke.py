@@ -43,7 +43,10 @@
    script's defaults (N=256, ZA=NY) with its kernel's launches counted;
    then each kernel against its plain version on seeded inputs at N=256
    and N=512, and timed beside its bound, its plain version, its library
-   call and P1.
+   call and P1; at N=512 K13/K14 on every tile of stream_tiles at depths
+   2, 3 and 4 and nwin 1 and 4, each equal to its plain version to the
+   bit: the tile sweep, and the nwin 1 / nwin 4 ablation that tells the
+   HBM stream from the L2 re-reads.
 9. The inverse problem on phase 5's solver (512^3 + nbl 10, SO=8, fp32,
    412 steps), each entry point with K1's counts at 0 just before it and
    read just after: (a) AcousticWaveSolver.adjoint of the forward shot's
@@ -1378,6 +1381,7 @@ def probe7(device, sizes, gen, records, ceiling):
                            stream_library_call='src[H:H+N].sum()')
                 rec['stream_share'] = rec['stream_bound_ms'] / ms
         if last:
+            stream_sweep(P7, src, device, reps, ceiling, k13, k14)
             k11.update(ms_2x_reps=time_ms(lambda: P7.resident_step(
                 16, 2 * N // 16, 'full', P7.FILLS, N, device), reps, device),
                 ms_by_taps={t: time_ms(lambda t=t: P7.resident_step(
@@ -1417,7 +1421,12 @@ def probe7(device, sizes, gen, records, ceiling):
             rate += (f"; streamed-bytes bound {rec['stream_bound_ms']:.4f} "
                      f"ms = {100 * rec['stream_share']:.1f} %, "
                      f"{rec['stream_library_call']} "
-                     f"{rec['stream_library_ms']:.4f} ms")
+                     f"{rec['stream_library_ms']:.4f} ms; L2 to shared "
+                     f"{rec['l2_to_shared_gbs']:.0f} GB/s; nwin 1 "
+                     f"{rec['nwin1_ms']:.4f} ms = "
+                     f"{100 * rec['stream_bound_ms'] / rec['nwin1_ms']:.1f} %"
+                     f"; tile {rec['tile']}, {rec['smem_bytes']} B shared, "
+                     f"{rec['ctas_per_sm']} CTAs/SM; {rec.get('ptxas', '')}")
         log(f"[probe7] {lab} at N={N}: {rec['ms']:.4f} ms, bound "
             f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}) = "
             f"{100 * rec['share_of_bound']:.3f} %; {rate}; plain "
@@ -1431,6 +1440,71 @@ def probe7(device, sizes, gen, records, ceiling):
         f"wrapper, {k12.get('us_per_call_ctypes', float('nan')):.1f} us "
         f"through ctypes alone, {k12['us_per_call_added']:.1f} us with the "
         f"add")
+
+
+def stream_sweep(P7, src, device, reps, ceiling, k13, k14):
+    """K13/K14 at phase 8's last N on ``src``: every tile of
+    ``stream_tiles`` at depths 2, 3 and 4 and nwin 1 and 4 (t0 16), each
+    equal to its plain version to the bit, timed, with its rates: the
+    streamed bytes from device memory (src[H:H+N] once) and nwin times
+    them from L2 into shared memory. The record of K13 (depth 2) and K14
+    (depth 3) gets its chosen tile's shared bytes, CTAs per SM (CUDA
+    runtime), nwin 1 time and L2-to-shared rate, and its depth's rows
+    (K14 depth 4's too)."""
+    from devito_tpu_torch.experiments import HBM_BYTES_S
+    on_card = device.type == 'cuda'
+    N = src.shape[0] - 2 * P7.H
+    S = N * src.shape[1] * src.shape[2] * 4     # bytes of src[H:H+N]
+    sb = S + 4 * 8 * 128
+    rows = []
+    for depth in (2, 3, 4):
+        for nwin in (1, 4):
+            want = P7.stream_windows_reference(src, 16, nwin, depth)
+            chosen = P7.stream_tile(depth, nwin, 16)[0]
+            for tile, smem, _ in P7.stream_tiles(depth, nwin, 16):
+                if not torch.equal(P7.stream_windows(src, 16, nwin, depth,
+                                                     tile), want):
+                    raise AssertionError(f"K13/K14 at N={N} depth={depth} "
+                                         f"nwin={nwin} tile={tile}")
+                ms = time_ms(lambda: P7.stream_windows(src, 16, nwin, depth,
+                                                       tile), reps, device)
+                row = dict(depth=depth, nwin=nwin, tile=tile,
+                           chosen=tile == chosen, smem_bytes=smem,
+                           ctas_per_sm=P7.stream_occupancy(
+                               16, nwin, depth, tile, device)
+                           if on_card else None, ms=ms,
+                           hbm_gbs=sb / ms / 1e6,
+                           l2_to_shared_gbs=nwin * S / ms / 1e6,
+                           stream_share=sb / HBM_BYTES_S * 1e3 / ms)
+                rows.append(row)
+                log(f"[stream-sweep] N={N} depth {depth} nwin {nwin} tile "
+                    f"{tile}{' (chosen)' if row['chosen'] else ''}: "
+                    f"{ms:.4f} ms = {100 * row['stream_share']:.1f} % of the "
+                    f"streamed-bytes bound, {row['hbm_gbs']:.0f} GB/s = "
+                    f"{100 * row['hbm_gbs'] / ceiling:.1f} % of P1, L2 to "
+                    f"shared {row['l2_to_shared_gbs']:.0f} GB/s; {smem} B "
+                    f"shared, {row['ctas_per_sm']} CTAs/SM")
+    for depth in (2, 3, 4):
+        at = {r['nwin']: r for r in rows if r['depth'] == depth
+              and r['chosen']}
+        best = {w: min((r for r in rows if r['depth'] == depth
+                        and r['nwin'] == w), key=lambda r: r['ms'])
+                for w in (1, 4)}
+        log(f"[stream-ablation] N={N} depth {depth}, chosen tiles: nwin 1 "
+            f"{at[1]['ms']:.4f} ms ({at[1]['tile']}, "
+            f"{100 * at[1]['hbm_gbs'] / ceiling:.1f} % of P1), nwin 4 "
+            f"{at[4]['ms']:.4f} ms ({at[4]['tile']}, L2 to shared "
+            f"{at[4]['l2_to_shared_gbs']:.0f} GB/s); fastest: nwin 1 "
+            f"{best[1]['tile']} {best[1]['ms']:.4f} ms, nwin 4 "
+            f"{best[4]['tile']} {best[4]['ms']:.4f} ms")
+    for rec, depths in ((k13, (2,)), (k14, (3, 4))):
+        d = depths[0]
+        at = {r['nwin']: r for r in rows if r['depth'] == d and r['chosen']}
+        rec.update(tile=at[4]['tile'], smem_bytes=at[4]['smem_bytes'],
+                   ctas_per_sm=at[4]['ctas_per_sm'], nwin1_ms=at[1]['ms'],
+                   nwin1_tile=at[1]['tile'],
+                   l2_to_shared_gbs=4 * S / rec['ms'] / 1e6,
+                   sweep=[r for r in rows if r['depth'] in depths])
 
 
 def call_stats(op):

@@ -8,7 +8,9 @@
 // bytes that land against an mbarrier in shared memory. The thread that
 // issues a stage's copies first announces their bytes
 // (`mbar_expect_tx`); the consumers wait on the barrier's phase parity
-// (`mbar_wait`). The other threads spend no instruction on the copy.
+// (`mbar_wait`). The other threads spend no instruction on the copy. In a
+// ring, consumers hand a slot back with a plain arrive on its empty
+// barrier (`mbar_arrive`), which the producer waits on before it refills.
 //
 // Host side: `encode_map_3d` describes a contiguous 3-D array to the TMA
 // unit (a CUtensorMap, passed to the kernel by value as a
@@ -46,19 +48,30 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
 }
 
+// Arrive once on `bar`, announcing no bytes.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Whether the phase of parity `parity` of `bar` has completed, after a
+// wait of at most a time the hardware chooses.
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
 // Wait until the phase of parity `parity` of `bar` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned a = smem_addr(bar);
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  } while (!done);
+  while (!mbar_try_wait(bar, parity)) {
+  }
 }
 
 // Copy the box of `map` at element coordinates (c0 innermost, c1, c2) into
@@ -111,12 +124,13 @@ constexpr CUtensorMapDataType tensor_map_type() {
 }
 
 // Describe the contiguous array of T at `base` with extents `dims` (axis 0
-// outermost) for boxes of (1, by, bz) elements: one plane of x. The base
-// must be 16-byte aligned, dims[2] * sizeof(T) a multiple of 16 and
-// bz * sizeof(T) a multiple of 16. Returns 0, or a negative error.
+// outermost) for boxes of (bx, by, bz) elements, by default (1, by, bz):
+// one plane of x. The base must be 16-byte aligned, dims[2] * sizeof(T) a
+// multiple of 16, bz * sizeof(T) a multiple of 16, and each box extent at
+// most 256. Returns 0, or a negative error.
 template <typename T>
 int encode_map_3d(CUtensorMap* map, const void* base, const long long* dims,
-                  unsigned by, unsigned bz) {
+                  unsigned by, unsigned bz, unsigned bx = 1) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return kNoTensorMapEncoder;
   const cuuint64_t gdim[3] = {static_cast<cuuint64_t>(dims[2]),
@@ -124,7 +138,7 @@ int encode_map_3d(CUtensorMap* map, const void* base, const long long* dims,
                               static_cast<cuuint64_t>(dims[0])};
   const cuuint64_t gstride[2] = {gdim[0] * sizeof(T),
                                  gdim[0] * gdim[1] * sizeof(T)};
-  const cuuint32_t box[3] = {bz, by, 1};
+  const cuuint32_t box[3] = {bz, by, bx};
   const cuuint32_t estride[3] = {1, 1, 1};
   const CUresult rc = encode(
       map, tensor_map_type<T>(), 3, const_cast<void*>(base), gdim, gstride,

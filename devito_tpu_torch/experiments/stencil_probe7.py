@@ -21,8 +21,9 @@ ZA >= NY, so that the same arrays can go through both packages.
   (8, 128) output with reps - 1 (``csrc/probe7_empty.cu``).
 - D, E: ``stream_windows`` streams the same chunks through a ring of
   ``depth`` slots in one launch and returns the sum, in x order, of row 0,
-  y 0:8, z 0:128 of every chunk (``csrc/probe7_stream.cu``); D is E at
-  depth 2.
+  y 0:8, z 0:128 of every chunk (``csrc/probe7_stream.cu``: one TMA box a
+  window, fed by a producer warp through full and empty barriers, on the
+  tile of ``stream_tile``); D is E at depth 2.
 
 Each probe holds its kernel against the plain version (raising on a
 difference), times REPS calls and prints the JAX script's line -- for A,
@@ -53,7 +54,7 @@ __all__ = ['copy_windows', 'copy_windows_reference', 'resident_step',
            'empty_grid', 'empty_launcher',
            'empty_grid_reference', 'stream_windows',
            'stream_windows_reference', 'stream_needs', 'window_tile',
-           'resident_tile',
+           'stream_tiles', 'stream_tile', 'stream_occupancy', 'resident_tile',
            'inputs', 'probe_A', 'probe_B', 'probe_C', 'probe_D', 'probe_E',
            'main']
 
@@ -90,8 +91,17 @@ stream_launches = {}
 _SMEM = 232448     # bytes of shared memory a block may use on Hopper
 _SM_SMEM = 233472  # bytes of shared memory of one SM
 _CTA_SMEM = 1024   # bytes the runtime keeps for each resident CTA
-_THREADS = 256     # threads of a K10, K13 or K14 CTA
-_TZ = 64           # z extent of their tiles
+_THREADS = 256     # threads of a K10 CTA
+_TZ = 64           # z extent of its tiles
+#: Threads of a K13/K14 CTA: four consumer warps, one output column a
+#: thread, and the producer warp.
+_STREAM_THREADS = 160
+#: Shared bytes of a K13/K14 CTA besides its ring: alignment slack and the
+#: full and empty barriers (``smem_bytes`` in csrc/probe7_stream.cu).
+_STREAM_FIXED = 256
+#: The (TY, TZ) tiles K13/K14 may take.
+STREAM_TYS = (1, 2, 4, 8)
+STREAM_TZS = (64, 128, 256)
 _K11_TZ = 32       # z extent of a K11 tile
 
 
@@ -126,6 +136,45 @@ def window_tile(slots, nwin, t0):
     bytes, CTAs per SM); raises when no tile fits."""
     return _pick('window', [(ty, 4 * slots * nwin * t0 * ty * _TZ)
                             for ty in (4, 2, 1)], lambda ty: _THREADS)
+
+
+def stream_tiles(depth, nwin, t0):
+    """Every (TY, TZ) tile of K13/K14 whose ring of ``depth`` slots of nwin
+    windows of (t0, TY, TZ) fp32 fits a block's shared memory, as
+    ((TY, TZ), shared bytes, CTAs per SM (registers not counted)), fewest
+    bytes a CTA first, then the wider TZ."""
+    tiles = [((ty, tz), _STREAM_FIXED + 4 * depth * nwin * t0 * ty * tz)
+             for ty in STREAM_TYS for tz in STREAM_TZS]
+    return [(tile, b, _ctas_per_sm(b, _STREAM_THREADS)) for tile, b in
+            sorted(tiles, key=lambda t: (t[1], -t[0][1])) if b <= _SMEM]
+
+
+def stream_tile(depth, nwin, t0):
+    """The (TY, TZ) tile of K13/K14 for a ring of ``depth`` slots of nwin
+    windows of t0 rows: the first of ``stream_tiles``, (1, 64), which lets
+    the most CTAs share an SM: in chip_smoke.py's sweep of every tile at
+    N=512, t0 16, nwin 1 and 4, depths 2-4, it was the fastest or within
+    4 % of it (PERF.md §6). Returns ((TY, TZ), shared bytes, CTAs per SM);
+    raises when no tile fits."""
+    fits = stream_tiles(depth, nwin, t0)
+    if not fits:
+        raise ValueError(f"the window-stream kernel's windows do not fit in "
+                         f"{_SMEM} bytes of shared memory")
+    return fits[0]
+
+
+def _stream_fit(depth, nwin, t0, tile):
+    """``stream_tile``'s record of the given tile; raises when it is not
+    one of K13/K14's tiles or does not fit."""
+    if tile is None:
+        return stream_tile(depth, nwin, t0)
+    fit = next((f for f in stream_tiles(depth, nwin, t0) if f[0] == tile),
+               None)
+    if fit is None:
+        raise ValueError(f"tile {tile}: expected (TY, TZ) with TY in "
+                         f"{STREAM_TYS} and TZ in {STREAM_TZS} whose ring "
+                         f"fits in {_SMEM} bytes of shared memory")
+    return fit
 
 
 def resident_tile(t0):
@@ -346,12 +395,13 @@ def empty_grid_reference(reps=16, device='cpu'):
 
 # -- K13, K14: read pipelines in one launch --------------------------------------
 
-def stream_windows(src, t0=16, nwin=4, depth=3):
+def stream_windows(src, t0=16, nwin=4, depth=3, tile=None):
     """K13 (depth 2) and K14: the (8, 128) sum, in x order, of
     src[H + i t0, 0:8, 0:128] over the x-chunks i of src[H:H+N]. The kernel
-    streams every chunk's nwin windows through a ring of ``depth`` slots,
-    depth - 1 chunks in flight. CUDA tensors go through the kernel; CPU
-    tensors through ``stream_windows_reference``."""
+    streams every chunk's nwin windows, one TMA box each, through a ring of
+    ``depth`` slots, depth - 1 chunks in flight beyond the one waited for,
+    on ``tile`` (TY, TZ) or, by default, ``stream_tile``'s. CUDA tensors go
+    through the kernel; CPU tensors through ``stream_windows_reference``."""
     n = _buffer('window-stream', src)
     _chunks(n, t0, nwin)
     if depth not in DEPTHS:
@@ -360,19 +410,35 @@ def stream_windows(src, t0=16, nwin=4, depth=3):
     if src.shape[2] < OUT[1]:
         raise ValueError(f"ZA={src.shape[2]}: the output tile is z 0:128")
     if src.device.type == 'cpu':
+        if tile is not None:
+            _stream_fit(depth, nwin, t0, tile)
         return stream_windows_reference(src, t0, nwin, depth)
     _on_card('window-stream', src)
-    ty, _, _ = window_tile(depth, nwin, t0)
+    (ty, tz), _, _ = _stream_fit(depth, nwin, t0, tile)
     out = torch.empty(OUT, dtype=torch.float32, device=src.device)
     fn = _nvcc.entry('probe7_stream', 'dtpu_probe7_stream_launch',
-                     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
                      + [ctypes.c_void_p])
     with torch.cuda.device(src.device):
         rc = fn(src.data_ptr(), out.data_ptr(), src.shape[0], src.shape[2],
-                n, t0, nwin, depth, ty.bit_length() - 1, _stream(src.device))
+                n, t0, nwin, depth, ty, tz, _stream(src.device))
     _nvcc.check_launch(rc, "window-stream kernel")
     stream_launches[depth] = stream_launches.get(depth, 0) + 1
     return out
+
+
+def stream_occupancy(t0=16, nwin=4, depth=3, tile=None, device='cuda'):
+    """The CTAs of K13/K14 on ``tile`` (default ``stream_tile``'s) that fit
+    on one SM of ``device``, as the CUDA runtime counts them from the
+    kernel's registers, shared memory and threads."""
+    (ty, tz), _, _ = _stream_fit(depth, nwin, t0, tile)
+    fn = _nvcc.entry('probe7_stream', 'dtpu_probe7_stream_occupancy',
+                     [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(nwin, t0, depth, ty, tz, ctypes.addressof(ctas))
+    _nvcc.check_launch(rc, "window-stream occupancy query")
+    return ctas.value
 
 
 def stream_needs(n, t0):
@@ -531,9 +597,9 @@ def _stream_probe(head, t0, nwin, depth, n, za, device):
                              f"plain version")
     ms = time_ms(lambda: stream_windows(src, t0, nwin, depth), REPS, dev)
     S = n * ny * za * 4
-    ty, _, ctas = window_tile(depth, nwin, t0)
+    tile, _, ctas = stream_tile(depth, nwin, t0)
     rec, text = _rates(dev, ms, nwin * S, S + 4 * OUT[0] * OUT[1],
-                       *stream_needs(n, t0), (ty, _TZ), ctas)
+                       *stream_needs(n, t0), tile, ctas)
     print(f"{head}: {ms:.4f} ms/step -> {rec['gbs_agg']:.0f} GB/s agg DMA; "
           f"{text}", flush=True)
     return dict(rec, probe=head[0], t0=t0, nwin=nwin, depth=depth, n=n,

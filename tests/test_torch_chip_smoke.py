@@ -107,3 +107,33 @@ def test_host_us_per_call_counts_every_call():
     us = C.host_us_per_call(lambda: calls.append(1), torch.device('cpu'),
                             calls=5)
     assert len(calls) == 6 and us >= 0
+
+
+def test_probe7_phase_runs_on_the_cpu():
+    """Phase 8 at N=112 (ZA = NY = 128, the least the D and E sums take) on
+    the CPU, where every probe runs its plain version: no kernel launches,
+    and K13/K14's records get the sweep's tile, shared bytes and nwin 1
+    time, with every tile of ``stream_tiles`` at depths 2-4, nwin 1 and 4."""
+    from devito_tpu_torch import switchconfig
+    records = [{'name': n, 'route': 'cuda', 'source': s, 'replaces': r}
+               for n, s, r, _ in C.KERNELS]
+    sizes = dict(C.FULL, p7_n=112, p7_sizes=(112,), reps=1, plain_reps=1)
+    dev = torch.device('cpu')
+    C.probe_launches(zero=True)
+    with switchconfig(device='cpu'):
+        C.probe7(dev, sizes, torch.Generator(device=dev).manual_seed(1),
+                 records, 1000.0)
+    assert not any(C.probe_launches().values())
+    by = {r['name']: r for r in records}
+    for name, depths in (('stream_windows_depth2', {2}),
+                         ('stream_windows_depth3', {3, 4})):
+        rec = by[name]
+        d = min(depths)
+        assert rec['launches'] == 0 and rec['max_abs_err'] == 0.0
+        assert (rec['tile'], rec['smem_bytes']) == P7.stream_tile(d, 4, 16)[:2]
+        assert rec['nwin1_tile'] == P7.stream_tile(d, 1, 16)[0]
+        assert rec['nwin1_ms'] > 0 and rec['l2_to_shared_gbs'] > 0
+        assert sorted((r['depth'], r['nwin'], r['tile'])
+                      for r in rec['sweep']) == sorted(
+            (dd, w, t) for dd in depths for w in (1, 4)
+            for t, _, _ in P7.stream_tiles(dd, w, 16))

@@ -11,6 +11,8 @@ tests, on the card. K10's interior rows, K12 and K13/K14 are compared to
 the bit; K11 within 1e-5 * max|reference| (fp32 sums in another order)."""
 
 import importlib
+import json
+import os
 import re
 import subprocess
 import sys
@@ -346,14 +348,57 @@ def test_stream_windows_checks_arguments():
         P7.stream_windows(src.to('meta'), 4)
 
 
+def test_stream_windows_checks_tile():
+    src = P7.inputs(N, ZA, 0, 'cpu')
+    for tile in ((3, 64), (1, 32), (8, 512)):
+        with pytest.raises(ValueError, match=re.escape(f'tile {tile}')):
+            P7.stream_windows(src, 4, 2, 2, tile)
+    with pytest.raises(ValueError, match='fits in'):   # (8, 256): 1 MiB
+        P7.stream_windows(src, 16, 4, 2, (8, 256))
+    want = P7.stream_windows_reference(src, 4, 2, 2)
+    for tile, _, _ in P7.stream_tiles(2, 2, 4):
+        assert torch.equal(P7.stream_windows(src, 4, 2, 2, tile), want)
+
+
 def test_stream_needs():
     assert P7.stream_needs(256, 16) == (4 * 1024 * 17, 1024 * 16)
+
+
+def test_stream_tile_pins():
+    """K13's and K14's tiles at the JAX script's t0 and nwin: the shared
+    bytes of a ring of 2 and 3 slots of four (16, TY, TZ) fp32 windows,
+    256 bytes of slack and barriers, and the CTAs an SM holds by them."""
+    assert P7.stream_tile(2, 4, 16) == ((1, 64), 33024, 6)
+    assert P7.stream_tile(3, 4, 16) == ((1, 64), 49408, 4)
+    with pytest.raises(ValueError, match='do not fit'):
+        P7.stream_tile(8, 8, 64)
+
+
+@pytest.mark.parametrize('depth', P7.DEPTHS)
+@pytest.mark.parametrize('nwin,t0', [(1, 16), (4, 16), (3, 257)])
+def test_stream_tiles_fit_in_preference_order(depth, nwin, t0):
+    fits = P7.stream_tiles(depth, nwin, t0)
+    for (ty, tz), smem, ctas in fits:
+        assert ty in P7.STREAM_TYS and tz in P7.STREAM_TZS
+        assert smem == 256 + 4 * depth * nwin * t0 * ty * tz <= 232448
+        assert ctas == min(233472 // (smem + 1024), 2048 // 160)
+    assert [f[1] for f in fits] == sorted(f[1] for f in fits)
+    all_tiles = len(P7.STREAM_TYS) * len(P7.STREAM_TZS)
+    assert len(fits) == all_tiles - sum(
+        256 + 4 * depth * nwin * t0 * ty * tz > 232448
+        for ty in P7.STREAM_TYS for tz in P7.STREAM_TZS)
+    if fits:
+        assert P7.stream_tile(depth, nwin, t0) == fits[0]
+        assert fits[0][0] == (1, 64)
+    else:
+        with pytest.raises(ValueError, match='do not fit'):
+            P7.stream_tile(depth, nwin, t0)
 
 
 def test_tiles_fit_shared_memory():
     ty, smem, ctas = P7.window_tile(2, 4, 16)      # A's defaults
     assert (ty, smem, ctas) == (2, 65536, 3)
-    assert P7.window_tile(4, 4, 16)[::2] == (1, 3)  # E at depth 4
+    assert P7.window_tile(4, 4, 16)[::2] == (1, 3)  # a ring of 4 slots
     assert P7.resident_tile(16) == (8, 110592, 2)
     with pytest.raises(ValueError, match='do not fit'):
         P7.window_tile(8, 8, 64)
@@ -452,17 +497,58 @@ def test_empty_kernel_on_card(card):
     assert P7.empty_launches == before + 3
 
 
+#: K13/K14 at depths 1-8 and nwin 1, 3 and 4 on one buffer, on the card, in
+#: a process of its own: a wrong byte count in the kernel would leave a
+#: barrier incomplete (the kernel traps after 4 s; the process is killed
+#: after TIMEOUT). With ``tiles`` every tile of ``stream_tiles``, else
+#: ``stream_tile``'s. Prints [depth, nwin, tile, equal to the plain version,
+#: launches counted], or the error for rings that fit no tile.
+_STREAM_CASES = """
+import json, sys, torch
+from devito_tpu_torch.experiments import stencil_probe7 as P7
+n, t0, za, tiles = map(int, sys.argv[1:])
+src = P7.inputs(n, za, n + t0, 'cuda')
+rows = []
+for depth in P7.DEPTHS:
+    for nwin in (1, 3, 4):
+        fits = [f[0] for f in P7.stream_tiles(depth, nwin, t0)]
+        if not fits:
+            try:
+                P7.stream_windows(src, t0, nwin, depth)
+                rows.append([depth, nwin, None, 'ran'])
+            except ValueError as e:
+                rows.append([depth, nwin, None, str(e)])
+        for tile in (fits if tiles else [None]) if fits else []:
+            before = P7.stream_launches.get(depth, 0)
+            got = P7.stream_windows(src, t0, nwin, depth, tile)
+            want = P7.stream_windows_reference(src, t0, nwin, depth)
+            torch.cuda.synchronize()
+            rows.append([depth, nwin, tile, torch.equal(got, want),
+                         P7.stream_launches[depth] - before])
+print(json.dumps(rows))
+"""
+TIMEOUT = 600
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('n,t0,za', [(22, 2, 132), (40, 8, 140)])
-@pytest.mark.parametrize('depth', [1, 2, 3, 4, 8])
-def test_stream_kernel_on_card(card, n, t0, za, depth):
-    src = P7.inputs(n, za, depth, card)
-    before = P7.stream_launches.get(depth, 0)
-    for nwin in (1, 3):
-        got = P7.stream_windows(src, t0, nwin, depth)
-        assert torch.equal(got, P7.stream_windows_reference(src, t0, nwin,
-                                                            depth))
-    assert P7.stream_launches[depth] == before + 2
+@pytest.mark.parametrize('n,t0,za,tiles', [
+    (22, 2, 132, True),      # ragged: ny % TY and za % TZ not 0; the
+                             # last column's boxes 4 floats wide
+    (40, 8, 140, False),
+    (514, 257, 532, False)])  # t0 > 256: a window is two boxes, 129 + 128
+def test_stream_kernel_on_card(card, n, t0, za, tiles):
+    res = subprocess.run(
+        [sys.executable, '-c', _STREAM_CASES, str(n), str(t0), str(za),
+         str(int(tiles))], cwd=REPO, capture_output=True, text=True,
+        timeout=TIMEOUT, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert res.returncode == 0, res.stderr[-4000:]
+    rows = json.loads(res.stdout.splitlines()[-1])
+    runs = [r for r in rows if len(r) == 5]
+    assert {(r[0], r[1]) for r in rows} == {
+        (d, w) for d in P7.DEPTHS for w in (1, 3, 4)}
+    assert {r[0] for r in runs} == (set(P7.DEPTHS) if t0 < 64 else {1, 2, 3})
+    assert all(r[3] is True and r[4] == 1 for r in runs), runs
+    assert all('do not fit' in r[3] for r in rows if len(r) == 4), rows
 
 
 @pytest.mark.cuda
