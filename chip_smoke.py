@@ -46,7 +46,12 @@
    call and P1; at N=512 K13/K14 on every tile of stream_tiles at depths
    2, 3 and 4 and nwin 1 and 4, each equal to its plain version to the
    bit: the tile sweep, and the nwin 1 / nwin 4 ablation that tells the
-   HBM stream from the L2 re-reads.
+   HBM stream from the L2 re-reads; and K10 on every tile of copy_tiles
+   at depths 2, 3 and 4, nwin 1 and 4, with and without write-back, the
+   written rows equal to the plain version's to the bit, beside
+   torch.add. K12 is timed a call into an out tensor beside out.fill_,
+   allocating beside torch.full, through its bare ctypes entry, and
+   replayed from a CUDA graph beside fill_ replayed.
 9. The inverse problem on phase 5's solver (512^3 + nbl 10, SO=8, fp32,
    412 steps), each entry point with K1's counts at 0 just before it and
    read just after: (a) AcousticWaveSolver.adjoint of the forward shot's
@@ -1273,11 +1278,16 @@ def probe7(device, sizes, gen, records, ceiling):
         b_ms[taps] = P7.probe_B(16, 16, taps, n, dev)['ms']
         k11['launches'] += counted(f"B taps={taps}", P7.resident_launches,
                                    timed)
+    # probe C: 2 checks, 3 timed loops of LOOP calls through the wrapper
+    # (each run 1 + 3 times), and LOOP calls captured in a CUDA graph: one
+    # launch counted a captured call, none a replay. The loop of bare
+    # ctypes calls (4 x LOOP launches on the card) goes around the wrapper
+    # and is not counted either
     P7.empty_launches = 0
     c = P7.probe_C(16, dev)
     k12.update(launches=counted("C", P7.empty_launches,
-                                on_card * (1 + 2 * 4 * P7.LOOP)),
-               us_per_call_added=c['us'], us_per_call_bare=c['us_bare'])
+                                on_card * (2 + 13 * P7.LOOP)),
+               us_per_call=c['us_per_call'])
     streams = {2: 0, 3: 0, 4: 0}
     for depth in (None, 2, 3, 4):        # D, then E at each depth
         P7.stream_launches.clear()
@@ -1319,9 +1329,11 @@ def probe7(device, sizes, gen, records, ceiling):
                                      vary),
                     P7.resident_step_reference(16, N // 16, taps, fills, N,
                                                device, vary)))
-        for r in (1, 16, 300):
-            if not torch.equal(P7.empty_grid(r, device),
-                               P7.empty_grid_reference(r, device)):
+        k12_out = torch.empty((8, 128), device=device)
+        for r in (1, 7, 16, 300):
+            want = P7.empty_grid_reference(r, device)
+            if not (torch.equal(P7.empty_grid(r, device), want) and
+                    torch.equal(P7.empty_grid(r, device, k12_out), want)):
                 raise AssertionError(f"K12 with {r} CTAs")
         for depth in (2, 3, 4):
             if not torch.equal(P7.stream_windows(src, 16, 4, depth),
@@ -1348,7 +1360,7 @@ def probe7(device, sizes, gen, records, ceiling):
                 None, None, 4 * 8 * 128, P7.FLOPS['full'] * N ** 3,
                 max(errs)),
             'empty_grid': (
-                lambda: P7.empty_grid(16, device),
+                lambda: P7.empty_grid(16, device, k12_out),
                 lambda: P7.empty_grid_reference(16, device),
                 lambda: lib_out.fill_(15.0), 'out.fill_(reps - 1)',
                 4 * 8 * 128, 0, 0.0),
@@ -1382,6 +1394,7 @@ def probe7(device, sizes, gen, records, ceiling):
                 rec['stream_share'] = rec['stream_bound_ms'] / ms
         if last:
             stream_sweep(P7, src, device, reps, ceiling, k13, k14)
+            copy_sweep(P7, src, device, reps, ceiling, k10)
             k11.update(ms_2x_reps=time_ms(lambda: P7.resident_step(
                 16, 2 * N // 16, 'full', P7.FILLS, N, device), reps, device),
                 ms_by_taps={t: time_ms(lambda t=t: P7.resident_step(
@@ -1390,22 +1403,11 @@ def probe7(device, sizes, gen, records, ceiling):
         del src, out, got
         if device.type == 'cuda':
             torch.cuda.empty_cache()
-        log(f"[probe7] N={N}: K10 interior rows, K12 and K13/K14 at depths "
-            f"2-4 equal their plain versions to the bit; K11 max|kernel - "
-            f"plain| {max(errs):.3e} over 3 ablations x 3 fill sets (one "
-            f"varying with position)")
+        log(f"[probe7] N={N}: K10 interior rows, K12 (new and into out) and "
+            f"K13/K14 at depths 2-4 equal their plain versions to the bit; "
+            f"K11 max|kernel - plain| {max(errs):.3e} over 3 ablations x 3 "
+            f"fill sets (one varying with position)")
 
-    # the bare entry point of K12, without the wrapper's Python
-    if on_card:
-        fn = P7.empty_launcher()
-        o = torch.empty((8, 128), device=device)
-        st = torch.cuda.current_stream(device).cuda_stream
-
-        def raw():
-            for _ in range(P7.LOOP):
-                fn(o.data_ptr(), 16, st)
-
-        k12['us_per_call_ctypes'] = time_ms(raw, 3, device) / P7.LOOP * 1e3
     N = sizes['p7_sizes'][-1]
     for lab, rec in (('K10 copy_windows wb, nwin 4', k10),
                      ('K11 resident_step full', k11),
@@ -1427,6 +1429,13 @@ def probe7(device, sizes, gen, records, ceiling):
                      f"{100 * rec['stream_bound_ms'] / rec['nwin1_ms']:.1f} %"
                      f"; tile {rec['tile']}, {rec['smem_bytes']} B shared, "
                      f"{rec['ctas_per_sm']} CTAs/SM; {rec.get('ptxas', '')}")
+        elif 'ablation' in rec:
+            rate += (f"; depth {rec['depth']}, {rec['stages']} staging "
+                     f"windows, tile {rec['tile']}, "
+                     f"{rec['smem_bytes']} B shared, {rec['ctas_per_sm']} "
+                     f"CTAs/SM; {rec.get('ptxas', '')}; chosen tiles "
+                     + ', '.join(f"{k} {v:.4f} ms"
+                                 for k, v in rec['ablation'].items()))
         log(f"[probe7] {lab} at N={N}: {rec['ms']:.4f} ms, bound "
             f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}) = "
             f"{100 * rec['share_of_bound']:.3f} %; {rate}; plain "
@@ -1435,11 +1444,15 @@ def probe7(device, sizes, gen, records, ceiling):
                if rec['library_ms'] is not None else 'none'))
     log(f"[probe7] K11 at N={N}: full {k11['ms']:.4f} ms, twice the reps "
         f"{k11['ms_2x_reps']:.4f} ms; by taps " + ', '.join(
-            f"{k} {v:.4f}" for k, v in k11['ms_by_taps'].items())
-        + f"; K12 per call: {k12['us_per_call_bare']:.1f} us through the "
-        f"wrapper, {k12.get('us_per_call_ctypes', float('nan')):.1f} us "
-        f"through ctypes alone, {k12['us_per_call_added']:.1f} us with the "
-        f"add")
+            f"{k} {v:.4f}" for k, v in k11['ms_by_taps'].items()))
+    us = k12['us_per_call']
+    log(f"[probe7] K12 16 CTAs, us a call over {P7.LOOP}: into out "
+        f"{us['out']:.2f} against out.fill_ {us['fill_']:.2f}; allocating "
+        f"{us['alloc']:.2f} against torch.full {us['torch.full']:.2f}; with "
+        f"the add {us['add']:.2f}"
+        + (f"; bare ctypes {us['ctypes']:.2f}; replayed from a CUDA graph "
+           f"{us['graph']:.3f} a launch against fill_ replayed "
+           f"{us['graph fill_']:.3f}" if 'graph' in us else ''))
 
 
 def stream_sweep(P7, src, device, reps, ceiling, k13, k14):
@@ -1505,6 +1518,83 @@ def stream_sweep(P7, src, device, reps, ceiling, k13, k14):
                    nwin1_tile=at[1]['tile'],
                    l2_to_shared_gbs=4 * S / rec['ms'] / 1e6,
                    sweep=[r for r in rows if r['depth'] in depths])
+
+
+def copy_sweep(P7, src, device, reps, ceiling, k10):
+    """K10 at phase 8's last N on ``src``: every tile of ``copy_tiles`` at
+    depths 2, 3 and 4, nwin 1 and 4, with and without write-back (t0 16),
+    each run first (with write-back its rows [H, H+N) equal to src + 1 to
+    the bit), then timed, with its rates: the bytes it must move
+    (src[H:H+N] read once and, with write-back, out[H:H+N] written once)
+    against device memory and P1, and nwin times src[H:H+N] into shared
+    memory. K10's record gets its chosen tile's shared bytes and CTAs per
+    SM (CUDA runtime), the chosen tiles' times at COPY_DEPTH by nwin and
+    write-back, and the rows."""
+    from devito_tpu_torch.experiments import HBM_BYTES_S
+    on_card = device.type == 'cuda'
+    H = P7.H
+    N = src.shape[0] - 2 * H
+    S = N * src.shape[1] * src.shape[2] * 4     # bytes of src[H:H+N]
+    want = src[H:H + N] + 1.0
+    rows = []
+    for depth in (2, 3, 4):
+        for nwin in (1, 4):
+            for wb in (True, False):
+                chosen = P7.copy_tile(depth, nwin, 16, wb)[0]
+                moved = (1 + wb) * S
+                for tile, smem, _ in P7.copy_tiles(depth, nwin, 16, wb):
+                    def run():
+                        return P7.copy_windows(src, 16, nwin, wb, 1, tile,
+                                               depth)
+                    got = run()
+                    sync(device)
+                    if wb and not torch.equal(got[H:H + N], want):
+                        raise AssertionError(
+                            f"K10 at N={N} depth={depth} nwin={nwin} "
+                            f"tile={tile}")
+                    del got
+                    ms = time_ms(run, reps, device)
+                    row = dict(depth=depth, nwin=nwin, writeback=wb,
+                               tile=tile, chosen=tile == chosen,
+                               smem_bytes=smem, ctas_per_sm=P7.copy_occupancy(
+                                   16, nwin, depth, tile, wb, device)
+                               if on_card else None, ms=ms,
+                               hbm_gbs=moved / ms / 1e6,
+                               to_shared_gbs=nwin * S / ms / 1e6,
+                               share=moved / HBM_BYTES_S * 1e3 / ms)
+                    rows.append(row)
+                    log(f"[copy-sweep] N={N} depth {depth} nwin {nwin} "
+                        f"{'wb' if wb else 'nowb'} tile {tile}"
+                        f"{' (chosen)' if row['chosen'] else ''}: {ms:.4f} ms"
+                        f" = {100 * row['share']:.1f} % of the bound of its "
+                        f"{moved / 1e6:.1f} MB, {row['hbm_gbs']:.0f} GB/s = "
+                        f"{100 * row['hbm_gbs'] / ceiling:.1f} % of P1, into "
+                        f"shared {row['to_shared_gbs']:.0f} GB/s; {smem} B "
+                        f"shared, {row['ctas_per_sm']} CTAs/SM")
+    del want
+    for depth in (2, 3, 4):
+        at = {(r['nwin'], r['writeback']): r for r in rows
+              if r['depth'] == depth and r['chosen']}
+        best = {k: min((r for r in rows if r['depth'] == depth and
+                        (r['nwin'], r['writeback']) == k),
+                       key=lambda r: r['ms']) for k in at}
+        log(f"[copy-ablation] N={N} depth {depth}, chosen tiles: " + ', '.join(
+            f"{'wb' if wb else 'nowb'} nwin {w} {r['ms']:.4f} ms "
+            f"({100 * r['hbm_gbs'] / ceiling:.1f} % of P1)"
+            for (w, wb), r in sorted(at.items()))
+            + f"; torch.add {k10['library_ms']:.4f} ms, bound "
+            f"{k10['bound_ms']:.4f} ms; fastest: " + ', '.join(
+                f"{'wb' if wb else 'nowb'} nwin {w} {r['tile']} "
+                f"{r['ms']:.4f} ms" for (w, wb), r in sorted(best.items())))
+    at = {(r['nwin'], r['writeback']): r for r in rows
+          if r['depth'] == P7.COPY_DEPTH and r['chosen']}
+    k10.update(depth=P7.COPY_DEPTH, stages=P7.COPY_STAGES,
+               tile=at[4, True]['tile'],
+               smem_bytes=at[4, True]['smem_bytes'],
+               ctas_per_sm=at[4, True]['ctas_per_sm'],
+               ablation={f"{'wb' if wb else 'nowb'} nwin {w}": r['ms']
+                         for (w, wb), r in sorted(at.items())},
+               sweep=rows)
 
 
 def call_stats(op):

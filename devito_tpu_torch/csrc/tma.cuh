@@ -11,6 +11,13 @@
 // (`mbar_wait`). The other threads spend no instruction on the copy. In a
 // ring, consumers hand a slot back with a plain arrive on its empty
 // barrier (`mbar_arrive`), which the producer waits on before it refills.
+// `bounded_wait` is `mbar_wait` that traps after 4 s instead of hanging.
+//
+// The way back: threads write a box into shared memory, each fences its
+// writes for the TMA unit (`fence_proxy_async_shared`), they meet at a
+// barrier, and one thread stores the box into a tensor (`tma_store_3d`),
+// closes its bulk group (`bulk_commit`) and, before that shared memory is
+// written again, waits until the store has read it (`bulk_wait_read`).
 //
 // Host side: `encode_map_3d` describes a contiguous 3-D array to the TMA
 // unit (a CUtensorMap, passed to the kernel by value as a
@@ -74,6 +81,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   }
 }
 
+// Nanoseconds after which `bounded_wait` gives up.
+constexpr unsigned long long kWaitNs = 4000000000ull;
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// mbar_wait, trapping after kWaitNs: a wrong byte count leaves a barrier
+// incomplete, and the launch then fails instead of hanging the card.
+__device__ __forceinline__ void bounded_wait(uint64_t* bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long start = globaltimer();
+  while (!mbar_try_wait(bar, parity))
+    if (globaltimer() - start > kWaitNs) __trap();
+}
+
 // Copy the box of `map` at element coordinates (c0 innermost, c1, c2) into
 // `dst` (128-byte aligned), completing on `bar`. Coordinates may be
 // negative or run past the tensor: those elements land as zeros.
@@ -86,6 +111,45 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Make this thread's writes to shared memory visible to the TMA unit (the
+// async proxy): every writing thread issues it before the barrier after
+// which one thread stores what they wrote with `tma_store_3d`.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copy `src` (128-byte aligned shared memory) into the box of `map` at
+// element coordinates (c0 innermost, c1, c2), in this thread's open bulk
+// group. Elements of the box outside the tensor are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Close this thread's open bulk group of stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared
+// memory: the shared memory of the others may be written again.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // -- host ---------------------------------------------------------------------

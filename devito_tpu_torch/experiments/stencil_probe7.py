@@ -10,7 +10,9 @@ ZA >= NY, so that the same arrays can go through both packages.
 
 - A: ``copy_windows`` walks the x-chunks of t0 rows of src[H:H+N] in
   order with nwin windows of each in flight and, with write-back, stores
-  ``out[H:H+N] = src[H:H+N] + 1`` (``csrc/probe7_copy.cu``).
+  ``out[H:H+N] = src[H:H+N] + 1`` (``csrc/probe7_copy.cu``: TMA boxes
+  through a ring of ``depth`` slots fed by a producer warp, and TMA stores
+  from two staging windows, on the tile of ``copy_tile``).
 - B: ``resident_step`` computes probe_B's damped SO=8 update reps times
   over t0 x-rows of the N x N interior from constant windows held in
   shared memory (``csrc/probe7_resident.cu``); u may instead vary with
@@ -18,7 +20,10 @@ ZA >= NY, so that the same arrays can go through both packages.
   holds the first x-row's update at the interior corner; the JAX kernel's
   output reads scratch rows it never writes.
 - C: ``empty_grid`` launches reps CTAs, the last of which fills an
-  (8, 128) output with reps - 1 (``csrc/probe7_empty.cu``).
+  (8, 128) output -- a new one, or ``out`` -- with reps - 1
+  (``csrc/probe7_empty.cu``) through a short host path: the entry point
+  resolved once, the device guard in C, the stream read raw; the probe
+  also times launches replayed from a CUDA graph.
 - D, E: ``stream_windows`` streams the same chunks through a ring of
   ``depth`` slots in one launch and returns the sum, in x order, of row 0,
   y 0:8, z 0:128 of every chunk (``csrc/probe7_stream.cu``: one TMA box a
@@ -51,12 +56,12 @@ from ..kernels import _nvcc
 
 __all__ = ['copy_windows', 'copy_windows_reference', 'resident_step',
            'resident_step_reference', 'resident_update', 'u_window',
-           'empty_grid', 'empty_launcher',
-           'empty_grid_reference', 'stream_windows',
-           'stream_windows_reference', 'stream_needs', 'window_tile',
-           'stream_tiles', 'stream_tile', 'stream_occupancy', 'resident_tile',
-           'inputs', 'probe_A', 'probe_B', 'probe_C', 'probe_D', 'probe_E',
-           'main']
+           'copy_tiles', 'copy_tile', 'copy_occupancy',
+           'empty_grid', 'empty_launcher', 'empty_grid_reference',
+           'stream_windows', 'stream_windows_reference',
+           'stream_needs', 'stream_tiles', 'stream_tile', 'stream_occupancy',
+           'resident_tile', 'inputs', 'probe_A', 'probe_B', 'probe_C',
+           'probe_D', 'probe_E', 'main']
 
 N = 256
 H = 8          # x-halo rows per side
@@ -91,22 +96,40 @@ stream_launches = {}
 _SMEM = 232448     # bytes of shared memory a block may use on Hopper
 _SM_SMEM = 233472  # bytes of shared memory of one SM
 _CTA_SMEM = 1024   # bytes the runtime keeps for each resident CTA
-_THREADS = 256     # threads of a K10 CTA
-_TZ = 64           # z extent of its tiles
-#: Threads of a K13/K14 CTA: four consumer warps, one output column a
-#: thread, and the producer warp.
-_STREAM_THREADS = 160
-#: Shared bytes of a K13/K14 CTA besides its ring: alignment slack and the
-#: full and empty barriers (``smem_bytes`` in csrc/probe7_stream.cu).
-_STREAM_FIXED = 256
-#: The (TY, TZ) tiles K13/K14 may take.
+#: Threads of a K10, K13 or K14 CTA: four consumer warps and the producer
+#: warp.
+_RING_THREADS = 160
+#: Shared bytes of such a CTA besides its windows: alignment slack and the
+#: full and empty barriers (``smem_bytes`` in csrc/probe7_ring.cuh).
+_RING_FIXED = 256
+#: The (TY, TZ) tiles K10, K13 and K14 may take.
 STREAM_TYS = (1, 2, 4, 8)
 STREAM_TZS = (64, 128, 256)
+#: K10's ring depth when none is asked for, pinned by chip_smoke.py's
+#: sweep (PERF.md §6).
+COPY_DEPTH = 3
+#: K10's staging windows of the write-back (``STAGES`` in
+#: csrc/probe7_copy.cu).
+COPY_STAGES = 2
 _K11_TZ = 32       # z extent of a K11 tile
 
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _device(device):
+    """``torch.device(device)``, made once for each value of ``device``."""
+    dev = _devices.get(device)
+    if dev is None:
+        dev = _devices[device] = torch.device(device)
+    return dev
+
+
+_devices = {}
+_F32 = torch.float32
+#: K12's ctypes entry point, once ``empty_launcher`` has built it.
+_empty_entry = None
 
 
 def _name(dev):
@@ -129,13 +152,69 @@ def _pick(what, fits, threads):
     return ty, b, _ctas_per_sm(b, threads(ty))
 
 
-def window_tile(slots, nwin, t0):
-    """The (TY, 64) tile of K10, K13 and K14 for a ring of ``slots`` slots
-    of nwin windows of t0 rows: the largest TY of 4, 2 and 1 that lets two
-    CTAs share an SM, else the largest that fits one. Returns (TY, shared
-    bytes, CTAs per SM); raises when no tile fits."""
-    return _pick('window', [(ty, 4 * slots * nwin * t0 * ty * _TZ)
-                            for ty in (4, 2, 1)], lambda ty: _THREADS)
+def _ring_tiles(windows, t0):
+    """Every (TY, TZ) tile of K10, K13 and K14 whose ``windows`` windows of
+    (t0, TY, TZ) fp32 fit a block's shared memory, as ((TY, TZ), shared
+    bytes, CTAs per SM (registers not counted)), fewest bytes a CTA first,
+    then the wider TZ."""
+    tiles = [((ty, tz), _RING_FIXED + 4 * windows * t0 * ty * tz)
+             for ty in STREAM_TYS for tz in STREAM_TZS]
+    return [(tile, b, _ctas_per_sm(b, _RING_THREADS)) for tile, b in
+            sorted(tiles, key=lambda t: (t[1], -t[0][1])) if b <= _SMEM]
+
+
+def _first(what, fits):
+    if not fits:
+        raise ValueError(f"the {what} kernel's windows do not fit in "
+                         f"{_SMEM} bytes of shared memory")
+    return fits[0]
+
+
+def _fit(fits, tile):
+    """The record of ``tile`` in ``fits``; raises when it is not there."""
+    fit = next((f for f in fits if f[0] == tile), None)
+    if fit is None:
+        raise ValueError(f"tile {tile}: expected (TY, TZ) with TY in "
+                         f"{STREAM_TYS} and TZ in {STREAM_TZS} whose ring "
+                         f"fits in {_SMEM} bytes of shared memory")
+    return fit
+
+
+def _depth(depth):
+    if depth not in DEPTHS:
+        raise ValueError(f"depth={depth}: expected {DEPTHS.start} to "
+                         f"{DEPTHS.stop - 1}")
+    return depth
+
+
+def copy_tiles(depth, nwin, t0, writeback=True):
+    """Every (TY, TZ) tile of K10 whose ring of ``depth`` slots of nwin
+    windows of (t0, TY, TZ) fp32, and with ``writeback`` its COPY_STAGES
+    staging windows, fit a block's shared memory, as ``stream_tiles``
+    lists them."""
+    return _ring_tiles(depth * nwin + COPY_STAGES * bool(writeback), t0)
+
+
+def copy_tile(depth, nwin, t0, writeback=True):
+    """The (TY, TZ) tile of K10 for a ring of ``depth`` slots of nwin
+    windows of t0 rows: with one window a chunk the widest TZ of TY 1 that
+    lets two CTAs share an SM, else the first of ``copy_tiles``, (1, 64),
+    which lets the most share one. In chip_smoke.py's sweep at N=512, t0
+    16, depths 2-4, (1, 64) was the fastest TY 1 tile at nwin 4 with
+    write-back, and at nwin 1 (1, 256) was 4-8 % faster than (1, 64) with
+    write-back: its rows of out are 1 KB long (PERF.md §6). Returns ((TY,
+    TZ), shared bytes, CTAs per SM); raises when no tile fits."""
+    fits = copy_tiles(depth, nwin, t0, writeback)
+    wide = [f for f in fits if nwin == 1 and f[0][0] == 1 and f[2] >= 2]
+    if wide:
+        return max(wide, key=lambda f: f[0][1])
+    return _first('window-copy', fits)
+
+
+def _copy_fit(depth, nwin, t0, writeback, tile):
+    if tile is None:
+        return copy_tile(depth, nwin, t0, writeback)
+    return _fit(copy_tiles(depth, nwin, t0, writeback), tile)
 
 
 def stream_tiles(depth, nwin, t0):
@@ -143,10 +222,7 @@ def stream_tiles(depth, nwin, t0):
     windows of (t0, TY, TZ) fp32 fits a block's shared memory, as
     ((TY, TZ), shared bytes, CTAs per SM (registers not counted)), fewest
     bytes a CTA first, then the wider TZ."""
-    tiles = [((ty, tz), _STREAM_FIXED + 4 * depth * nwin * t0 * ty * tz)
-             for ty in STREAM_TYS for tz in STREAM_TZS]
-    return [(tile, b, _ctas_per_sm(b, _STREAM_THREADS)) for tile, b in
-            sorted(tiles, key=lambda t: (t[1], -t[0][1])) if b <= _SMEM]
+    return _ring_tiles(depth * nwin, t0)
 
 
 def stream_tile(depth, nwin, t0):
@@ -156,11 +232,7 @@ def stream_tile(depth, nwin, t0):
     N=512, t0 16, nwin 1 and 4, depths 2-4, it was the fastest or within
     4 % of it (PERF.md §6). Returns ((TY, TZ), shared bytes, CTAs per SM);
     raises when no tile fits."""
-    fits = stream_tiles(depth, nwin, t0)
-    if not fits:
-        raise ValueError(f"the window-stream kernel's windows do not fit in "
-                         f"{_SMEM} bytes of shared memory")
-    return fits[0]
+    return _first('window-stream', stream_tiles(depth, nwin, t0))
 
 
 def _stream_fit(depth, nwin, t0, tile):
@@ -168,13 +240,7 @@ def _stream_fit(depth, nwin, t0, tile):
     one of K13/K14's tiles or does not fit."""
     if tile is None:
         return stream_tile(depth, nwin, t0)
-    fit = next((f for f in stream_tiles(depth, nwin, t0) if f[0] == tile),
-               None)
-    if fit is None:
-        raise ValueError(f"tile {tile}: expected (TY, TZ) with TY in "
-                         f"{STREAM_TYS} and TZ in {STREAM_TZS} whose ring "
-                         f"fits in {_SMEM} bytes of shared memory")
-    return fit
+    return _fit(stream_tiles(depth, nwin, t0), tile)
 
 
 def resident_tile(t0):
@@ -219,33 +285,55 @@ def _on_card(what, src):
 
 # -- K10: streamed window copies -------------------------------------------------
 
-def copy_windows(src, t0=16, nwin=4, writeback=True, nsplit=1):
+def copy_windows(src, t0=16, nwin=4, writeback=True, nsplit=1, tile=None,
+                 depth=None):
     """K10: a new buffer shaped like ``src`` whose rows [H, H+N) hold
     src + 1 when ``writeback``; its x-halo rows, and without write-back all
     of it, are left unset, as in the TPU probe. The kernel walks the
-    x-chunks of t0 rows in order, the next chunk's nwin windows in flight,
-    each window's copy issued in nsplit row blocks. CUDA tensors go through
+    x-chunks of t0 rows in order through a ring of ``depth`` (default
+    COPY_DEPTH) slots of nwin windows, each window loaded in nsplit row
+    blocks, and stores window 0 + 1 from COPY_STAGES staging windows; on
+    ``tile`` (TY, TZ) of
+    ``copy_tiles`` or, by default, ``copy_tile``'s. CUDA tensors go through
     the kernel; CPU tensors through ``copy_windows_reference``."""
     global copy_launches
     n = _buffer('window-copy', src)
     _chunks(n, t0, nwin)
     if nsplit < 1 or t0 % nsplit:
         raise ValueError(f"nsplit={nsplit} does not divide t0={t0}")
+    depth = _depth(COPY_DEPTH if depth is None else depth)
+    (ty, tz), _, _ = _copy_fit(depth, nwin, t0, writeback, tile)
     if src.device.type == 'cpu':
         return copy_windows_reference(src, t0, nwin, writeback, nsplit)
     _on_card('window-copy', src)
-    ty, _, _ = window_tile(2, nwin, t0)
     out = torch.empty_like(src)
     fn = _nvcc.entry('probe7_copy', 'dtpu_probe7_copy_launch',
-                     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+                     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
                      + [ctypes.c_void_p])
     with torch.cuda.device(src.device):
         rc = fn(src.data_ptr(), out.data_ptr(), src.shape[0], src.shape[2],
-                n, t0, nwin, nsplit, int(bool(writeback)),
-                ty.bit_length() - 1, _stream(src.device))
+                n, t0, nwin, nsplit, int(bool(writeback)), depth, ty, tz,
+                _stream(src.device))
     _nvcc.check_launch(rc, "window-copy kernel")
     copy_launches += 1
     return out
+
+
+def copy_occupancy(t0=16, nwin=4, depth=None, tile=None, writeback=True,
+                   device='cuda'):
+    """The CTAs of K10 on ``tile`` (default ``copy_tile``'s) that fit on
+    one SM of ``device``, as the CUDA runtime counts them from the kernel's
+    registers, shared memory and threads."""
+    depth = _depth(COPY_DEPTH if depth is None else depth)
+    (ty, tz), _, _ = _copy_fit(depth, nwin, t0, writeback, tile)
+    fn = _nvcc.entry('probe7_copy', 'dtpu_probe7_copy_occupancy',
+                     [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(nwin, t0, depth, ty, tz, int(bool(writeback)),
+                ctypes.addressof(ctas))
+    _nvcc.check_launch(rc, "window-copy occupancy query")
+    return ctas.value
 
 
 def copy_windows_reference(src, t0=16, nwin=4, writeback=True, nsplit=1):
@@ -360,37 +448,78 @@ def resident_step_reference(t0=16, reps=16, taps='full', fills=FILLS, n=N,
 
 # -- K12: the empty grid ---------------------------------------------------------
 
-def empty_grid(reps=16, device='cuda'):
+def empty_grid(reps=16, device='cuda', out=None):
     """K12: one launch of ``reps`` CTAs, the last of which fills an (8, 128)
-    fp32 tensor with reps - 1: what the TPU grid's in-order steps leave. On
-    the CPU ``empty_grid_reference``."""
+    fp32 tensor with reps - 1: what the TPU grid's in-order steps leave.
+    The tensor is ``out`` when given -- contiguous, (8, 128), fp32, on
+    ``device``; it is written, never copied, as XLA reuses the buffer
+    across the JAX probe's loop -- else a new one. On the CPU
+    ``empty_grid_reference``.
+
+    The host path is short: the entry point is resolved once, the device
+    guard is in C, and the stream is read raw at each call. Nothing
+    synchronises, so calls may be captured in a CUDA graph;
+    a captured call counts one launch, its replays none."""
     global empty_launches
     if reps < 1:
         raise ValueError(f"reps={reps}: expected at least one step")
-    dev = torch.device(device)
+    dev = _device(device)
+    if out is not None:
+        if not isinstance(out, torch.Tensor) or out.dtype is not _F32 \
+                or out.shape != OUT or not out.is_contiguous():
+            raise ValueError(f"out: expected a contiguous {OUT} fp32 tensor")
+        at = out.device
+        if at.type != dev.type or dev.index is not None and \
+                at.index != dev.index:
+            raise ValueError(f"out is on {at}, not on {dev}")
     if dev.type == 'cpu':
-        return empty_grid_reference(reps)
+        return empty_grid_reference(reps, out=out)
     if dev.type != 'cuda':
         raise ValueError(f"no empty-grid kernel for device {dev}")
-    out = torch.empty(OUT, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = empty_launcher()(out.data_ptr(), reps, _stream(out.device))
+    if out is None:
+        out = torch.empty(OUT, dtype=_F32, device=dev)
+        at = out.device
+    index = at.index
+    fn = _empty_entry
+    if fn is None:
+        fn = empty_launcher()
+    rc = fn(out.data_ptr(), reps, index,
+            torch._C._cuda_getCurrentRawStream(index))
     _nvcc.check_launch(rc, "empty-grid kernel")
     empty_launches += 1
     return out
 
 
 def empty_launcher():
-    """K12's C entry point, ``(out pointer, reps, stream) -> cudaError_t``,
-    built on first use: what ``empty_grid`` calls, without its Python."""
-    return _nvcc.entry('probe7_empty', 'dtpu_probe7_empty_launch',
-                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    """K12's C entry point, ``(out pointer, reps, device index, stream) ->
+    cudaError_t``, built on first use: what ``empty_grid`` calls, without
+    its Python."""
+    global _empty_entry
+    if _empty_entry is None:
+        _empty_entry = _nvcc.entry(
+            'probe7_empty', 'dtpu_probe7_empty_launch',
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    return _empty_entry
 
 
-def empty_grid_reference(reps=16, device='cpu'):
-    """The plain PyTorch version of ``empty_grid``."""
+def empty_grid_reference(reps=16, device='cpu', out=None):
+    """The plain PyTorch version of ``empty_grid``; into ``out`` when
+    given."""
+    if out is not None:
+        return out.fill_(float(reps - 1))
     return torch.full(OUT, float(reps - 1), dtype=torch.float32,
                       device=device)
+
+
+def _replay_us(fn, device, calls=LOOP, replays=8):
+    """``calls`` calls of ``fn`` captured in one CUDA graph on ``device``:
+    (microseconds a call when the graph is replayed, timed over ``replays``
+    replays after one, the graph)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, replays, device) / calls * 1e3, graph
 
 
 # -- K13, K14: read pipelines in one launch --------------------------------------
@@ -404,9 +533,7 @@ def stream_windows(src, t0=16, nwin=4, depth=3, tile=None):
     through the kernel; CPU tensors through ``stream_windows_reference``."""
     n = _buffer('window-stream', src)
     _chunks(n, t0, nwin)
-    if depth not in DEPTHS:
-        raise ValueError(f"depth={depth}: expected {DEPTHS.start} to "
-                         f"{DEPTHS.stop - 1}")
+    _depth(depth)
     if src.shape[2] < OUT[1]:
         raise ValueError(f"ZA={src.shape[2]}: the output tile is z 0:128")
     if src.device.type == 'cpu':
@@ -515,10 +642,10 @@ def probe_A(t0=16, nwin=4, writeback=True, nsplit=1, n=N, za=None,
 
     ms = time_ms(step, REPS, dev)
     S = n * ny * za * 4
-    ty, _, ctas = window_tile(2, nwin, t0)
+    tile, _, ctas = copy_tile(COPY_DEPTH, nwin, t0, writeback)
     uniq = (1 + bool(writeback)) * S
     rec, text = _rates(dev, ms, (nwin + 2 * bool(writeback)) * S, uniq, uniq,
-                       bool(writeback) * S // 4, (ty, _TZ), ctas)
+                       bool(writeback) * S // 4, tile, ctas)
     print(f"A t0={t0} nwin={nwin} wb={bool(writeback)} nsplit={nsplit}: "
           f"{ms:.4f} ms/step -> {rec['gbs_agg']:.0f} GB/s agg DMA; {text}",
           flush=True)
@@ -561,29 +688,63 @@ def probe_B(t0=16, reps=16, taps='full', n=N, device='cuda'):
 
 def probe_C(reps=16, device='cuda'):
     """The JAX script's probe C on K12: the kernel against its plain
-    version, then LOOP calls each added to a carry, as the JAX loop does,
-    and LOOP bare launches, each loop timed 3 times; microseconds per
-    call."""
+    version, allocating and into one ``out``; then LOOP calls each added to
+    a carry, as the JAX loop does, LOOP bare launches allocating and LOOP
+    into ``out``, beside LOOP of ``torch.full`` and of ``out.fill_``, the
+    PyTorch calls that compute the same, each loop timed 3 times. On the
+    card also LOOP calls of the bare ctypes entry, and LOOP launches into
+    ``out`` captured in one CUDA graph and replayed -- the JAX loop's cost
+    of a launch with no host in it -- beside ``fill_`` replayed, the
+    replay checked against the plain version. Microseconds per call, by
+    name, in ``us_per_call``."""
     dev = device_for(device)
-    if not torch.equal(empty_grid(reps, dev), empty_grid_reference(reps,
-                                                                    dev)):
+    want = empty_grid_reference(reps, dev)
+    out = torch.empty(OUT, dtype=torch.float32, device=dev)
+    if not (torch.equal(empty_grid(reps, dev), want)
+            and torch.equal(empty_grid(reps, dev, out), want)):
         raise AssertionError(f"K12 did not leave {reps - 1}")
     carry = torch.zeros(OUT, dtype=torch.float32, device=dev)
+    val = float(reps - 1)
 
     def added():
         acc = carry
         for _ in range(LOOP):
             acc = empty_grid(reps, dev) + acc
 
-    def bare():
-        for _ in range(LOOP):
-            empty_grid(reps, dev)
+    def loop(fn):
+        def run():
+            for _ in range(LOOP):
+                fn()
+        return run
 
-    us = time_ms(added, 3, dev) / LOOP * 1e3
-    bare_us = time_ms(bare, 3, dev) / LOOP * 1e3
-    print(f"C: {us:.1f} us per {reps}-CTA launch and add, {bare_us:.1f} us "
-          f"per bare launch on {_name(dev)}", flush=True)
-    return {'probe': 'C', 'reps': reps, 'us': us, 'us_bare': bare_us,
+    calls = {'add': added, 'alloc': loop(lambda: empty_grid(reps, dev)),
+             'torch.full': loop(lambda: torch.full(OUT, val, device=dev)),
+             'out': loop(lambda: empty_grid(reps, dev, out)),
+             'fill_': loop(lambda: out.fill_(val))}
+    if dev.type == 'cuda':
+        fn, index = empty_launcher(), out.device.index
+        ptr = out.data_ptr()
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        calls['ctypes'] = loop(lambda: fn(ptr, reps, index, stream))
+    us = {k: time_ms(f, 3, dev) / LOOP * 1e3 for k, f in calls.items()}
+    if dev.type == 'cuda':
+        us['graph'], graph = _replay_us(lambda: empty_grid(reps, dev, out),
+                                       dev)
+        out.zero_()
+        graph.replay()
+        if not torch.equal(out, want):
+            raise AssertionError(f"K12 replayed did not leave {reps - 1}")
+        us['graph fill_'] = _replay_us(lambda: out.fill_(val), dev)[0]
+    text = (f"C: {us['add']:.1f} us per {reps}-CTA launch and add, "
+            f"{us['alloc']:.1f} us per bare launch (torch.full "
+            f"{us['torch.full']:.1f}), {us['out']:.1f} us into out (fill_ "
+            f"{us['fill_']:.1f})")
+    if 'graph' in us:
+        text += (f", {us['ctypes']:.1f} us through ctypes alone; replayed "
+                 f"from a CUDA graph {us['graph']:.2f} us a launch (fill_ "
+                 f"{us['graph fill_']:.2f})")
+    print(f"{text} on {_name(dev)}", flush=True)
+    return {'probe': 'C', 'reps': reps, 'us_per_call': us,
             'device': _name(dev)}
 
 

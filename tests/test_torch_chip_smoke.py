@@ -113,7 +113,9 @@ def test_probe7_phase_runs_on_the_cpu():
     """Phase 8 at N=112 (ZA = NY = 128, the least the D and E sums take) on
     the CPU, where every probe runs its plain version: no kernel launches,
     and K13/K14's records get the sweep's tile, shared bytes and nwin 1
-    time, with every tile of ``stream_tiles`` at depths 2-4, nwin 1 and 4."""
+    time, with every tile of ``stream_tiles`` at depths 2-4, nwin 1 and 4;
+    K10's its tile, the write-back / nwin ablation and the rows of every
+    tile of ``copy_tiles``; K12's its calls' times."""
     from devito_tpu_torch import switchconfig
     records = [{'name': n, 'route': 'cuda', 'source': s, 'replaces': r}
                for n, s, r, _ in C.KERNELS]
@@ -137,3 +139,22 @@ def test_probe7_phase_runs_on_the_cpu():
                       for r in rec['sweep']) == sorted(
             (dd, w, t) for dd in depths for w in (1, 4)
             for t, _, _ in P7.stream_tiles(dd, w, 16))
+    # K10: every tile of copy_tiles at depths 2-4, nwin 1 and 4, with and
+    # without write-back; the record at COPY_DEPTH's chosen tiles
+    k10 = by['copy_windows']
+    d = P7.COPY_DEPTH
+    assert k10['launches'] == 0 and k10['depth'] == d
+    assert k10['stages'] == P7.COPY_STAGES
+    assert (k10['tile'], k10['smem_bytes']) == P7.copy_tile(d, 4, 16)[:2]
+    assert set(k10['ablation']) == {'wb nwin 1', 'wb nwin 4', 'nowb nwin 1',
+                                    'nowb nwin 4'}
+    assert sorted((r['depth'], r['nwin'], r['writeback'], r['tile'])
+                  for r in k10['sweep']) == sorted(
+        (dd, w, wb, t) for dd in (2, 3, 4) for w in (1, 4)
+        for wb in (True, False) for t, _, _ in P7.copy_tiles(dd, w, 16, wb))
+    assert all(r['ms'] > 0 and r['ctas_per_sm'] is None
+               for r in k10['sweep'])
+    # K12: the calls timed on the CPU; no graph, no ctypes entry there
+    assert set(by['empty_grid']['us_per_call']) == {
+        'add', 'alloc', 'torch.full', 'out', 'fill_'}
+    assert by['empty_grid']['library_call'] == 'out.fill_(reps - 1)'

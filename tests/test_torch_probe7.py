@@ -133,6 +133,70 @@ def test_copy_windows_checks_arguments():
         P7.copy_windows(src.to('meta'), 4)
 
 
+def test_copy_windows_checks_tile_and_depth():
+    src = P7.inputs(N, ZA, 0, 'cpu')
+    for depth in (0, 9):
+        with pytest.raises(ValueError, match=f'depth={depth}'):
+            P7.copy_windows(src, 4, 2, True, 1, None, depth)
+    for tile in ((3, 64), (1, 32), (8, 512)):
+        with pytest.raises(ValueError, match=re.escape(f'tile {tile}')):
+            P7.copy_windows(src, 4, 2, True, 1, tile)
+    with pytest.raises(ValueError, match='fits in'):   # (8, 256): 1.1 MiB
+        P7.copy_windows(src, 16, 4, True, 1, (8, 256), 2)
+    with pytest.raises(ValueError, match='do not fit'):
+        P7.copy_windows(P7.inputs(64, 80, 0, 'cpu'), 64, 8, True, 1, None, 8)
+    # a listed tile and depth are taken (on the CPU the plain version runs
+    # whatever they are; the card tests hold the kernel on every tile)
+    tile = P7.copy_tiles(2, 2, 4)[-1][0]
+    got = P7.copy_windows(src, 4, 2, True, 2, tile, 2)
+    assert torch.equal(got[H:H + N], src[H:H + N] + 1.0)
+
+
+def test_copy_tile_pins():
+    """K10's tiles at the JAX script's t0 and nwin: a ring of COPY_DEPTH
+    slots of four (16, TY, TZ) fp32 windows and, with write-back, two
+    staging windows, 256 bytes of slack and barriers, and the CTAs an SM
+    holds by them."""
+    assert (P7.COPY_DEPTH, P7.COPY_STAGES) == (3, 2)
+    src = (REPO / 'devito_tpu_torch/csrc/probe7_copy.cu').read_text()
+    assert f'constexpr int STAGES = {P7.COPY_STAGES};' in src
+    assert P7.copy_tile(3, 4, 16) == ((1, 64), 57600, 3)
+    assert P7.copy_tile(2, 4, 16) == ((1, 64), 41216, 5)
+    assert P7.copy_tile(2, 4, 16, False) == P7.stream_tile(2, 4, 16)
+    assert P7.copy_tile(4, 4, 16) == ((1, 64), 73984, 3)
+    # one window a chunk: the widest TY 1 tile that two CTAs share an SM by
+    assert P7.copy_tile(3, 1, 16) == ((1, 256), 82176, 2)
+    assert P7.copy_tile(2, 1, 16, False) == ((1, 256), 33024, 6)
+    assert P7.copy_tile(8, 1, 64) == ((1, 64), 164096, 1)  # none by two
+    with pytest.raises(ValueError, match='window-copy kernel.*do not fit'):
+        P7.copy_tile(8, 8, 64)
+
+
+@pytest.mark.parametrize('wb', [True, False])
+@pytest.mark.parametrize('depth', P7.DEPTHS)
+@pytest.mark.parametrize('nwin,t0', [(1, 16), (4, 16), (1, 257), (3, 257)])
+def test_copy_tiles_fit_in_preference_order(depth, nwin, t0, wb):
+    fits = P7.copy_tiles(depth, nwin, t0, wb)
+    room = depth * nwin + 2 * wb  # windows of (t0, TY, TZ) fp32
+    for (ty, tz), smem, ctas in fits:
+        assert ty in P7.STREAM_TYS and tz in P7.STREAM_TZS
+        assert smem == 256 + 4 * room * t0 * ty * tz <= 232448
+        assert ctas == min(233472 // (smem + 1024), 2048 // 160)
+    assert [f[1] for f in fits] == sorted(f[1] for f in fits)
+    assert len(fits) == sum(256 + 4 * room * t0 * ty * tz <= 232448
+                            for ty in P7.STREAM_TYS for tz in P7.STREAM_TZS)
+    if fits:
+        assert fits[0][0] == (1, 64)
+        two = [f for f in fits if f[0][0] == 1 and f[2] >= 2]
+        assert P7.copy_tile(depth, nwin, t0, wb) == (
+            two[-1] if nwin == 1 and two else fits[0])
+    else:
+        with pytest.raises(ValueError, match='do not fit'):
+            P7.copy_tile(depth, nwin, t0, wb)
+    if not wb:         # the reads alone: K13/K14's ring
+        assert fits == P7.stream_tiles(depth, nwin, t0)
+
+
 # -- K11 -----------------------------------------------------------------------
 
 def _probe_b_numpy(fills, taps):
@@ -305,6 +369,50 @@ def test_empty_grid_checks_arguments():
         P7.empty_grid(4, 'meta')
 
 
+@pytest.mark.parametrize('reps', [1, 7, 16, 300])
+def test_empty_grid_into_out(reps):
+    out = torch.full((8, 128), float('nan'))
+    got = P7.empty_grid(reps, 'cpu', out)
+    assert got is out
+    assert torch.equal(out, P7.empty_grid_reference(reps))
+    assert P7.empty_grid_reference(reps, out=out) is out
+
+
+@pytest.mark.parametrize('out,device,match', [
+    (torch.empty(8, 64), 'cpu', 'contiguous'),
+    (torch.empty(8, 128, dtype=torch.float64), 'cpu', 'fp32'),
+    (torch.empty(128, 8).t(), 'cpu', 'contiguous'),
+    (np.empty((8, 128), np.float32), 'cpu', 'tensor'),
+    (torch.empty(8, 128), 'cuda', 'not on cuda'),
+    (torch.empty(8, 128), 'cuda:0', 'not on cuda:0'),
+    (torch.empty(8, 128, device='meta'), 'cpu', 'not on cpu')])
+def test_empty_grid_checks_out(out, device, match):
+    """A wrong shape, type, layout or device of ``out`` raises before
+    anything runs; ``out`` is never copied."""
+    with pytest.raises(ValueError, match=match):
+        P7.empty_grid(4, device, out)
+
+
+def test_empty_grid_cpu_path_needs_no_cuda(monkeypatch):
+    """On the CPU neither the raw stream, the CUDA runtime nor nvcc is
+    reached, with or without ``out``."""
+    def fail(*args, **kwargs):
+        raise AssertionError("the CPU path reached CUDA")
+
+    monkeypatch.delattr(torch._C, '_cuda_getCurrentRawStream',
+                        raising=False)
+    for name in ('current_stream', 'device', 'current_device'):
+        monkeypatch.setattr(torch.cuda, name, fail)
+    monkeypatch.setattr(P7._nvcc, 'entry', fail)
+    before = P7.empty_launches
+    out = torch.empty(8, 128)
+    assert torch.equal(P7.empty_grid(5, 'cpu', out), torch.full(
+        (8, 128), 4.0))
+    assert torch.equal(P7.empty_grid(5, torch.device('cpu')),
+                       torch.full((8, 128), 4.0))
+    assert P7.empty_launches == before
+
+
 # -- K13, K14 ------------------------------------------------------------------
 
 def _chunk_sum(src, t0):
@@ -396,12 +504,13 @@ def test_stream_tiles_fit_in_preference_order(depth, nwin, t0):
 
 
 def test_tiles_fit_shared_memory():
-    ty, smem, ctas = P7.window_tile(2, 4, 16)      # A's defaults
-    assert (ty, smem, ctas) == (2, 65536, 3)
-    assert P7.window_tile(4, 4, 16)[::2] == (1, 3)  # a ring of 4 slots
+    # A's defaults: a ring of COPY_DEPTH slots and two staging windows
+    tile, smem, ctas = P7.copy_tile(P7.COPY_DEPTH, 4, 16)
+    assert (tile, smem, ctas) == ((1, 64), 57600, 3)
+    assert P7.copy_tile(4, 4, 16)[::2] == ((1, 64), 3)  # a ring of 4 slots
     assert P7.resident_tile(16) == (8, 110592, 2)
     with pytest.raises(ValueError, match='do not fit'):
-        P7.window_tile(8, 8, 64)
+        P7.copy_tile(8, 8, 64)
 
 
 # -- the entry point -------------------------------------------------------------
@@ -457,20 +566,71 @@ def test_entry_point_needs_cuda_when_asked(monkeypatch):
 
 # -- on the card -----------------------------------------------------------------
 
+#: K10 on one buffer at depths d0..d1, nwin 1, 3 and 4, nsplit 1 and 2
+#: (where it divides t0), with and without write-back, on the card, in a
+#: process of its own: a wrong byte count would leave a barrier incomplete
+#: (the kernel traps after 4 s; the process is killed after TIMEOUT). With
+#: ``tiles`` every tile of ``copy_tiles``, else ``copy_tile``'s. Prints
+#: [depth, nwin, nsplit, wb, tile, rows [H, H+n) equal to src + 1 (True
+#: without write-back), launches counted], or the error for rings that fit
+#: no tile.
+_COPY_CASES = """
+import json, sys, torch
+from devito_tpu_torch.experiments import stencil_probe7 as P7
+n, t0, za, tiles, d0, d1 = map(int, sys.argv[1:])
+src = P7.inputs(n, za, n + t0, 'cuda')
+want = src[8:8 + n] + 1.0
+rows = []
+for depth in range(d0, d1 + 1):
+    for nwin in (1, 3, 4):
+        for nsplit in [s for s in (1, 2) if t0 % s == 0]:
+            for wb in (True, False):
+                case = [depth, nwin, nsplit, wb]
+                fits = [f[0] for f in P7.copy_tiles(depth, nwin, t0, wb)]
+                if not fits:
+                    try:
+                        P7.copy_windows(src, t0, nwin, wb, nsplit, None, depth)
+                        rows.append(case + [None, 'ran'])
+                    except ValueError as e:
+                        rows.append(case + [None, str(e)])
+                for tile in fits if tiles else fits[:1]:
+                    before = P7.copy_launches
+                    got = P7.copy_windows(src, t0, nwin, wb, nsplit, tile,
+                                          depth)
+                    torch.cuda.synchronize()
+                    rows.append(case + [tile, not wb or torch.equal(
+                        got[8:8 + n], want), P7.copy_launches - before])
+print(json.dumps(rows))
+"""
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('n,t0,za', [(22, 2, 60), (22, 11, 40), (40, 8, 68)])
-@pytest.mark.parametrize('nwin,nsplit', [(1, 1), (3, 1), (4, 2)])
-def test_copy_kernel_on_card(card, n, t0, za, nwin, nsplit):
-    if t0 % nsplit:
-        nsplit = 1
-    src = P7.inputs(n, za, n + t0, card)
-    before = P7.copy_launches
-    for wb in (True, False):
-        got = P7.copy_windows(src, t0, nwin, wb, nsplit)
-        torch.cuda.synchronize()
-        if wb:
-            assert torch.equal(got[H:H + n], src[H:H + n] + 1.0)
-    assert P7.copy_launches == before + 2
+@pytest.mark.parametrize('n,t0,za,tiles,depths', [
+    (22, 2, 60, True, (2, 4)),      # za < 64: one column, boxes 60 wide
+    (22, 11, 40, True, (2, 4)),     # t0 odd: nsplit 1 only
+    (40, 8, 68, True, (2, 4)),      # the last column's boxes 4 floats wide
+    (514, 257, 532, False, (1, 4))])  # t0 > 256: a window is two boxes
+def test_copy_kernel_on_card(card, n, t0, za, tiles, depths):
+    res = subprocess.run(
+        [sys.executable, '-c', _COPY_CASES, str(n), str(t0), str(za),
+         str(int(tiles)), *map(str, depths)], cwd=REPO, capture_output=True,
+        text=True, timeout=TIMEOUT, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert res.returncode == 0, res.stderr[-4000:]
+    rows = json.loads(res.stdout.splitlines()[-1])
+    runs = [r for r in rows if len(r) == 7]
+    splits = [s for s in (1, 2) if t0 % s == 0]
+    cases = {(d, w, s, wb) for d in range(depths[0], depths[1] + 1)
+             for w in (1, 3, 4) for s in splits for wb in (True, False)}
+
+    def fits(c):
+        return P7.copy_tiles(c[0], c[1], t0, c[3])
+
+    assert {tuple(r[:4]) for r in rows} == cases
+    assert {tuple(r[:4]) for r in runs} == {c for c in cases if fits(c)}
+    assert all(r[5] is True and r[6] == 1 for r in runs), runs
+    assert all('do not fit' in r[5] for r in rows if len(r) == 6), rows
+    if tiles:
+        assert len(runs) == sum(len(fits(c)) for c in cases)
 
 
 @pytest.mark.cuda
@@ -489,12 +649,30 @@ def test_resident_kernel_on_card(card, n, t0, fills, vary):
 
 
 @pytest.mark.cuda
-def test_empty_kernel_on_card(card):
+@pytest.mark.parametrize('reps', [1, 7, 16, 300])
+def test_empty_kernel_on_card(card, reps):
+    """K12 new and into ``out``, then both captured in a CUDA graph and
+    replayed: equal to the plain version each time; a launch counted per
+    call and per captured call, none per replay."""
+    want = P7.empty_grid_reference(reps, card)
+    out = torch.zeros(8, 128, device=card)
     before = P7.empty_launches
-    for reps in (1, 7, 300):
-        assert torch.equal(P7.empty_grid(reps, card),
-                           P7.empty_grid_reference(reps, card))
-    assert P7.empty_launches == before + 3
+    assert torch.equal(P7.empty_grid(reps, card), want)
+    assert P7.empty_grid(reps, card, out) is out
+    assert torch.equal(out, want)
+    out.zero_()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        new = P7.empty_grid(reps, card)
+        P7.empty_grid(reps, card, out)
+    assert P7.empty_launches == before + 4
+    for _ in range(3):
+        new.zero_()
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(new, want) and torch.equal(out, want)
+    assert P7.empty_launches == before + 4
 
 
 #: K13/K14 at depths 1-8 and nwin 1, 3 and 4 on one buffer, on the card, in

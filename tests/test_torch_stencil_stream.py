@@ -366,10 +366,20 @@ def test_build_compiles_a_key_once_across_threads(monkeypatch):
 
 
 def test_fixed_units_hash_nested_headers():
-    # probe7_copy.cu includes probe7_windows.cuh, which includes
-    # cp_async.cuh
-    src = (_nvcc._CSRC / 'probe7_copy.cu').read_text()
-    assert 'cp_async.cuh' in _nvcc.headers(src)
+    # the streaming design's unit includes stencil_stream.cuh, which
+    # includes tma.cuh: the build key hashes both
+    g, e = _acoustic(dt, (10, 11, 12), 4)
+    plan = _plan_of(e, g)
+    assert _nvcc.headers(plan.source) == ['stencil_stream.cuh', 'tma.cuh']
+    tma = (_nvcc._CSRC / 'tma.cuh').read_text()
+    assert _nvcc.unit_key(plan.source) == _nvcc.source_key(
+        (_nvcc._CSRC / 'stencil_stream.cuh').read_text(), tma, plan.source)
+    # K10's and K13/K14's units include the ring they share, which
+    # includes cp_async.cuh and tma.cuh
+    for unit in ('probe7_copy', 'probe7_stream'):
+        src = (_nvcc._CSRC / f'{unit}.cu').read_text()
+        assert _nvcc.headers(src) == ['probe7_ring.cuh', 'cp_async.cuh',
+                                      'tma.cuh']
 
 
 # -- the operator ------------------------------------------------------------
