@@ -29,14 +29,19 @@
    main (K15, the sliding-ring step) at N=256, TX=32, and stencil_probe6's
    main (P1 copy bandwidth, K8 window copies, K9 the in-place step) at
    N=256, t0=16, each with its launches counted; K9 in both output modes
-   and every tap ablation against its plain version; then K15 and K9
-   timed at 512^3 beside K1, and P1 at 512^3 as the card's copy ceiling.
+   and every tap ablation against its plain version, its x-halo rows
+   untouched; then K15 and K9 timed at 512^3 beside K1, and P1 at 512^3
+   as the card's copy ceiling; K9's CTAs per SM, registers and spills, its
+   time without the fullz frame ('interior'), and a sweep of the x-planes
+   its CTAs walk, each bit-equal to the pick.
 7. The tiled-design probe entry points: stencil_probe (K3), stencil_probe2
    (K4), stencil_probe3 (K5), stencil_probe4 (K6) and stencil_probe5 (K7),
    each main at its JAX script's TPU defaults with its kernel's launches
    counted (K7 at TX=32, where the JAX kernel itself is wrong); then each
    kernel against its plain version at 512^3, one step and 3 steps of its
-   loop over the whole array, and timed beside K1 and K15 against P1.
+   loop over the whole array, and timed beside K1 and K15 against P1; K3
+   also into up's own interior, bit-equal to K3 into a new tensor, with
+   its CTAs per SM, registers and spills, and a sweep of its x-planes.
 8. The copy, compute and launch probes of stencil_probe7: A (K10) with and
    without write-back at nsplit 1 and 2, B (K11) for every tap ablation,
    C (K12), D (K13) and E (K14) at depths 2, 3 and 4, each at the JAX
@@ -135,11 +140,11 @@ KERNELS = [
      'experiments/pallas_backend.py:54', ''),
     ('ring_step', 'devito_tpu_torch/csrc/probe9_ring.cu',
      'experiments/stencil_probe9.py:32', ''),
-    ('inplace_step', 'devito_tpu_torch/csrc/probe6_inplace.cu',
-     'experiments/stencil_probe6.py:110', ''),
+    ('inplace_step', 'devito_tpu_torch/csrc/probe6_stream.cu',
+     'experiments/stencil_probe6.py:110', 'PointILi2EE'),     # full taps
     ('window_copy', 'devito_tpu_torch/csrc/probe6_window_copy.cu',
      'experiments/stencil_probe6.py:68', ''),
-    ('halo_tiles_step', 'devito_tpu_torch/csrc/probe_halo_tiles.cu',
+    ('halo_tiles_step', 'devito_tpu_torch/csrc/probe_halo_stream.cu',
      'experiments/stencil_probe.py:64', ''),
     ('neighbour_blocks_step',
      'devito_tpu_torch/csrc/probe2_neighbour_blocks.cu',
@@ -162,8 +167,8 @@ KERNELS = [
     ('stream_windows_depth3', 'devito_tpu_torch/csrc/probe7_stream.cu',
      'experiments/stencil_probe7.py:272', 'stream_kernelILi3E'),
 ]
-FIXED = ['selftest', 'probe9_ring', 'probe6_inplace', 'probe6_window_copy',
-         'probe_halo_tiles', 'probe2_neighbour_blocks', 'probe4_tiles',
+FIXED = ['selftest', 'probe9_ring', 'probe6_stream', 'probe6_window_copy',
+         'probe_halo_stream', 'probe2_neighbour_blocks', 'probe4_tiles',
          'probe5_xtiles', 'probe7_copy', 'probe7_resident', 'probe7_empty',
          'probe7_stream']
 #: The module of devito_tpu_torch.experiments and the launch counter of
@@ -914,6 +919,7 @@ def probes(device, sizes, gen, records):
     """Phase 6: the probe entry points, each driven with its kernels'
     launch counts at 0 just before and read just after; then the 512^3
     comparisons and times. Returns P1's GB/s, the copy ceiling."""
+    from devito_tpu_torch.experiments import _stream as S
     from devito_tpu_torch.experiments import stencil_probe6 as P6
     from devito_tpu_torch.experiments import stencil_probe9 as P9
     k1, _, ring, inplace, wcopy = records[:5]
@@ -1020,7 +1026,35 @@ def probes(device, sizes, gen, records):
     # [H, H+N) of tgt written whole ('fullz')
     set_bound(inplace, 4 * (star_points(N) + 3 * N ** 3 + N * NY * NY),
               P6.FLOPS['full'] * N ** 3)
-    del ut, utm1, tgt, vp, damp, ref
+    # the x-planes a CTA walks: each candidate bit-equal to the pick
+    pick = P6.inplace_step(ut, utm1, vp, damp, tgt.clone(), t0)
+    inplace.update(x_chunk=S.X_CHUNK, x_chunk_sweep=[],
+                   ms_interior=time_ms(lambda: P6.inplace_step(
+                       ut, utm1, vp, damp, tgt, t0, 'interior'), reps,
+                       device),
+                   ctas_per_sm=S.occupancy('probe6_stream', 2)
+                   if on_card else None)
+    for xc in S.X_CHUNKS if on_card else ():
+        if not torch.equal(P6.inplace_kernel(ut, utm1, vp, damp, tgt.clone(),
+                                             'fullz', 'full', xc), pick):
+            raise AssertionError(f"K9 at x-chunk {xc} differs from K9 at "
+                                 f"{S.X_CHUNK}")
+        ms = time_ms(lambda: P6.inplace_kernel(ut, utm1, vp, damp, tgt,
+                                               'fullz', 'full', xc),
+                     reps, device)
+        inplace['x_chunk_sweep'].append(
+            dict(x_chunk=xc, ms=ms, share_of_bound=inplace['bound_ms'] / ms))
+        log(f"[probe6-sweep] K9 at {N}^3, x-chunk {xc}: {ms:.4f} ms = "
+            f"{100 * inplace['bound_ms'] / ms:.1f} % of the "
+            f"{inplace['bound_ms']:.3f} ms bound; bit-equal to x-chunk "
+            f"{S.X_CHUNK}")
+    log(f"[probe6] K9 at {N}^3 (fullz, full taps, x-chunk {S.X_CHUNK}, "
+        f"tile {S.TILE}): {inplace['ms']:.4f} ms = "
+        f"{100 * inplace['share_of_bound']:.1f} % of the "
+        f"{inplace['bound_ms']:.3f} ms bound; interior only (no frame "
+        f"kernel) {inplace['ms_interior']:.4f} ms; "
+        f"{inplace['ctas_per_sm']} CTAs/SM; {inplace.get('ptxas', '')}")
+    del ut, utm1, tgt, vp, damp, ref, pick
     src = torch.randn((NY,) * 3, generator=gen, device=device)
     by_window = {}
     for label, window in P6.p2_windows(N):
@@ -1237,8 +1271,63 @@ def tiled_probes(device, sizes, gen, records, ceiling):
         del step, plain, loop, plain_loop, timed, plain_timed
         if device.type == 'cuda':
             torch.cuda.empty_cache()
+    lines += k3_in_place(device, N, gen, by_name['halo_tiles_step'], reps)
     for line in lines:
         log(line)
+
+
+def k3_in_place(device, N, gen, rec, reps):
+    """K3 at N^3 into a new tensor and into up's own interior (the loop's
+    target), each against its plain version and bit-equal to each other,
+    up's halo untouched; then each x-chunk of ``_stream.X_CHUNKS``, bit-equal
+    to the pick, timed into a new tensor. Puts the CTAs per SM and the
+    sweep into ``rec``; returns the lines to print."""
+    from devito_tpu_torch.experiments import _stream as S
+    from devito_tpu_torch.experiments import stencil_probe as T3
+    H, NP, c = T3.H, N + 2 * T3.H, slice(T3.H, T3.H + N)
+    up, uc = (torch.randn((NP,) * 3, generator=gen, device=device)
+              for _ in range(2))
+    m = 0.1 + 0.1 * torch.rand((N,) * 3, generator=gen, device=device)
+    damp = 0.05 * torch.rand((N,) * 3, generator=gen, device=device)
+    plain = T3.halo_tiles_step_reference(up, uc, m, damp)
+    new = T3.halo_tiles_step(up, uc, m, damp)
+    inplace = up.clone()
+    T3.halo_tiles_step(inplace, uc, m, damp, out=inplace[c, c, c])
+    errs = [check_close(f"K3 at {N}^3 into a new tensor", new, plain),
+            check_close(f"K3 at {N}^3 into up's interior", inplace[c, c, c],
+                        plain)]
+    if not torch.equal(inplace[c, c, c], new):
+        raise AssertionError("K3 into up's interior differs from K3 into a "
+                             "new tensor")
+    inplace[c, c, c] = up[c, c, c]
+    if not torch.equal(inplace, up):
+        raise AssertionError("K3 into up's interior wrote up's halo")
+    del inplace, plain
+    on_card = device.type == 'cuda'
+    rec.update(max_abs_err=max(errs + [rec['max_abs_err']]),
+               in_place_bit_equal=True, x_chunk=S.X_CHUNK, x_chunk_sweep=[],
+               ctas_per_sm=S.occupancy('probe_halo_stream')
+               if on_card else None)
+    lines = [f"[tiled] K3 at {N}^3 (x-chunk {S.X_CHUNK}, tile {S.TILE}): "
+             f"into a new tensor and into up's interior max|kernel - plain| "
+             f"{errs[0]:.3e}, {errs[1]:.3e}, the two bit-equal, up's halo "
+             f"untouched; {rec['ctas_per_sm']} CTAs/SM; "
+             f"{rec.get('ptxas', '')}"]
+    spare = torch.empty_like(m)
+    for xc in S.X_CHUNKS if on_card else ():
+        if not torch.equal(T3.halo_tiles_kernel(up, uc, m, damp, spare, xc),
+                           new):
+            raise AssertionError(f"K3 at x-chunk {xc} differs from K3 at "
+                                 f"{S.X_CHUNK}")
+        ms = time_ms(lambda: T3.halo_tiles_kernel(up, uc, m, damp, spare, xc),
+                     reps, device)
+        rec['x_chunk_sweep'].append(
+            dict(x_chunk=xc, ms=ms, share_of_bound=rec['bound_ms'] / ms))
+        lines.append(f"[tiled-sweep] K3 at {N}^3, x-chunk {xc}: {ms:.4f} ms "
+                     f"= {100 * rec['bound_ms'] / ms:.1f} % of the "
+                     f"{rec['bound_ms']:.3f} ms bound; bit-equal to x-chunk "
+                     f"{S.X_CHUNK}")
+    return lines
 
 
 def probe7(device, sizes, gen, records, ceiling):

@@ -5,8 +5,10 @@ kernel and that kernel's plain PyTorch version:
 - ``stencil_probe9``: K15, the sliding-ring step
   (``python -m devito_tpu_torch.experiments.stencil_probe9 [N] [TX] [steps]``);
 - ``stencil_probe6``: P1 copy bandwidth, K8 window copies and K9 the
-  in-place x-tiled step (``python -m devito_tpu_torch.experiments.stencil_probe6 [t0]``);
-- ``stencil_probe``: K3, (x, y) tiles staging both halo'd windows
+  in-place step, a point of K1's streaming engine
+  (``python -m devito_tpu_torch.experiments.stencil_probe6 [t0]``);
+- ``stencil_probe``: K3, the step of the JAX script's halo'd (x, y)
+  tiles, a point of K1's streaming engine
   (``python -m devito_tpu_torch.experiments.stencil_probe [N] [STEPS] [TX] [TY]``);
 - ``stencil_probe2``: K4, x-tiles assembled from neighbour blocks, x-halo
   rows computed (``python -m devito_tpu_torch.experiments.stencil_probe2 [N] [STEPS] [T]``);

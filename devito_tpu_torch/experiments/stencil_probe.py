@@ -8,9 +8,9 @@ the pair rotates, (up, uc) -> (uc, up), as the JAX script's ``fori_loop``
 does.
 
 - A: the JAX script's raw-XLA loop, a plain torch loop here (``run_xla``);
-- C: the loop through K3 (``run_pallas``, ``csrc/probe_halo_tiles.cu``),
-  whose CTAs each stage the halo'd windows of both up and uc for one
-  (TX, TY, ZC) block, and store into up's interior in place.
+- C: the loop through K3 (``run_pallas``, ``csrc/probe_halo_stream.cu``:
+  a point of K1's streaming engine, uc staged, up, m and damp read at the
+  point), which stores into up's interior in place.
 
     python -m devito_tpu_torch.experiments.stencil_probe [N] [STEPS] [TX] [TY] [--device cuda|cpu]
 
@@ -21,18 +21,17 @@ max|plain| raises.
 """
 
 import argparse
-import ctypes
 
 import numpy as np
 import torch
 
-from . import device_for
-from ._tiled import H, aligned, apart, check, close, lap_interior, \
-    run_interior, stream, timed_run, z_chunk
+from . import _stream, device_for
+from ._tiled import H, apart, check, close, lap_interior, run_interior, \
+    timed_run
 from ._tiled import FLOPS as _TILED_FLOPS
-from ..kernels import _nvcc
 
-__all__ = ['halo_tiles_step', 'halo_tiles_step_reference', 'run_xla',
+__all__ = ['halo_tiles_step', 'halo_tiles_kernel',
+           'halo_tiles_step_reference', 'run_xla',
            'run_pallas', 'inputs', 'main', 'FLOPS']
 
 #: K3 kernel launches.
@@ -58,34 +57,42 @@ def _check(up, uc, m, damp, out):
 
 def halo_tiles_step(up, uc, m, damp, TX=32, TY=32, out=None):
     """One K3 step: the (N, N, N) interior update, written into ``out``
-    (which may be a view of up's interior, contiguous along z) or a new
-    tensor, and returned. Each CTA computes a (TX, TY, ZC) block; TX and TY
-    need not divide N. CUDA tensors go through the kernel; CPU tensors
+    (a new tensor, or any box of a contiguous allocation, such as up's
+    interior: ``_stream.allocation``) and returned. TX and TY, positive,
+    were the TPU kernel's (x, y) tile; the result does not depend on them,
+    and on the card the tile is the streaming engine's (``_stream.TILE``).
+    CUDA tensors go through the kernel (``halo_tiles_kernel``); CPU tensors
     through ``halo_tiles_step_reference``."""
-    global launches
     n = _check(up, uc, m, damp, out)
     if TX < 1 or TY < 1:
         raise ValueError(f"tile ({TX}, {TY}): expected positive sizes")
     if up.device.type == 'cpu':
         return halo_tiles_step_reference(up, uc, m, damp, out)
-    if n % 4:
-        raise ValueError(f"the halo-tiles kernel needs N % 4 == 0 (N={n}): "
-                         f"its z rows of N+8 floats are copied 16 bytes at "
-                         f"a time")
-    aligned('halo-tiles step', up, uc)
-    zc = z_chunk('halo-tiles step', TX, TY, 2)
     if out is None:
         out = torch.empty((n, n, n), dtype=torch.float32, device=up.device)
-    fn = _nvcc.entry('probe_halo_tiles', 'dtpu_halo_tiles_launch',
-                     [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2
-                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    with torch.cuda.device(up.device):
-        rc = fn(up.data_ptr(), uc.data_ptr(), m.data_ptr(), damp.data_ptr(),
-                out.data_ptr(), out.stride(0), out.stride(1), n, TX, TY, zc,
-                stream(up.device))
-    _nvcc.check_launch(rc, "halo-tiles kernel")
+    return halo_tiles_kernel(up, uc, m, damp, out, _stream.X_CHUNK)
+
+
+def halo_tiles_kernel(up, uc, m, damp, out, x_chunk):
+    """K3's launch on CUDA tensors that ``halo_tiles_step`` has checked,
+    each CTA walking ``x_chunk`` x-planes (``halo_tiles_step`` passes
+    ``_stream.X_CHUNK``; chip_smoke.py sweeps it): uc is the engine's
+    staged group at (4, 4, 4), up (at (4, 4, 4)), m and damp (at 0) its
+    centre groups. Returns ``out``."""
+    global launches
+    n = m.shape[0]
+    _stream.launch('halo-tiles step', 'probe_halo_stream',
+                   _rows(up, uc, m, damp, out), (n, n, n), x_chunk, up.device)
     launches += 1
     return out
+
+
+def _rows(up, uc, m, damp, out):
+    """K3's rows for the engine (``_stream.rows``): ``out`` at its first
+    element, uc staged and up at (4, 4, 4), m and damp at 0."""
+    return _stream.rows('halo-tiles step', (out, (0, 0, 0)),
+                        [(uc, (H, H, H))],
+                        [(up, (H, H, H)), (m, (0, 0, 0)), (damp, (0, 0, 0))])
 
 
 def halo_tiles_step_reference(up, uc, m, damp, out=None):

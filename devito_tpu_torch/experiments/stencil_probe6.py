@@ -14,8 +14,9 @@ any ZA >= NY, so that the same arrays can go through both packages.
   (0, N), (8, N) and (0, N+16) (K8, ``csrc/probe6_window_copy.cu``):
   what a start offset of 32 bytes, not 128-byte aligned, costs.
 - P3 runs the damped update of the interior in place into a target buffer
-  (K9, ``csrc/probe6_inplace.cu``), for t0 and 2*t0 x-rows per tile and
-  each tap ablation, against ``ref_step``, and times 32-step loops.
+  (K9, ``csrc/probe6_stream.cu``: a point of K1's streaming engine), for
+  t0 and 2*t0 (the TPU kernel's x-rows per tile) and each tap ablation,
+  against ``ref_step``, and times 32-step loops.
 
     python -m devito_tpu_torch.experiments.stencil_probe6 [t0] [--device cuda|cpu] [--n N]
 """
@@ -26,11 +27,12 @@ import ctypes
 import numpy as np
 import torch
 
-from . import device_for, time_ms
+from . import _stream, device_for, time_ms
 from ..kernels import _nvcc
 
 __all__ = ['window_copy', 'window_copy_reference', 'p2_windows',
-           'inplace_step', 'inplace_step_reference', 'ref_step',
+           'inplace_step', 'inplace_kernel', 'inplace_step_reference',
+           'ref_step',
            'p1_copy_roofline', 'p2_misaligned_dma', 'p3_kernel', 'main']
 
 N = 256
@@ -52,7 +54,6 @@ inplace_launches = 0
 window_copy_launches = 0
 
 _SMEM = 232448  # bytes of shared memory a block may use on Hopper
-_K9_PLANE = (8 + 2 * R) * (32 + 2 * R)  # K9's halo'd (y, z) tile, floats
 _K8_ROWS = 16                           # y-rows K8 stages per block
 
 
@@ -73,7 +74,7 @@ def _aligned(what, *tensors):
         raise ValueError(f"the {what} kernel needs 16-byte aligned tensors")
 
 
-def _stream(dev):
+def _cuda_stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
@@ -107,7 +108,7 @@ def window_copy(src, window):
                      + [ctypes.c_void_p])
     with torch.cuda.device(src.device):
         rc = fn(src.data_ptr(), out.data_ptr(), Y, Z, x0, nx, y0, ny, z0, nz,
-                _stream(src.device))
+                _cuda_stream(src.device))
     _nvcc.check_launch(rc, "window-copy kernel")
     window_copy_launches += 1
     return out
@@ -149,12 +150,13 @@ def inplace_step(ut, utm1, vp, damp, tgt, t0, out_mode='fullz',
     (N+16, N+16, ZA) buffers, written into ``tgt`` in place (and
     returned): ``out_mode`` 'fullz' writes the rows x in [H, H+N) whole,
     y/z halo zeroed, 'interior' only the interior; x-halo rows keep their
-    content. ``taps`` is 'none', 'z' or 'full'; ``t0`` x-rows per tile,
-    dividing N. ``zin_full`` only chose a read window of the TPU kernel;
-    the result does not depend on it. CUDA tensors go through K9; CPU
+    content. ``taps`` is 'none', 'z' or 'full'. ``t0`` was the TPU
+    kernel's x-rows a tile and must divide N, as there; the result does
+    not depend on it, nor on ``zin_full``, which chose the TPU kernel's
+    read window. On the card each CTA walks ``_stream.X_CHUNK`` x-planes
+    whatever t0 is (``inplace_kernel``). CUDA tensors go through K9; CPU
     tensors through ``inplace_step_reference``. ``tgt`` must not be
     ``ut``."""
-    global inplace_launches
     _fp32('in-place step', ut, utm1, vp, damp, tgt)
     n = _interior(ut)
     if any(t.shape != ut.shape for t in (utm1, vp, damp, tgt)):
@@ -169,26 +171,35 @@ def inplace_step(ut, utm1, vp, damp, tgt, t0, out_mode='fullz',
     if ut.device.type == 'cpu':
         return inplace_step_reference(ut, utm1, vp, damp, tgt, out_mode,
                                       taps)
-    _aligned('in-place step', ut, utm1, vp, damp, tgt)
-    ZA = ut.shape[2]
-    if ZA % 4 or 2 * (t0 + 2 * R) * _K9_PLANE * 4 > _SMEM:
-        raise ValueError(f"the in-place kernel needs ZA % 4 == 0 and two "
-                         f"windows of t0 + {2 * R} planes in shared memory "
-                         f"(t0={t0}, ZA={ZA})")
-    w = (ctypes.c_float * 5)(3.0 * W[0], *W[1:])
-    fn = _nvcc.entry('probe6_inplace', 'dtpu_inplace_launch',
-                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                     + [ctypes.c_void_p] + [ctypes.c_float] * 3
-                     + [ctypes.c_void_p])
-    with torch.cuda.device(ut.device):
-        rc = fn(ut.data_ptr(), utm1.data_ptr(), vp.data_ptr(),
-                damp.data_ptr(), tgt.data_ptr(), n, ZA, t0,
-                int(out_mode == 'fullz'), TAPS.index(taps), w,
-                1.0 / (HSP * HSP), 1.0 / (DT * DT), 0.5 / DT,
-                _stream(ut.device))
-    _nvcc.check_launch(rc, "in-place step kernel")
+    return inplace_kernel(ut, utm1, vp, damp, tgt, out_mode, taps,
+                          _stream.X_CHUNK)
+
+
+def inplace_kernel(ut, utm1, vp, damp, tgt, out_mode, taps, x_chunk):
+    """K9's launch on CUDA tensors that ``inplace_step`` has checked, each
+    CTA walking ``x_chunk`` x-planes (``inplace_step`` passes
+    ``_stream.X_CHUNK``; chip_smoke.py sweeps it): u[t] is the engine's
+    staged group, u[t-1], vp and damp its centre groups, all at (H, H, H);
+    with 'fullz' the unit's frame kernel writes the zeros in the same
+    call. Returns ``tgt``."""
+    global inplace_launches
+    n = _interior(ut)
+    params = (3.0 * W[0], *W[1:], 1.0 / (HSP * HSP), 1.0 / (DT * DT),
+              0.5 / DT)
+    _stream.launch('in-place step', 'probe6_stream',
+                   _rows(ut, utm1, vp, damp, tgt), (n, n, n),
+                   x_chunk, ut.device, params,
+                   TAPS.index(taps) + 4 * (out_mode == 'fullz'))
     inplace_launches += 1
     return tgt
+
+
+def _rows(ut, utm1, vp, damp, tgt):
+    """K9's rows for the engine (``_stream.rows``): the target, then u[t]
+    staged, then u[t-1], vp and damp, all with the region at (H, H, H)."""
+    org = (H, H, H)
+    return _stream.rows('in-place step', (tgt, org), [(ut, org)],
+                        [(utm1, org), (vp, org), (damp, org)])
 
 
 def ref_step(ut, utm1, vp, damp, taps='full'):

@@ -158,3 +158,37 @@ def test_probe7_phase_runs_on_the_cpu():
     assert set(by['empty_grid']['us_per_call']) == {
         'add', 'alloc', 'torch.full', 'out', 'fill_'}
     assert by['empty_grid']['library_call'] == 'out.fill_(reps - 1)'
+
+
+def test_probe_phases_6_and_7_run_on_the_cpu():
+    """Phases 6 and 7 at tiny sizes on the CPU, where every probe runs its
+    plain version: no kernel launches; K9's and K3's records get their
+    x-chunk (no sweep and no CTAs per SM off the card), and K3 into up's
+    interior is held bit-equal to K3 into a new tensor."""
+    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch.experiments import _stream as S
+    records = [{'name': n, 'route': 'cuda', 'source': s, 'replaces': r}
+               for n, s, r, _ in C.KERNELS]
+    records[0].update(ms=1.0, plain_ms=1.0)
+    sizes = dict(C.FULL, p9_n=16, p9_tx=8, p9_steps=1, p6_n=16, p6_t0=4,
+                 big_n=16, reps=1, plain_reps=1,
+                 tiled={'halo_tiles_step': (16, 1, 8, 8),
+                        'neighbour_blocks_step': (40, 1, 8),
+                        'neighbour_blocks_zeroed_step': (16, 1, 4),
+                        'tiles_step': (24, 1, 8, 16),
+                        'xtiles_step': (16, 1, 8)})
+    dev = torch.device('cpu')
+    C.probe_launches(zero=True)
+    with switchconfig(device='cpu'):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        ceiling = C.probes(dev, sizes, gen, records)
+        C.tiled_probes(dev, sizes, gen, records, ceiling)
+    assert not any(C.probe_launches().values())
+    by = {r['name']: r for r in records}
+    for name in ('inplace_step', 'halo_tiles_step'):
+        rec = by[name]
+        assert rec['x_chunk'] == S.X_CHUNK and rec['x_chunk_sweep'] == []
+        assert rec['ctas_per_sm'] is None and rec['max_abs_err'] == 0.0
+        assert rec['bound_ms'] > 0 and rec['launches'] == 0
+    assert by['halo_tiles_step']['in_place_bit_equal']
+    assert by['inplace_step']['ms_interior'] > 0

@@ -255,6 +255,66 @@ def test_inplace_step_checks_arguments():
         P6.inplace_step(*meta, 8)
 
 
+@pytest.mark.parametrize('case', ['float64', 'shape', 'za', 'device'])
+def test_inplace_step_checks_types_and_shapes(case):
+    ut, utm1, vp, damp, tgt = map(torch.from_numpy, _step_inputs(0))
+    if case == 'float64':
+        with pytest.raises(TypeError, match='fp32'):
+            P6.inplace_step(ut, utm1.double(), vp, damp, tgt, 8)
+    elif case == 'shape':
+        with pytest.raises(ValueError, match='differ in shape'):
+            P6.inplace_step(ut, utm1, vp, damp, tgt[:, :, :60].contiguous(),
+                            8)
+    elif case == 'za':                   # ZA < NY
+        small = [t[:, :, :40].contiguous() for t in (ut, utm1, vp, damp, tgt)]
+        with pytest.raises(ValueError, match=r'ZA >= N\+16'):
+            P6.inplace_step(*small, 8)
+    else:
+        with pytest.raises(ValueError, match='different devices'):
+            P6.inplace_step(ut, utm1, vp, damp.to('meta'), tgt, 8)
+
+
+def test_inplace_rows_put_the_region_at_h():
+    """K9's rows for the streaming engine: the target, u[t] (staged), u[t-1],
+    vp and damp (centre), each its own (48, 48, 64) allocation with the
+    region's first point at (8, 8, 8)."""
+    ts = [torch.from_numpy(a) for a in _step_inputs(1)]
+    ut, utm1, vp, damp, tgt = ts
+    ptrs, dims, org = P6._rows(ut, utm1, vp, damp, tgt)
+    assert list(ptrs) == [t.data_ptr() for t in (tgt, ut, utm1, vp, damp)]
+    assert list(dims) == [48, 48, 64] * 5 and list(org) == [8, 8, 8] * 5
+
+
+@pytest.mark.parametrize('case', ['unaligned', 'za % 4', 'not contiguous'])
+def test_inplace_rows_check_alignment(case):
+    ut, utm1, vp, damp, tgt = map(torch.from_numpy, _step_inputs(2))
+    if case == 'unaligned':       # starts 4 bytes into its storage
+        ut = torch.zeros(48 * 48 * 64 + 1)[1:].view(48, 48, 64)
+    elif case == 'za % 4':
+        ut, utm1, vp, damp, tgt = (torch.zeros((48, 48, 50))
+                                   for _ in range(5))
+    else:
+        vp = vp.transpose(0, 1)
+    with pytest.raises(ValueError, match='16-byte'):
+        P6._rows(ut, utm1, vp, damp, tgt)
+
+
+def test_inplace_tile_fits_two_ctas_per_sm():
+    """K9's unit is compiled for _stream.TILE, K1's fp32 tile, which
+    stream_tile fits with _stream.X_CHUNK at two or more CTAs an SM for one
+    staged and three centre groups of radius 4, with TMA boxes starting at
+    z = 4 (16 bytes: the staged origin 8 less the radius)."""
+    from devito_tpu_torch.experiments import _stream as S
+    src = (REPO / 'devito_tpu_torch/csrc/probe6_stream.cu').read_text()
+    ty, tz, py, stages = map(int, re.search(
+        r'StreamTile<float, 1, 3, R, R, R, (\d+), (\d+), (\d+), (\d+)>',
+        src).groups())
+    fit = K.stream_tile(np.float32, S.RADII, 1, 3, S.TILE + (S.X_CHUNK,))
+    assert (ty, tz, py, stages) == S.TILE and S.X_CHUNK in S.X_CHUNKS
+    assert fit['ctas_per_sm'] >= 2 and fit['threads'] == 256
+    assert (P6.H - S.RADII[2]) * 4 % 16 == 0 and P6.H * 4 % 16 == 0
+
+
 # -- K8 ------------------------------------------------------------------------
 
 def test_window_copy_matches_pallas_kernel(interpret, monkeypatch, capsys):
@@ -383,6 +443,50 @@ def test_inplace_kernel_on_card(card, taps, out_mode, za):
         assert (got - ref).abs().max().item() <= \
             TOL * ref.abs().max().item()
     assert P6.inplace_launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,za', [(45, 64), (37, 60), (50, 80)])
+def test_inplace_kernel_ragged_on_card(card, n, za):
+    """K9 where no tile or x-chunk divides N, with ZA > NY: both output
+    modes and every ablation against the plain version, the x-halo rows
+    untouched, each x-chunk of _stream.X_CHUNKS bit-equal to the pick."""
+    from devito_tpu_torch.experiments import _stream as S
+    NY = n + 16
+    g = torch.Generator(device=card).manual_seed(n)
+    ut, utm1, tgt = (torch.randn((NY, NY, za), generator=g, device=card)
+                     for _ in range(3))
+    vp = 1.5 + torch.rand((NY, NY, za), generator=g, device=card)
+    damp = 0.05 * torch.rand((NY, NY, za), generator=g, device=card)
+    for out_mode in P6.OUT_MODES:
+        for taps in P6.TAPS:
+            ref = P6.inplace_step_reference(ut, utm1, vp, damp, tgt.clone(),
+                                            out_mode, taps)
+            got = P6.inplace_step(ut, utm1, vp, damp, tgt.clone(), n,
+                                  out_mode, taps)
+            torch.cuda.synchronize()
+            assert (got - ref).abs().max().item() <= \
+                TOL * ref.abs().max().item()
+            for sl in (slice(0, 8), slice(8 + n, None)):
+                assert torch.equal(got[sl], tgt[sl])
+            for xc in S.X_CHUNKS:
+                assert torch.equal(P6.inplace_kernel(
+                    ut, utm1, vp, damp, tgt.clone(), out_mode, taps, xc), got)
+
+
+@pytest.mark.cuda
+def test_inplace_kernel_builds_clean_on_card(card):
+    """K9's kernels build without spills (when ptxas ran in this process)
+    and the CUDA runtime fits two or more CTAs of each on an SM."""
+    from devito_tpu_torch.experiments import _stream as S
+    from devito_tpu_torch.kernels import _nvcc
+    _nvcc.fixed('probe6_stream')
+    log = _nvcc.build_log.get(_nvcc.fixed_key('probe6_stream'))
+    if log is not None:
+        assert 'bytes spill' in log and not re.search(
+            r'[1-9]\d* bytes spill', log), log
+    for taps in range(3):
+        assert S.occupancy('probe6_stream', taps) >= 2
 
 
 @pytest.mark.cuda

@@ -160,6 +160,99 @@ def test_halo_tiles_step_writes_into_a_view():
     assert torch.equal(up, kept)               # only the interior written
 
 
+def _alloc_case(case):
+    up = torch.zeros((16,) * 3)
+    return {'new tensor': up,
+            'interior view': up[H:-H, H:-H, H:-H],
+            'x-slab view': up[2:6],
+            'transposed view': up[H:-H, H:-H, H:-H].transpose(0, 1),
+            'z-strided view': up[:, :, ::2],
+            'column view': up[:, 3:5, 1:2]}[case]
+
+
+@pytest.mark.parametrize('case,want', [
+    ('new tensor', ((16, 16, 16), (0, 0, 0))),
+    ('interior view', ((16, 16, 16), (4, 4, 4))),
+    ('x-slab view', ((16, 16, 16), (2, 0, 0))),
+    ('column view', ((16, 16, 16), (0, 3, 1))),
+    ('transposed view', None),
+    ('z-strided view', None)])
+def test_stream_allocation_of_a_target(case, want):
+    """K3's target helper: the allocation a view lies in, from its strides
+    and storage offset; views whose strides are not a contiguous
+    allocation's raise."""
+    from devito_tpu_torch.experiments._stream import allocation
+    t = _alloc_case(case)
+    if want is None:
+        with pytest.raises(ValueError, match='not a box of a contiguous'):
+            allocation(t)
+        return
+    base, dims, org = allocation(t)
+    assert base == t.untyped_storage().data_ptr() and (dims, org) == want
+    # the view's first element, through the allocation's extents
+    flat = t.untyped_storage().nbytes() // 4
+    assert ((org[0] * dims[1] + org[1]) * dims[2] + org[2]) * 4 \
+        == t.data_ptr() - base and dims[0] * dims[1] * dims[2] == flat
+
+
+@pytest.mark.parametrize('in_place', [False, True])
+def test_halo_tiles_rows(in_place):
+    """K3's rows for the streaming engine: out at its first element (up's
+    interior: (4, 4, 4) of up's allocation), uc staged and up at (4, 4, 4),
+    m and damp at 0."""
+    up, uc, m, damp = _t(*_k3_inputs(12, 5))
+    out = up[H:-H, H:-H, H:-H] if in_place else torch.empty_like(m)
+    ptrs, dims, org = P1._rows(up, uc, m, damp, out)
+    assert list(ptrs) == [out.untyped_storage().data_ptr()] + [
+        t.data_ptr() for t in (uc, up, m, damp)]
+    assert list(dims) == [20 if in_place else 12] * 3 + [20] * 6 + [12] * 6
+    assert list(org) == [4 if in_place else 0] * 3 + [4] * 6 + [0] * 6
+
+
+@pytest.mark.parametrize('case', ['N % 4', 'unaligned', 'staged box',
+                                  'centre box'])
+def test_stream_rows_refuse_what_tma_cannot_read(case):
+    """The engine's rows: N % 4 != 0 gives z rows of part of a 16-byte unit;
+    a tensor 4 bytes into its storage is not 16-byte aligned; a staged
+    group's first box (origin - 4) and a centre group's box must start on
+    a 16-byte boundary in z (K3's start at z = 0, K9's at z = 4)."""
+    from devito_tpu_torch.experiments import _stream as S
+    up, uc, m, damp = _t(*_k3_inputs(12, 5))
+    if case == 'N % 4':
+        up, uc, m, damp = _t(*_k3_inputs(10, 5))
+        call = lambda: P1._rows(up, uc, m, damp, torch.empty_like(m))  # noqa
+    elif case == 'unaligned':
+        uc = torch.zeros(20 ** 3 + 1)[1:].view(20, 20, 20)
+        call = lambda: P1._rows(up, uc, m, damp, torch.empty_like(m))  # noqa
+    elif case == 'staged box':
+        call = lambda: S.rows('k', (m, (0, 0, 0)), [(uc, (4, 4, 5))], [])  # noqa
+    else:
+        call = lambda: S.rows('k', (m, (0, 0, 0)), [(uc, (4, 4, 4))],  # noqa
+                              [(up, (4, 4, 6))])
+    with pytest.raises(ValueError, match='16-byte'):
+        call()
+    # the origins the two probes use pass
+    up, uc, m, _ = _t(*_k3_inputs(12, 5))
+    S.rows('k', (m, (0, 0, 0)), [(uc, (4, 4, 4))], [(up, (4, 4, 4))])
+    S.rows('k', (m, (0, 0, 0)), [(uc, (4, 4, 8))], [(up, (4, 4, 8))])
+
+
+def test_halo_tiles_tile_fits_two_ctas_per_sm():
+    """K3's unit is compiled for _stream.TILE (K1's fp32 tile), which
+    stream_tile fits at two or more CTAs an SM for one staged and three
+    centre groups of radius 4."""
+    from devito_tpu_torch.experiments import _stream as S
+    src = (Path(__file__).resolve().parent.parent
+           / 'devito_tpu_torch/csrc/probe_halo_stream.cu').read_text()
+    tile = tuple(map(int, re.search(
+        r'StreamTile<float, 1, 3, R, R, R, (\d+), (\d+), (\d+), (\d+)>',
+        src).groups()))
+    from devito_tpu_torch.kernels.stencil import stream_tile
+    fit = stream_tile(np.float32, S.RADII, 1, 3, S.TILE + (S.X_CHUNK,))
+    assert tile == S.TILE and fit['ctas_per_sm'] >= 2
+    assert fit['smem_bytes'] == 90496 and fit['box'] == (24, 76)
+
+
 # -- K4 ------------------------------------------------------------------------
 
 def _nb_inputs(N, seed):
@@ -537,6 +630,43 @@ def test_halo_tiles_kernel_on_card(card, N, TX, TY):
     for g, w in zip(got, want):
         _card_close(g, w)
     assert P1.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N', [36, 100])
+def test_halo_tiles_in_place_on_card(card, N):
+    """K3 into up's interior is bit-equal to K3 into a new tensor (the tile
+    of up a CTA reads arrives before it writes, and the centre box's 16
+    bytes of the next tile are never used), where N is not a multiple of
+    the tile; each x-chunk of _stream.X_CHUNKS is bit-equal too."""
+    from devito_tpu_torch.experiments import _stream as S
+    up, uc, m, damp = _on(card, _k3_inputs(N, N + 1))
+    new = P1.halo_tiles_step(up, uc, m, damp)
+    _card_close(new, P1.halo_tiles_step_reference(up, uc, m, damp))
+    inplace = up.clone()
+    c = slice(H, -H)
+    P1.halo_tiles_step(inplace, uc, m, damp, out=inplace[c, c, c])
+    torch.cuda.synchronize()
+    assert torch.equal(inplace[c, c, c], new)
+    inplace[c, c, c] = up[c, c, c]
+    assert torch.equal(inplace, up)          # up's halo untouched
+    for xc in S.X_CHUNKS:
+        assert torch.equal(P1.halo_tiles_kernel(
+            up, uc, m, damp, torch.empty_like(m), xc), new)
+
+
+@pytest.mark.cuda
+def test_halo_tiles_kernel_builds_clean_on_card(card):
+    """K3's kernel builds without spills (when ptxas ran in this process)
+    and the CUDA runtime fits two or more of its CTAs on an SM."""
+    from devito_tpu_torch.experiments import _stream as S
+    from devito_tpu_torch.kernels import _nvcc
+    _nvcc.fixed('probe_halo_stream')
+    log = _nvcc.build_log.get(_nvcc.fixed_key('probe_halo_stream'))
+    if log is not None:
+        assert 'bytes spill' in log and not re.search(
+            r'[1-9]\d* bytes spill', log), log
+    assert S.occupancy('probe_halo_stream') >= 2
 
 
 @pytest.mark.cuda
