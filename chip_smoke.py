@@ -41,7 +41,13 @@
    kernel against its plain version at 512^3, one step and 3 steps of its
    loop over the whole array, and timed beside K1 and K15 against P1; K3
    also into up's own interior, bit-equal to K3 into a new tensor, with
-   its CTAs per SM, registers and spills, and a sweep of its x-planes.
+   its CTAs per SM, registers and spills, and a sweep of its x-planes; K6
+   likewise into up's interior columns, bit-equal to K6 into a new tensor,
+   up's x/y halo untouched; and K6 and K7 each with its CTAs per SM,
+   registers and spills, its time without its frame of zeros, the device
+   time of the frame kernel and of the engine (torch.profiler) beside
+   PyTorch's zero_ of the same frame and of as many bytes in one run, and
+   a sweep of its tiles and x-planes, each bit-equal to the pick.
 8. The copy, compute and launch probes of stencil_probe7: A (K10) with and
    without write-back at nsplit 1 and 2, B (K11) for every tap ablation,
    C (K12), D (K13) and E (K14) at depths 2, 3 and 4, each at the JAX
@@ -152,10 +158,10 @@ KERNELS = [
     ('neighbour_blocks_zeroed_step',
      'devito_tpu_torch/csrc/probe2_neighbour_blocks.cu',
      'experiments/stencil_probe3.py:94', 'nb_kernelILb1E'),   # <true>
-    ('tiles_step', 'devito_tpu_torch/csrc/probe4_tiles.cu',
-     'experiments/stencil_probe4.py:66', ''),
-    ('xtiles_step', 'devito_tpu_torch/csrc/probe5_xtiles.cu',
-     'experiments/stencil_probe5.py:75', ''),
+    ('tiles_step', 'devito_tpu_torch/csrc/probe_tiles_stream.cu',
+     'experiments/stencil_probe4.py:66', 'Li16ELi64ELi4ELi3EE'),  # tile
+    ('xtiles_step', 'devito_tpu_torch/csrc/probe_tiles_stream.cu',
+     'experiments/stencil_probe5.py:75', 'Li16ELi64ELi4ELi3EE'),
     ('copy_windows', 'devito_tpu_torch/csrc/probe7_copy.cu',
      'experiments/stencil_probe7.py:38', ''),
     ('resident_step', 'devito_tpu_torch/csrc/probe7_resident.cu',
@@ -168,9 +174,9 @@ KERNELS = [
      'experiments/stencil_probe7.py:272', 'stream_kernelILi3E'),
 ]
 FIXED = ['selftest', 'probe9_ring', 'probe6_stream', 'probe6_window_copy',
-         'probe_halo_stream', 'probe2_neighbour_blocks', 'probe4_tiles',
-         'probe5_xtiles', 'probe7_copy', 'probe7_resident', 'probe7_empty',
-         'probe7_stream']
+         'probe_halo_stream', 'probe2_neighbour_blocks',
+         'probe_tiles_stream', 'probe7_copy', 'probe7_resident',
+         'probe7_empty', 'probe7_stream']
 #: The module of devito_tpu_torch.experiments and the launch counter of
 #: every probe kernel, by record name; K13 and K14 share a count keyed by
 #: pipeline depth.
@@ -1272,6 +1278,8 @@ def tiled_probes(device, sizes, gen, records, ceiling):
         if device.type == 'cuda':
             torch.cuda.empty_cache()
     lines += k3_in_place(device, N, gen, by_name['halo_tiles_step'], reps)
+    lines += tiles_stream(device, N, gen, by_name['tiles_step'],
+                          by_name['xtiles_step'], reps)
     for line in lines:
         log(line)
 
@@ -1327,6 +1335,158 @@ def k3_in_place(device, N, gen, rec, reps):
                      f"= {100 * rec['bound_ms'] / ms:.1f} % of the "
                      f"{rec['bound_ms']:.3f} ms bound; bit-equal to x-chunk "
                      f"{S.X_CHUNK}")
+    return lines
+
+
+def tile_entry(tile):
+    """The part of the mangled name of the engine's kernel compiled for
+    ``tile`` (TY, TZ, PY, STAGES) that picks its ptxas report."""
+    return ''.join(f'Li{v}E' for v in tile) + 'E'
+
+
+def tiles_stream(device, N, gen, k6, k7, reps):
+    """K6 at N^3 into up's interior columns (the loop's target) and into a
+    new tensor, each against its plain version and bit-equal to each
+    other, up's x/y halo untouched; then for K6 (in place) and K7 (into a
+    spare) the time without the frame, the device time of the frame and of
+    the engine under torch.profiler, beside that of the same frame zeroed
+    by PyTorch and of as many bytes zeroed in one run, and each tile
+    of ``_tiled.STREAM_TILES`` and x-chunk of ``_stream.X_CHUNKS``,
+    bit-equal to the pick, timed as the loop runs it. Puts these, the CTAs
+    per SM and the frame's bytes into the records; returns the lines to
+    print."""
+    from devito_tpu_torch.experiments import _stream as S, _tiled as TT
+    from devito_tpu_torch.experiments import stencil_probe4 as T6
+    from devito_tpu_torch.experiments import stencil_probe5 as T7
+    from devito_tpu_torch.kernels import _nvcc
+    H, NP, XP = T6.H, N + 2 * T6.H, N + 4 * T6.H
+    ZA, c = -(-NP // 128) * 128, slice(T6.H, T6.H + N)
+    on_card = device.type == 'cuda'
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    up, uc = normal(NP, NP, ZA), normal(NP, NP, ZA)
+    m_i = 0.1 + 0.1 * torch.rand((N, N, ZA), generator=gen, device=device)
+    plain = T6.tiles_step_reference(uc, up[c, c, :], m_i)
+    new = T6.tiles_step(uc, up[c, c, :], m_i)
+    inplace = up.clone()
+    T6.tiles_step(uc, inplace[c, c, :], m_i, out=inplace[c, c, :])
+    errs = [check_close(f"K6 at {N}^3 into a new tensor", new, plain),
+            check_close(f"K6 at {N}^3 into up's interior columns",
+                        inplace[c, c, :], plain)]
+    if not torch.equal(inplace[c, c, :], new):
+        raise AssertionError("K6 into up's interior columns differs from K6 "
+                             "into a new tensor")
+    inplace[c, c, :] = up[c, c, :]
+    if not torch.equal(inplace, up):
+        raise AssertionError("K6 into up's interior columns wrote up's x/y "
+                             "halo")
+    k6.update(max_abs_err=max(errs + [k6['max_abs_err']]),
+              in_place_bit_equal=True)
+    lines = [f"[tiled] K6 at {N}^3 into a new tensor and into up's interior "
+             f"columns: max|kernel - plain| {errs[0]:.3e}, {errs[1]:.3e}, "
+             f"the two bit-equal, up's x/y halo untouched"]
+    del inplace, plain, new
+
+    work = up.clone()
+    up7, uc7, mp = normal(XP, NP, ZA), normal(XP, NP, ZA), \
+        0.1 + 0.1 * torch.rand((XP, NP, ZA), generator=gen, device=device)
+    spare = torch.empty_like(uc7)
+
+    def k6_run(xc, tile, zeros=True, into=work):
+        T6.tiles_kernel(uc, into[c, c, :], m_i, into[c, c, :], xc, tile,
+                        zeros)
+        return into
+
+    def k7_run(xc, tile, zeros=True, into=spare):
+        return T7.xtiles_kernel(uc7, up7, mp, into, xc, tile, zeros)
+
+    # the same frames zeroed by PyTorch, a zero_ a box
+    x7 = slice(2 * H, 2 * H + N)
+    k6_boxes = [(c, c, slice(0, H)), (c, c, slice(H + N, None))]
+    k7_boxes = [(slice(0, 2 * H),), (slice(2 * H + N, None),),
+                (x7, slice(0, H)), (x7, slice(H + N, None)),
+                (x7, c, slice(0, H)), (x7, c, slice(H + N, None))]
+    fill = torch.empty(XP * NP * ZA - N ** 3, device=device)
+
+    def device_ms(fn):
+        """Device ms a call of ``fn``, all kernels, under torch.profiler."""
+        return sum(r[1] for r in profiled(
+            lambda: [fn() for _ in range(reps)], device)) / reps
+
+    log_ = _nvcc.build_log.get(_nvcc.fixed_key('probe_tiles_stream'), '') \
+        if on_card else ''
+    xc0, tile0 = S.X_CHUNK, TT.STREAM_TILE
+    for lab, rec, run, fresh, frame_points, target, boxes in (
+            ('K6', k6, k6_run, lambda: up.clone(), N * N * (ZA - N), work,
+             k6_boxes),
+            ('K7', k7, k7_run, lambda: torch.empty_like(uc7),
+             XP * NP * ZA - N ** 3, spare, k7_boxes)):
+        rec.update(x_chunk=xc0, tile=list(tile0), x_chunk_sweep=[],
+                   tile_sweep=[], frame_bytes=4 * frame_points,
+                   ms_interior=None, frame_device_ms=None,
+                   engine_device_ms=None, ctas_per_sm=None,
+                   frame_library_call=f'{len(boxes)} zero_ of its boxes',
+                   frame_library_device_ms=None, frame_fill_device_ms=None)
+        if not on_card:
+            continue
+        pick = run(xc0, tile0, into=fresh())
+        # device time by kernel of reps calls (the frame is a launch shorter
+        # than the host path of a call, so CUDA events cannot time it)
+        prof = profiled(lambda: [run(xc0, tile0) for _ in range(reps)],
+                        device)
+        rec.update(
+            ms_interior=time_ms(lambda: run(xc0, tile0, False), reps,
+                                device),
+            frame_device_ms=sum(r[1] for r in prof
+                                if 'frame_kernel' in r[0]) / reps,
+            engine_device_ms=sum(r[1] for r in prof
+                                 if 'stream_kernel' in r[0]) / reps,
+            ctas_per_sm=S.occupancy('probe_tiles_stream',
+                                    2 * TT.STREAM_TILES.index(tile0)),
+            frame_ptxas=ptxas(log_, 'frame_kernel'),
+            frame_library_device_ms=device_ms(
+                lambda: [target[b].zero_() for b in boxes]),
+            frame_fill_device_ms=device_ms(
+                lambda: fill[:frame_points].zero_()))
+        for key, cands in (('tile', TT.STREAM_TILES), ('x_chunk', S.X_CHUNKS)):
+            for cand in cands:
+                xc, tile = (xc0, cand) if key == 'tile' else (cand, tile0)
+                if not torch.equal(run(xc, tile, into=fresh()), pick):
+                    raise AssertionError(f"{lab} at {key} {cand} differs "
+                                         f"from {lab} at {key} "
+                                         f"{rec[key]}")
+                ms = time_ms(lambda: run(xc, tile), reps, device)
+                row = dict(ms=ms, share_of_bound=rec['bound_ms'] / ms)
+                row[key] = list(cand) if key == 'tile' else cand
+                extra = ''
+                if key == 'tile':
+                    row.update(ctas_per_sm=S.occupancy(
+                        'probe_tiles_stream', 2 * cands.index(cand)),
+                        ptxas=ptxas(log_, tile_entry(cand)))
+                    extra = (f"; {row['ctas_per_sm']} CTAs/SM; "
+                             f"{row['ptxas']}")
+                rec[f'{key}_sweep'].append(row)
+                lines.append(
+                    f"[tiled-sweep] {lab} at {N}^3, {key} {cand}: {ms:.4f} "
+                    f"ms = {100 * rec['bound_ms'] / ms:.1f} % of the "
+                    f"{rec['bound_ms']:.3f} ms bound; bit-equal to {key} "
+                    f"{rec[key]}{extra}")
+        gbs = rec['frame_bytes'] / rec['frame_device_ms'] / 1e6
+        lines.append(
+            f"[tiled] {lab} at {N}^3 (x-chunk {xc0}, tile {tile0}): "
+            f"{rec['ms']:.4f} ms = {100 * rec['share_of_bound']:.1f} % of "
+            f"the {rec['bound_ms']:.3f} ms bound; without the frame "
+            f"{rec['ms_interior']:.4f} ms; device time a call (profiler): "
+            f"engine {rec['engine_device_ms']:.4f} ms, frame "
+            f"{rec['frame_device_ms']:.4f} ms ({rec['frame_bytes'] / 1e6:.1f}"
+            f" MB of zeros, {gbs:.0f} GB/s), the same frame by "
+            f"{rec['frame_library_call']} "
+            f"{rec['frame_library_device_ms']:.4f} ms, as many bytes "
+            f"zeroed in one run {rec['frame_fill_device_ms']:.4f} ms; "
+            f"{rec['ctas_per_sm']} CTAs/SM; {rec.get('ptxas', '')}; frame "
+            f"kernel {rec['frame_ptxas']}")
     return lines
 
 

@@ -10,7 +10,9 @@ allocation given by its base pointer, its extents (x, y, z) and the
 element (x, y, z) of the region's first point in it; the target is written
 with plain stores through those extents, the other rows are read by TMA.
 Each unit exports ``dtpu_probe_stream_launch`` and
-``dtpu_probe_stream_occupancy``.
+``dtpu_probe_stream_occupancy``. K6 and K7 (``_tiled.stream_step``) launch
+their unit through the same rows and ``launch``, with two centre groups
+and tiles of their own (``_tiled.STREAM_TILES``).
 """
 
 import ctypes
@@ -20,8 +22,8 @@ import torch
 from ..kernels import _nvcc
 from ..kernels.stencil import STREAM_TILE
 
-__all__ = ['RADII', 'TILE', 'X_CHUNK', 'X_CHUNKS', 'allocation', 'rows',
-           'launch', 'occupancy']
+__all__ = ['RADII', 'TILE', 'X_CHUNK', 'X_CHUNKS', 'allocation', 'whole',
+           'rows', 'launch', 'occupancy']
 
 #: The staged group's radius along x, y and z (SO=8).
 RADII = (4, 4, 4)
@@ -62,6 +64,15 @@ def allocation(t):
         raise ValueError(f"a view of shape {tuple(t.shape)} at {org} runs "
                          f"past its allocation {dims}")
     return t.untyped_storage().data_ptr(), dims, org
+
+
+def whole(t):
+    """(the contiguous tensor over the whole allocation the 3-D view ``t``
+    lies in, the element of ``t``'s first point in it), from
+    ``allocation``: a read row for a view, such as up's interior columns
+    (K6), which ``rows`` refuses as it is."""
+    _, dims, first = allocation(t)
+    return t.as_strided(dims, (dims[1] * dims[2], dims[2], 1), 0), first
 
 
 def rows(what, target, staged, centre):

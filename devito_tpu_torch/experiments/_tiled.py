@@ -4,17 +4,21 @@ Laplacian in the order the JAX kernels sum their taps, argument checks,
 the comparison against a plain version and the printed timing lines.
 
 All five compute ``2 uc - up + m lap(uc)`` (K3 also ``- damp uc``) in
-fp32 over padded layouts with a halo of H = 4 points.
+fp32 over padded layouts with a halo of H = 4 points. K6 and K7 share one
+CUDA unit, ``csrc/probe_tiles_stream.cu``: a point of K1's streaming engine
+(``csrc/stencil_stream.cuh``) with one staged group (uc) and two centre
+groups (up, m), and a kernel that writes the zeros of a frame around the
+update (``stream_step``).
 """
 
 import numpy as np
 import torch
 
-from . import time_ms
+from . import _stream, time_ms
 
-__all__ = ['H', 'W', 'TOL', 'SMEM', 'YZ_PLANE', 'lap', 'lap_interior',
-           'run_interior', 'check', 'apart', 'aligned', 'stream', 'z_chunk',
-           'close', 'timed_run', 'FLOPS']
+__all__ = ['H', 'W', 'TOL', 'SMEM', 'YZ_PLANE', 'STREAM_TILES', 'STREAM_TILE',
+           'lap', 'lap_interior', 'run_interior', 'check', 'apart', 'aligned',
+           'stream', 'frame', 'stream_step', 'close', 'timed_run', 'FLOPS']
 
 H = 4  # SO=8 stencil radius, and the halo of every layout
 #: SO=8 second-derivative weights, centre at index 4, as the JAX scripts'.
@@ -27,8 +31,22 @@ TOL = 1e-5      # times max |plain|: fp32 sums in another order
 FLOPS = 57
 SMEM = 232448   # bytes of shared memory a block may use on Hopper
 #: Floats of one halo'd (SY, SZ) = (8, 32) plane of the shared windows of
-#: the x-tiled kernels (probe2_neighbour_blocks.cu, probe5_xtiles.cu).
+#: the x-tiled kernel of K4 and K5 (probe2_neighbour_blocks.cu).
 YZ_PLANE = (8 + 2 * H) * (32 + 2 * H)
+#: The tiles (TY, TZ, PY, STAGES) that ``csrc/probe_tiles_stream.cu`` is
+#: compiled for, in the order its flags pick them, with the CTAs an SM that
+#: ``stream_tile`` fits by shared memory at one staged and two centre groups
+#: of radius 4: K1's fp32 tile (77,440 B, two), the same with two stages
+#: (61,440 B, three), a (16, 32) tile of two points a thread with three
+#: stages (43,648 B, five) and K1's with four stages (93,440 B, two); the
+#: registers may allow fewer.
+STREAM_TILES = ((16, 64, 4, 3), (16, 64, 4, 2), (16, 32, 2, 3),
+                (16, 64, 4, 4))
+#: The tile K6 and K7 launch, with K3's and K9's x-chunk
+#: (``_stream.X_CHUNK``): of STREAM_TILES and ``_stream.X_CHUNKS``, the
+#: fastest for both at 512^3 on an H100, or within 0.3 % of it
+#: (chip_smoke.py sweeps both; PERF.md §6).
+STREAM_TILE = STREAM_TILES[0]
 
 
 def lap(u, origin, extent, axes=(0, 1, 2), out=None):
@@ -107,15 +125,27 @@ def stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def z_chunk(what, tx, ty, windows):
-    """The z extent of a (tx, ty) tile's block: the largest of 32, 16, 8
-    and 4 for which ``windows`` halo'd windows (tx+8, ty+8, zc+8) of fp32
-    fit in shared memory. Raises when none does."""
-    for zc in (32, 16, 8, 4):
-        if windows * (tx + 2 * H) * (ty + 2 * H) * (zc + 2 * H) * 4 <= SMEM:
-            return zc
-    raise ValueError(f"the {what} kernel cannot fit {windows} window(s) of a "
-                     f"({tx}, {ty}) tile in {SMEM} bytes of shared memory")
+def frame(out, outer, inner):
+    """The 12 frame parameters of ``csrc/probe_tiles_stream.cu``: the
+    boxes ``outer`` and ``inner``, each an (origin, extent) pair in the
+    elements of the 3-D view ``out``, as origin and extent in the
+    allocation ``out`` lies in (``_stream.allocation``). The frame is every
+    point of ``outer`` outside ``inner``."""
+    first = _stream.allocation(out)[2]
+    return tuple(v for org, ext in (outer, inner)
+                 for v in (*(f + o for f, o in zip(first, org)), *ext))
+
+
+def stream_step(what, rows, n, frame_, x_chunk, tile, device, zeros=True):
+    """Launch ``csrc/probe_tiles_stream.cu`` on the engine's ``rows``
+    (``_stream.rows``: out, uc staged, up and m centre) over the region
+    ``n``, each CTA walking ``x_chunk`` x-planes, compiled for ``tile`` (of
+    STREAM_TILES); first, given ``zeros``, the frame kernel over the frame
+    ``frame_`` (12 parameters from ``frame``)."""
+    if tile not in STREAM_TILES:
+        raise ValueError(f"tile {tile}: expected one of {STREAM_TILES}")
+    _stream.launch(what, 'probe_tiles_stream', rows, n, x_chunk, device,
+                   frame_, int(zeros) + 2 * STREAM_TILES.index(tile))
 
 
 def close(what, got, want):

@@ -10,9 +10,10 @@ pad; the loop writes them into up_i (the kernel does so in place) and the
 pair rotates. up's x/y halo keeps its values.
 
 - A: the interior update written into up (``run_A``, torch-DUS);
-- E: the loop through K6 (``run_E``, ``csrc/probe4_tiles.cu``), whose
-  CTAs each own a (TX, TY) tile of columns and stream z through it,
-  double-buffering the halo'd window of uc.
+- E: the loop through K6 (``run_E``, ``csrc/probe_tiles_stream.cu``): a
+  point of K1's streaming engine (uc staged, up and m read at the point),
+  writing into up_i in place, and a kernel that zeroes the z halo and pad
+  of the columns (``_tiled.stream_step``).
 
     python -m devito_tpu_torch.experiments.stencil_probe4 [N] [STEPS] [TX] [TY] [--device cuda|cpu]
 
@@ -20,22 +21,21 @@ prints A's and E's milliseconds and GPts/s over STEPS steps, E's error
 against A after 3 steps, and K6's against its plain version (one step and
 3 steps, whole array); any error beyond 1e-5 max|plain| raises. TX and TY
 need not divide N (the JAX kernel's grid of N // TX by N // TY tiles
-leaves the rest of the columns unwritten; the port computes them).
+leaves the rest of the columns unwritten; the port computes them); on the
+card the tile is the engine's (``_tiled.STREAM_TILE``).
 """
 
 import argparse
-import ctypes
 
 import numpy as np
 import torch
 
-from . import device_for
-from ._tiled import FLOPS, H, aligned, apart, check, close, \
-    lap_interior, run_interior, stream, timed_run, z_chunk
-from ..kernels import _nvcc
+from . import _stream, device_for
+from ._tiled import FLOPS, H, STREAM_TILE, apart, check, close, \
+    frame, lap_interior, run_interior, stream_step, timed_run
 
-__all__ = ['tiles_step', 'tiles_step_reference', 'run_A', 'run_E', 'inputs',
-           'main', 'FLOPS']
+__all__ = ['tiles_step', 'tiles_kernel', 'tiles_step_reference', 'run_A',
+           'run_E', 'inputs', 'main', 'FLOPS']
 
 #: K6 kernel launches.
 launches = 0
@@ -60,33 +60,53 @@ def _check(uc, up_i, m_i, out):
 
 def tiles_step(uc, up_i, m_i, TX=16, TY=32, out=None):
     """One K6 step: the (N, N, ZA) columns, written into ``out`` (which may
-    be up_i, or another view contiguous along z) or a new tensor, and
-    returned. Each CTA owns a (TX, TY) tile of columns; TX and TY need not
-    divide N. CUDA tensors go through the kernel; CPU tensors through
-    ``tiles_step_reference``."""
-    global launches
+    be up_i, or any box of a contiguous allocation) or a new tensor, and
+    returned. TX and TY, positive, were the TPU kernel's (x, y) tile; the
+    result does not depend on them, and on the card the tile is the
+    streaming engine's. CUDA tensors go through the kernel
+    (``tiles_kernel``); CPU tensors through ``tiles_step_reference``."""
     n = _check(uc, up_i, m_i, out)
     if TX < 1 or TY < 1:
         raise ValueError(f"tile ({TX}, {TY}): expected positive sizes")
     if uc.device.type == 'cpu':
         return tiles_step_reference(uc, up_i, m_i, out)
-    ZA = uc.shape[2]
-    aligned('tiles step', uc)
-    if ZA % 4:
-        raise ValueError(f"the tiles kernel needs ZA % 4 == 0 (ZA={ZA})")
-    zc = z_chunk('tiles step', TX, TY, 2)
     if out is None:
-        out = torch.empty((n, n, ZA), dtype=torch.float32, device=uc.device)
-    fn = _nvcc.entry('probe4_tiles', 'dtpu_tiles_launch',
-                     [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 6
-                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    with torch.cuda.device(uc.device):
-        rc = fn(uc.data_ptr(), up_i.data_ptr(), m_i.data_ptr(),
-                out.data_ptr(), *up_i.stride()[:2], *m_i.stride()[:2],
-                *out.stride()[:2], n, ZA, TX, TY, zc, stream(uc.device))
-    _nvcc.check_launch(rc, "tiles kernel")
+        out = torch.empty(m_i.shape, dtype=torch.float32, device=uc.device)
+    return tiles_kernel(uc, up_i, m_i, out, _stream.X_CHUNK)
+
+
+def tiles_kernel(uc, up_i, m_i, out, x_chunk, tile=STREAM_TILE,
+                 zeros=True):
+    """K6's launch on CUDA tensors that ``tiles_step`` has checked, each
+    CTA walking ``x_chunk`` x-planes on the engine compiled for ``tile``
+    (``tiles_step`` passes ``_stream.X_CHUNK`` and
+    ``_tiled.STREAM_TILE``; chip_smoke.py sweeps both), with the frame
+    kernel's zeros first unless ``zeros`` is False (``_tiled.stream_step``).
+    Returns ``out``."""
+    global launches
+    n = m_i.shape[0]
+    stream_step('tiles step', _rows(uc, up_i, m_i, out), (n, n, n),
+                _frame(out), x_chunk, tile, uc.device, zeros)
     launches += 1
     return out
+
+
+def _rows(uc, up_i, m_i, out):
+    """K6's rows for the engine (``_stream.rows``): out at (0, 0, 4) of its
+    view, uc staged at (4, 4, 4), up_i's allocation at up_i's first
+    element + (0, 0, 4) (up's at (4, 4, 4) for the loop's interior
+    columns), m_i's likewise (at (0, 0, 4) for a tensor of its own)."""
+    centre = [(t, (x, y, z + H)) for t, (x, y, z) in map(_stream.whole,
+                                                          (up_i, m_i))]
+    return _stream.rows('tiles step', (out, (0, 0, H)), [(uc, (H, H, H))],
+                        centre)
+
+
+def _frame(out):
+    """K6's frame (``_tiled.frame``): out's (N, N, ZA) columns less the
+    lanes [4, 4+N)."""
+    n, _, za = out.shape
+    return frame(out, ((0, 0, 0), (n, n, za)), ((0, 0, H), (n, n, n)))
 
 
 def tiles_step_reference(uc, up_i, m_i, out=None):

@@ -14,8 +14,10 @@ taps and the last tile's slice is clamped); it is right for TX <= 8. The
 port computes the intended update, variant A's, for every TX.
 
 - A: the interior update written into up (``run_A``, torch-DUS);
-- E: the loop through K7 (``run_E``, ``csrc/probe5_xtiles.cu``), rotating
-  three buffers.
+- E: the loop through K7 (``run_E``, ``csrc/probe_tiles_stream.cu``: a
+  point of K1's streaming engine, uc staged, up and m_pad read at the
+  point, and a kernel that zeroes everything outside the interior,
+  ``_tiled.stream_step``), rotating three buffers.
 
     python -m devito_tpu_torch.experiments.stencil_probe5 [N] [STEPS] [TX] [--device cuda|cpu]
 
@@ -25,18 +27,16 @@ against A after 3 steps, and K7's against its plain version (one step and
 """
 
 import argparse
-import ctypes
 
 import numpy as np
 import torch
 
-from . import device_for
-from ._tiled import FLOPS, H, SMEM, YZ_PLANE, aligned, apart, check, \
-    close, lap_interior, run_interior, stream, timed_run
-from ..kernels import _nvcc
+from . import _stream, device_for
+from ._tiled import FLOPS, H, STREAM_TILE, apart, check, close, \
+    frame, lap_interior, run_interior, stream_step, timed_run
 
-__all__ = ['xtiles_step', 'xtiles_step_reference', 'run_A', 'run_E',
-           'inputs', 'main', 'FLOPS']
+__all__ = ['xtiles_step', 'xtiles_kernel', 'xtiles_step_reference', 'run_A',
+           'run_E', 'inputs', 'main', 'FLOPS']
 
 X0 = 2 * H   # first interior x row
 
@@ -62,29 +62,47 @@ def _check(uc, up, m_pad, TX, out):
 def xtiles_step(uc, up, m_pad, TX=32, out=None):
     """One K7 step: the fresh (XP, NP, ZA) array, the interior update and
     zero everywhere else, written into ``out`` (not uc) or a new array, and
-    returned. CUDA tensors go through the kernel; CPU tensors through
-    ``xtiles_step_reference``."""
-    global launches
-    n = _check(uc, up, m_pad, TX, out)
+    returned. TX, which must divide XP, was the TPU kernel's x-tile; the
+    result does not depend on it, and on the card the tile is the
+    streaming engine's. CUDA tensors go through the kernel
+    (``xtiles_kernel``); CPU tensors through ``xtiles_step_reference``."""
+    _check(uc, up, m_pad, TX, out)
     if uc.device.type == 'cpu':
         return xtiles_step_reference(uc, up, m_pad, out)
-    ZA = uc.shape[2]
-    aligned('x-tiles step', uc)
-    if ZA % 4 or 2 * (TX + 2 * H) * YZ_PLANE * 4 > SMEM:
-        raise ValueError(f"the x-tiles kernel needs ZA % 4 == 0 and two "
-                         f"windows of TX + 8 planes in shared memory "
-                         f"(TX={TX}, ZA={ZA})")
     if out is None:
         out = torch.empty_like(uc)
-    fn = _nvcc.entry('probe5_xtiles', 'dtpu_xtiles_launch',
-                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p])
-    with torch.cuda.device(uc.device):
-        rc = fn(uc.data_ptr(), up.data_ptr(), m_pad.data_ptr(),
-                out.data_ptr(), n, ZA, TX, stream(uc.device))
-    _nvcc.check_launch(rc, "x-tiles kernel")
+    return xtiles_kernel(uc, up, m_pad, out, _stream.X_CHUNK)
+
+
+def xtiles_kernel(uc, up, m_pad, out, x_chunk, tile=STREAM_TILE,
+                  zeros=True):
+    """K7's launch on CUDA tensors that ``xtiles_step`` has checked, each
+    CTA walking ``x_chunk`` x-planes on the engine compiled for ``tile``
+    (``xtiles_step`` passes ``_stream.X_CHUNK`` and
+    ``_tiled.STREAM_TILE``; chip_smoke.py sweeps both), with the frame
+    kernel's zeros first unless ``zeros`` is False (``_tiled.stream_step``).
+    Returns ``out``."""
+    global launches
+    n = uc.shape[1] - 2 * H
+    stream_step('x-tiles step', _rows(uc, up, m_pad, out), (n, n, n),
+                _frame(out), x_chunk, tile, uc.device, zeros)
     launches += 1
     return out
+
+
+def _rows(uc, up, m_pad, out):
+    """K7's rows for the engine (``_stream.rows``): out, uc staged, up and
+    m_pad, each at the interior's first point (8, 4, 4)."""
+    org = (X0, H, H)
+    return _stream.rows('x-tiles step', (out, org), [(uc, org)],
+                        [(up, org), (m_pad, org)])
+
+
+def _frame(out):
+    """K7's frame (``_tiled.frame``): the whole (XP, NP, ZA) array less the
+    interior [8, 8+N) x [4, 4+N) x [4, 4+N)."""
+    n = out.shape[1] - 2 * H
+    return frame(out, ((0, 0, 0), tuple(out.shape)), ((X0, H, H), (n, n, n)))
 
 
 def xtiles_step_reference(uc, up, m_pad, out=None):

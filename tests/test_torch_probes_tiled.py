@@ -1,6 +1,8 @@
 """K3 (devito_tpu_torch/experiments/stencil_probe.py), K4 (stencil_probe2),
 K5 (stencil_probe3), K6 (stencil_probe4) and K7 (stencil_probe5) against
-the TPU kernels they port, which run here in Pallas interpret mode.
+the TPU kernels they port, which run here in Pallas interpret mode; and
+the rows, frames and tiles with which K6 and K7 launch K1's streaming
+engine.
 
 The JAX scripts read their sizes from the environment when they are
 imported, so each test sets them with ``monkeypatch.setenv`` and imports
@@ -467,6 +469,135 @@ def test_xtiles_run_A_matches_jax(jax_probe, interpret):
         _close(g.numpy(), w)
 
 
+# -- K6 and K7 on K1's streaming engine -----------------------------------------
+
+@pytest.mark.parametrize('in_place', [False, True])
+def test_tiles_rows(in_place):
+    """K6's rows for the streaming engine: out at (0, 0, 4) of its view (up's
+    interior columns: (4, 4, 4) of up's allocation), uc staged at (4, 4, 4),
+    up_i resolved to up's allocation at (4, 4, 0) + (0, 0, 4), m_i at
+    (0, 0, 4)."""
+    u0, u1, m_i = _t(*_tiles_inputs(12, 5))
+    up_i = u0[H:-H, H:-H]
+    out = up_i if in_place else torch.empty_like(m_i)
+    ptrs, dims, org = P4._rows(u1, up_i, m_i, out)
+    assert list(ptrs) == [out.untyped_storage().data_ptr(), u1.data_ptr(),
+                          u0.data_ptr(), m_i.data_ptr()]
+    assert list(dims) == [20 if in_place else 12] * 2 + [128] \
+        + [20, 20, 128] * 2 + [12, 12, 128]
+    assert list(org) == ([4, 4, 4] if in_place else [0, 0, 4]) \
+        + [4, 4, 4] * 2 + [0, 0, 4]
+
+
+def test_xtiles_rows():
+    """K7's rows: out, uc staged, up and m_pad, each at (8, 4, 4)."""
+    u0, u1, mp = _t(*_xtiles_inputs(12, 5))
+    out = torch.empty_like(u0)
+    ptrs, dims, org = P5._rows(u1, u0, mp, out)
+    assert list(ptrs) == [t.data_ptr() for t in (out, u1, u0, mp)]
+    assert list(dims) == [28, 20, 128] * 4 and list(org) == [8, 4, 4] * 4
+
+
+def test_stream_whole_resolves_a_view():
+    """A read row that is a view becomes the contiguous tensor over its
+    allocation, and the view's first element in it."""
+    from devito_tpu_torch.experiments import _stream as S
+    u = torch.arange(16 * 16 * 8, dtype=torch.float32).view(16, 16, 8)
+    t, first = S.whole(u[4:-4, 4:-4, :])
+    assert t.is_contiguous() and t.data_ptr() == u.data_ptr()
+    assert tuple(t.shape) == (16, 16, 8) and first == (4, 4, 0)
+    assert t[first] == u[4, 4, 0]
+    assert S.whole(u)[1] == (0, 0, 0)
+
+
+def _box_mask(shape, org, ext):
+    m = torch.zeros(shape, dtype=torch.bool)
+    m[tuple(slice(o, o + e) for o, e in zip(org, ext))] = True
+    return m
+
+
+def _frame_mask(shape, params):
+    """The points of the (x, y, z) allocation ``shape`` that the frame
+    kernel zeroes: the outer box of ``params`` less the inner box."""
+    p = [int(v) for v in params]
+    return _box_mask(shape, p[0:3], p[3:6]) & ~_box_mask(shape, p[6:9],
+                                                         p[9:12])
+
+
+def _written(alloc, rows, n):
+    """(zeros, update) masks of the NaN-filled ``alloc`` after a step: where
+    it holds 0, and the region (``rows``' target origin, extent n)."""
+    org = list(rows[2])[:3]
+    return alloc == 0, _box_mask(alloc.shape, org, n)
+
+
+@pytest.mark.parametrize('N', [12, 13, 16, 18])
+@pytest.mark.parametrize('view', [False, True])
+def test_tiles_frame_matches_the_plain_zeros(N, view):
+    """K6's frame and region, as the kernel gets them, cover exactly what its
+    plain version writes: its zeros and its update, into a new (N, N, ZA)
+    tensor or the interior columns of an (N+8, N+8, ZA) allocation, at
+    N % 4 = 0 and not."""
+    u0, u1, m_i = _t(*_tiles_inputs(N, N))
+    ZA = m_i.shape[2]
+    alloc = torch.full((N + 2 * H, N + 2 * H, ZA) if view else (N, N, ZA),
+                       float('nan'))
+    out = alloc[H:-H, H:-H] if view else alloc
+    params = P4._frame(out)
+    P4.tiles_step_reference(u1, u0[H:-H, H:-H], m_i, out)
+    zeros, region = _written(alloc, P4._rows(u1, u0[H:-H, H:-H], m_i, out),
+                             (N, N, N))
+    frame = _frame_mask(alloc.shape, params)
+    assert torch.equal(zeros, frame) and not (frame & region).any()
+    assert torch.equal(~alloc.isnan(), frame | region)
+
+
+@pytest.mark.parametrize('N', [12, 13, 16, 18])
+def test_xtiles_frame_matches_the_plain_zeros(N):
+    """K7's frame and region cover exactly what its plain version writes:
+    zeros everywhere but the interior, and the interior's update."""
+    u0, u1, mp = _t(*_xtiles_inputs(N, N))
+    out = torch.full(u0.shape, float('nan'))
+    params = P5._frame(out)
+    P5.xtiles_step_reference(u1, u0, mp, out)
+    zeros, region = _written(out, P5._rows(u1, u0, mp, out), (N, N, N))
+    frame = _frame_mask(out.shape, params)
+    assert torch.equal(zeros, frame) and not (frame & region).any()
+    assert torch.equal(frame | region, torch.ones_like(frame))
+
+
+def test_tiles_stream_tiles_fit_two_ctas_per_sm():
+    """K6's and K7's unit is compiled for _tiled.STREAM_TILES, in order, each
+    of which stream_tile fits at two or more CTAs an SM for one staged and
+    two centre groups of radius 4; chip_smoke.py picks the ptxas report of
+    STREAM_TILE's kernel."""
+    from devito_tpu_torch.experiments import _stream as S
+    from devito_tpu_torch.experiments import _tiled as T
+    from devito_tpu_torch.kernels.stencil import stream_tile
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as C
+    src = (REPO / 'devito_tpu_torch/csrc/probe_tiles_stream.cu').read_text()
+    tiles = [tuple(map(int, g)) for g in re.findall(
+        r'StreamTile<float, 1, 2, R, R, R, (\d+), (\d+), (\d+), (\d+)>',
+        src)]
+    assert tuple(tiles) == T.STREAM_TILES and T.STREAM_TILE in tiles
+    fits = [stream_tile(np.float32, (4, 4, 4), 1, 2, t + (S.X_CHUNK,))
+            for t in tiles]
+    assert all(f['ctas_per_sm'] >= 2 for f in fits)
+    assert [f['smem_bytes'] for f in fits] == [77440, 61440, 43648, 93440]
+    assert [f['ctas_per_sm'] for f in fits] == [2, 3, 5, 2]
+    picks = {e for n, s, _, e in C.KERNELS if s.endswith(
+        'probe_tiles_stream.cu')}
+    assert picks == {C.tile_entry(T.STREAM_TILE)}
+
+
+@pytest.mark.parametrize('tile', [(8, 64, 2, 2), (16, 64, 4, 5)])
+def test_stream_step_refuses_unknown_tiles(tile):
+    from devito_tpu_torch.experiments import _tiled as T
+    with pytest.raises(ValueError, match='expected one of'):
+        T.stream_step('k', None, (1, 1, 1), (), 24, tile, None)
+
+
 # -- argument checks -----------------------------------------------------------
 
 def _k3_args(N=8):
@@ -539,15 +670,6 @@ def test_wrappers_check_arguments(case):
     call, args, exc, match = CHECKS[case]
     with pytest.raises(exc, match=match):
         call(args())
-
-
-def test_z_chunk_fits_shared_memory():
-    from devito_tpu_torch.experiments._tiled import z_chunk
-    assert z_chunk('k', 32, 32, 2) == 8
-    assert z_chunk('k', 16, 32, 2) == 16
-    assert z_chunk('k', 8, 8, 2) == 32
-    with pytest.raises(ValueError, match='cannot fit'):
-        z_chunk('k', 64, 64, 2)
 
 
 # -- the entry points on the CPU -------------------------------------------------
@@ -690,7 +812,8 @@ def test_neighbour_blocks_kernels_on_card(card, N, T, zeroed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('N,TX,TY', [(40, 16, 32), (36, 8, 8), (48, 16, 16)])
+@pytest.mark.parametrize('N,TX,TY', [(40, 16, 32), (36, 8, 8), (48, 16, 16),
+                                     (37, 16, 32), (45, 8, 8)])
 def test_tiles_kernel_on_card(card, N, TX, TY):
     u0, u1, m_i = _on(card, _tiles_inputs(N, N))
     up_i = u0[H:-H, H:-H]
@@ -705,7 +828,8 @@ def test_tiles_kernel_on_card(card, N, TX, TY):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('N,TX', [(16, 32), (40, 8), (48, 16)])
+@pytest.mark.parametrize('N,TX', [(16, 32), (40, 8), (48, 16), (37, 53),
+                                  (45, 61), (50, 11)])
 def test_xtiles_kernel_on_card(card, N, TX):
     u0, u1, mp = _on(card, _xtiles_inputs(N, N))
     before = P5.launches
@@ -716,6 +840,105 @@ def test_xtiles_kernel_on_card(card, N, TX):
     for g, w in zip(got, want):
         _card_close(g, w)
     assert P5.launches == before + 4
+
+
+def _candidates():
+    """Every (x-chunk, tile) of _stream.X_CHUNKS at STREAM_TILE and of
+    STREAM_TILES at _stream.X_CHUNK."""
+    from devito_tpu_torch.experiments import _stream as S
+    from devito_tpu_torch.experiments import _tiled as T
+    return [(xc, T.STREAM_TILE) for xc in S.X_CHUNKS] + [
+        (S.X_CHUNK, t) for t in T.STREAM_TILES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N', [37, 100])
+def test_tiles_in_place_on_card(card, N):
+    """K6 into up's interior columns is bit-equal to K6 into a new tensor
+    (the tile of up a CTA reads arrives before it writes; the centre box's
+    16 bytes past a tile are never used), up's x/y halo untouched, where
+    N % 4 != 0 or N is not a multiple of the tile; each x-chunk and tile
+    is bit-equal too."""
+    u0, u1, m_i = _on(card, _tiles_inputs(N, N + 1))
+    c = slice(H, -H)
+    new = P4.tiles_step(u1, u0[c, c], m_i)
+    _card_close(new, P4.tiles_step_reference(u1, u0[c, c], m_i))
+    inplace = u0.clone()
+    P4.tiles_step(u1, inplace[c, c], m_i, out=inplace[c, c])
+    torch.cuda.synchronize()
+    assert torch.equal(inplace[c, c], new)
+    inplace[c, c] = u0[c, c]
+    assert torch.equal(inplace, u0)          # up's x/y halo untouched
+    for xc, tile in _candidates():
+        w = u0.clone()
+        P4.tiles_kernel(u1, w[c, c], m_i, w[c, c], xc, tile)
+        assert torch.equal(w[c, c], new), (xc, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N', [37, 64])
+def test_xtiles_candidates_on_card(card, N):
+    """K7 at every x-chunk and tile is bit-equal to K7 at the pick."""
+    u0, u1, mp = _on(card, _xtiles_inputs(N, N + 2))
+    pick = P5.xtiles_step(u1, u0, mp, N + 16)
+    _card_close(pick, P5.xtiles_step_reference(u1, u0, mp))
+    for xc, tile in _candidates():
+        assert torch.equal(P5.xtiles_kernel(
+            u1, u0, mp, torch.empty_like(u0), xc, tile), pick), (xc, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N', [37, 45, 48])
+@pytest.mark.parametrize('kernel', ['K6', 'K7'])
+def test_stream_frame_on_card(card, kernel, N):
+    """The engine alone writes its update on exactly the region of a
+    NaN-filled output, and the frame kernel before it 0 on exactly the
+    frame, where the frame's rows end off a 16-byte boundary
+    (N % 4 != 0)."""
+    from devito_tpu_torch.experiments._stream import X_CHUNK
+    if kernel == 'K6':
+        u0, u1, m_i = _on(card, _tiles_inputs(N, N))
+        alloc = torch.full(u0.shape, float('nan'), device=card)
+        out = alloc[H:-H, H:-H]
+        run = lambda zeros: P4.tiles_kernel(  # noqa: E731
+            u1, u0[H:-H, H:-H], m_i, out, X_CHUNK, P4.STREAM_TILE, zeros)
+        params, rows = P4._frame(out), P4._rows(u1, u0[H:-H, H:-H], m_i, out)
+        want = P4.tiles_step_reference(u1, u0[H:-H, H:-H], m_i)
+    else:
+        u0, u1, mp = _on(card, _xtiles_inputs(N, N))
+        alloc = out = torch.full(u0.shape, float('nan'), device=card)
+        run = lambda zeros: P5.xtiles_kernel(  # noqa: E731
+            u1, u0, mp, out, X_CHUNK, P5.STREAM_TILE, zeros)
+        params, rows = P5._frame(out), P5._rows(u1, u0, mp, out)
+        want = P5.xtiles_step_reference(u1, u0, mp)
+    frame = _frame_mask(alloc.shape, params).to(card)
+    region = _box_mask(alloc.shape, list(rows[2])[:3], (N, N, N)).to(card)
+    run(False)
+    torch.cuda.synchronize()
+    assert torch.equal(~alloc.isnan(), region)
+    alloc.fill_(float('nan'))
+    run(True)
+    torch.cuda.synchronize()
+    assert torch.equal(alloc == 0, frame)
+    assert torch.equal(alloc.isnan(), ~(frame | region))
+    _card_close(out, want)
+
+
+@pytest.mark.cuda
+def test_tiles_stream_builds_clean_on_card(card):
+    """K6's and K7's unit builds without spills (when ptxas ran in this
+    process) and the CUDA runtime fits two or more CTAs of each tile's
+    kernel on an SM."""
+    from devito_tpu_torch.experiments import _stream as S
+    from devito_tpu_torch.experiments import _tiled as T
+    from devito_tpu_torch.kernels import _nvcc
+    _nvcc.fixed('probe_tiles_stream')
+    log = _nvcc.build_log.get(_nvcc.fixed_key('probe_tiles_stream'))
+    if log is not None:
+        assert 'bytes spill' in log and not re.search(
+            r'[1-9]\d* bytes spill', log), log
+    for i, _ in enumerate(T.STREAM_TILES):
+        assert S.occupancy('probe_tiles_stream', 2 * i) >= 2
 
 
 @pytest.mark.cuda
