@@ -43,11 +43,13 @@
    also into up's own interior, bit-equal to K3 into a new tensor, with
    its CTAs per SM, registers and spills, and a sweep of its x-planes; K6
    likewise into up's interior columns, bit-equal to K6 into a new tensor,
-   up's x/y halo untouched; and K6 and K7 each with its CTAs per SM,
-   registers and spills, its time without its frame of zeros, the device
-   time of the frame kernel and of the engine (torch.profiler) beside
-   PyTorch's zero_ of the same frame and of as many bytes in one run, and
-   a sweep of its tiles and x-planes, each bit-equal to the pick.
+   up's x/y halo untouched; and K4, K5, K6 and K7 each with its CTAs per
+   SM, registers and spills, its time without its frame of zeros, the
+   device time of the frame kernel, of K4's edge-row kernel and of the
+   engine (torch.profiler) beside PyTorch's zero_ of the same frame and of
+   as many bytes in one run, and a sweep of its tiles and x-planes, each
+   bit-equal to the pick; K4 and K5 also into up itself, bit-equal to a
+   new tensor.
 8. The copy, compute and launch probes of stencil_probe7: A (K10) with and
    without write-back at nsplit 1 and 2, B (K11) for every tap ablation,
    C (K12), D (K13) and E (K14) at depths 2, 3 and 4, each at the JAX
@@ -152,12 +154,11 @@ KERNELS = [
      'experiments/stencil_probe6.py:68', ''),
     ('halo_tiles_step', 'devito_tpu_torch/csrc/probe_halo_stream.cu',
      'experiments/stencil_probe.py:64', ''),
-    ('neighbour_blocks_step',
-     'devito_tpu_torch/csrc/probe2_neighbour_blocks.cu',
-     'experiments/stencil_probe2.py:73', 'nb_kernelILb0E'),   # <false>
+    ('neighbour_blocks_step', 'devito_tpu_torch/csrc/probe_tiles_stream.cu',
+     'experiments/stencil_probe2.py:73', 'Li16ELi64ELi4ELi3EE'),  # tile
     ('neighbour_blocks_zeroed_step',
-     'devito_tpu_torch/csrc/probe2_neighbour_blocks.cu',
-     'experiments/stencil_probe3.py:94', 'nb_kernelILb1E'),   # <true>
+     'devito_tpu_torch/csrc/probe_tiles_stream.cu',
+     'experiments/stencil_probe3.py:94', 'Li16ELi64ELi4ELi3EE'),
     ('tiles_step', 'devito_tpu_torch/csrc/probe_tiles_stream.cu',
      'experiments/stencil_probe4.py:66', 'Li16ELi64ELi4ELi3EE'),  # tile
     ('xtiles_step', 'devito_tpu_torch/csrc/probe_tiles_stream.cu',
@@ -174,9 +175,8 @@ KERNELS = [
      'experiments/stencil_probe7.py:272', 'stream_kernelILi3E'),
 ]
 FIXED = ['selftest', 'probe9_ring', 'probe6_stream', 'probe6_window_copy',
-         'probe_halo_stream', 'probe2_neighbour_blocks',
-         'probe_tiles_stream', 'probe7_copy', 'probe7_resident',
-         'probe7_empty', 'probe7_stream']
+         'probe_halo_stream', 'probe_tiles_stream', 'probe7_copy',
+         'probe7_resident', 'probe7_empty', 'probe7_stream']
 #: The module of devito_tpu_torch.experiments and the launch counter of
 #: every probe kernel, by record name; K13 and K14 share a count keyed by
 #: pipeline depth.
@@ -1278,8 +1278,9 @@ def tiled_probes(device, sizes, gen, records, ceiling):
         if device.type == 'cuda':
             torch.cuda.empty_cache()
     lines += k3_in_place(device, N, gen, by_name['halo_tiles_step'], reps)
-    lines += tiles_stream(device, N, gen, by_name['tiles_step'],
-                          by_name['xtiles_step'], reps)
+    lines += tiles_stream(device, N, gen, by_name,
+                          sizes['tiled_big']['neighbour_blocks_step'][0],
+                          reps)
     for line in lines:
         log(line)
 
@@ -1344,18 +1345,22 @@ def tile_entry(tile):
     return ''.join(f'Li{v}E' for v in tile) + 'E'
 
 
-def tiles_stream(device, N, gen, k6, k7, reps):
+def tiles_stream(device, N, gen, recs, nb_t, reps):
     """K6 at N^3 into up's interior columns (the loop's target) and into a
     new tensor, each against its plain version and bit-equal to each
-    other, up's x/y halo untouched; then for K6 (in place) and K7 (into a
-    spare) the time without the frame, the device time of the frame and of
-    the engine under torch.profiler, beside that of the same frame zeroed
-    by PyTorch and of as many bytes zeroed in one run, and each tile
-    of ``_tiled.STREAM_TILES`` and x-chunk of ``_stream.X_CHUNKS``,
-    bit-equal to the pick, timed as the loop runs it. Puts these, the CTAs
-    per SM and the frame's bytes into the records; returns the lines to
+    other, up's x/y halo untouched; then for K6 (in place), K7, K4 and K5
+    (into a spare; K4 at the x-tile ``nb_t``) the time without the frame,
+    the device time of the frame, of K4's edge rows and of the engine
+    under torch.profiler, beside that of the same frame zeroed by PyTorch
+    and of as many bytes zeroed in one run, and each tile of
+    ``_tiled.STREAM_TILES`` and x-chunk of ``_stream.X_CHUNKS``, bit-equal
+    to the pick, timed as the loop runs it; K4 and K5 also into up itself,
+    bit-equal to a new tensor. Puts these, the CTAs per SM and the frame's
+    bytes into the records ``recs`` (by name); returns the lines to
     print."""
     from devito_tpu_torch.experiments import _stream as S, _tiled as TT
+    from devito_tpu_torch.experiments import stencil_probe2 as T4
+    from devito_tpu_torch.experiments import stencil_probe3 as T5
     from devito_tpu_torch.experiments import stencil_probe4 as T6
     from devito_tpu_torch.experiments import stencil_probe5 as T7
     from devito_tpu_torch.kernels import _nvcc
@@ -1366,8 +1371,11 @@ def tiles_stream(device, N, gen, k6, k7, reps):
     def normal(*shape):
         return torch.randn(shape, generator=gen, device=device)
 
+    def coef(*shape):
+        return 0.1 + 0.1 * torch.rand(shape, generator=gen, device=device)
+
     up, uc = normal(NP, NP, ZA), normal(NP, NP, ZA)
-    m_i = 0.1 + 0.1 * torch.rand((N, N, ZA), generator=gen, device=device)
+    m_i = coef(N, N, ZA)
     plain = T6.tiles_step_reference(uc, up[c, c, :], m_i)
     new = T6.tiles_step(uc, up[c, c, :], m_i)
     inplace = up.clone()
@@ -1382,17 +1390,19 @@ def tiles_stream(device, N, gen, k6, k7, reps):
     if not torch.equal(inplace, up):
         raise AssertionError("K6 into up's interior columns wrote up's x/y "
                              "halo")
-    k6.update(max_abs_err=max(errs + [k6['max_abs_err']]),
-              in_place_bit_equal=True)
+    recs['tiles_step'].update(
+        max_abs_err=max(errs + [recs['tiles_step']['max_abs_err']]),
+        in_place_bit_equal=True)
     lines = [f"[tiled] K6 at {N}^3 into a new tensor and into up's interior "
              f"columns: max|kernel - plain| {errs[0]:.3e}, {errs[1]:.3e}, "
              f"the two bit-equal, up's x/y halo untouched"]
     del inplace, plain, new
 
     work = up.clone()
-    up7, uc7, mp = normal(XP, NP, ZA), normal(XP, NP, ZA), \
-        0.1 + 0.1 * torch.rand((XP, NP, ZA), generator=gen, device=device)
+    up7, uc7, mp = normal(XP, NP, ZA), normal(XP, NP, ZA), coef(XP, NP, ZA)
     spare = torch.empty_like(uc7)
+    up4, uc4, mf4 = normal(NP, NP, ZA), normal(NP, NP, ZA), coef(NP, NP, ZA)
+    spare4 = torch.empty_like(uc4)
 
     def k6_run(xc, tile, zeros=True, into=work):
         T6.tiles_kernel(uc, into[c, c, :], m_i, into[c, c, :], xc, tile,
@@ -1402,54 +1412,125 @@ def tiles_stream(device, N, gen, k6, k7, reps):
     def k7_run(xc, tile, zeros=True, into=spare):
         return T7.xtiles_kernel(uc7, up7, mp, into, xc, tile, zeros)
 
+    def k4_run(xc, tile, zeros=True, into=spare4):
+        return T4.neighbour_blocks_kernel(up4, uc4, mf4, nb_t, into, xc,
+                                          tile, zeros)
+
+    def k5_run(xc, tile, zeros=True, into=spare4):
+        return T5.neighbour_blocks_zeroed_kernel(up4, uc4, mf4, into, xc,
+                                                 tile, zeros)
+
+    # K4's and K5's steps, and their plain versions, from up_ into out
+    nb_steps = {
+        'K4': (lambda up_, out=None: T4.neighbour_blocks_step(
+            up_, uc4, mf4, nb_t, out=out),
+            lambda: T4.neighbour_blocks_step_reference(up4, uc4, mf4, nb_t)),
+        'K5': (lambda up_, out=None: T5.neighbour_blocks_zeroed_step(
+            up_, uc4, mf4, nb_t, out=out),
+            lambda: T5.neighbour_blocks_zeroed_step_reference(up4, uc4, mf4,
+                                                             nb_t))}
+
     # the same frames zeroed by PyTorch, a zero_ a box
-    x7 = slice(2 * H, 2 * H + N)
+    x7, a = slice(2 * H, 2 * H + N), slice(None)
     k6_boxes = [(c, c, slice(0, H)), (c, c, slice(H + N, None))]
     k7_boxes = [(slice(0, 2 * H),), (slice(2 * H + N, None),),
                 (x7, slice(0, H)), (x7, slice(H + N, None)),
                 (x7, c, slice(0, H)), (x7, c, slice(H + N, None))]
+    k4_boxes = [(a, slice(0, H)), (a, slice(H + N, None)),
+                (a, c, slice(0, H)), (a, c, slice(H + N, None))]
+    k5_boxes = [(slice(0, H),), (slice(H + N, None),),
+                (c, slice(0, H)), (c, slice(H + N, None)),
+                (c, c, slice(0, H)), (c, c, slice(H + N, None))]
     fill = torch.empty(XP * NP * ZA - N ** 3, device=device)
 
-    def device_ms(fn):
+    def device_rows_of(fn, kernels):
+        """(name, device ms a call) of each kernel of ``fn``, which
+        launches ``kernels`` device kernels a call, from ``reps`` calls
+        under torch.profiler. A session can drop a kernel's event (the
+        CUPTI trace on the card returned 39 of 40, and once none of 20),
+        so each kernel's time a call is the mean of the events returned
+        times its launches a call; profiled again (three tries) unless
+        the launches a call add up to ``kernels``, and raises then."""
+        for _ in range(3):
+            sync(device)
+            rows = profiled(lambda: [fn() for _ in range(reps)], device)
+            per_call = [round(r[2] / reps) for r in rows]
+            if sum(per_call) == kernels and all(per_call):
+                return [(r[0], r[1] / r[2] * k)
+                        for r, k in zip(rows, per_call)]
+        got = [r[2] for r in rows]
+        raise AssertionError(f"torch.profiler returned {got} device events "
+                             f"of {reps} calls of {kernels} kernels")
+
+    def device_ms(fn, kernels):
         """Device ms a call of ``fn``, all kernels, under torch.profiler."""
-        return sum(r[1] for r in profiled(
-            lambda: [fn() for _ in range(reps)], device)) / reps
+        return sum(r[1] for r in device_rows_of(fn, kernels))
 
     log_ = _nvcc.build_log.get(_nvcc.fixed_key('probe_tiles_stream'), '') \
         if on_card else ''
     xc0, tile0 = S.X_CHUNK, TT.STREAM_TILE
-    for lab, rec, run, fresh, frame_points, target, boxes in (
-            ('K6', k6, k6_run, lambda: up.clone(), N * N * (ZA - N), work,
-             k6_boxes),
-            ('K7', k7, k7_run, lambda: torch.empty_like(uc7),
-             XP * NP * ZA - N ** 3, spare, k7_boxes)):
+    new4 = lambda: torch.empty_like(uc4)  # noqa: E731
+    for lab, name, run, fresh, frame_points, target, boxes in (
+            ('K6', 'tiles_step', k6_run, lambda: up.clone(),
+             N * N * (ZA - N), work, k6_boxes),
+            ('K7', 'xtiles_step', k7_run, lambda: torch.empty_like(uc7),
+             XP * NP * ZA - N ** 3, spare, k7_boxes),
+            ('K4', 'neighbour_blocks_step', k4_run, new4,
+             NP * NP * ZA - NP * N * N, spare4, k4_boxes),
+            ('K5', 'neighbour_blocks_zeroed_step', k5_run, new4,
+             NP * NP * ZA - N ** 3, spare4, k5_boxes)):
+        rec = recs[name]
+        nb = lab in ('K4', 'K5')
         rec.update(x_chunk=xc0, tile=list(tile0), x_chunk_sweep=[],
                    tile_sweep=[], frame_bytes=4 * frame_points,
                    ms_interior=None, frame_device_ms=None,
                    engine_device_ms=None, ctas_per_sm=None,
                    frame_library_call=f'{len(boxes)} zero_ of its boxes',
                    frame_library_device_ms=None, frame_fill_device_ms=None)
+        if lab == 'K4':
+            rec.update(edge_device_ms=None, edge_rows_t=nb_t)
+        if nb:
+            # into up itself: the frame zeroes only up's y/z halo, which
+            # the engine never reads, and the edge rows read up only at
+            # the point they write
+            step, plain = nb_steps[lab]
+            into_up = up4.clone()
+            step(into_up, out=into_up)
+            err = check_close(f"{lab} at {N}^3 into up", into_up, plain())
+            if not torch.equal(into_up, step(up4)):
+                raise AssertionError(f"{lab} into up differs from {lab} "
+                                     f"into a new tensor")
+            del into_up
+            rec.update(out_up_bit_equal=True,
+                       max_abs_err=max(err, rec['max_abs_err']))
         if not on_card:
             continue
         pick = run(xc0, tile0, into=fresh())
         # device time by kernel of reps calls (the frame is a launch shorter
         # than the host path of a call, so CUDA events cannot time it)
-        prof = profiled(lambda: [run(xc0, tile0) for _ in range(reps)],
-                        device)
+        prof = device_rows_of(lambda: run(xc0, tile0),
+                              3 if lab == 'K4' else 2)
         rec.update(
             ms_interior=time_ms(lambda: run(xc0, tile0, False), reps,
                                 device),
             frame_device_ms=sum(r[1] for r in prof
-                                if 'frame_kernel' in r[0]) / reps,
+                                if 'frame_kernel' in r[0]),
             engine_device_ms=sum(r[1] for r in prof
-                                 if 'stream_kernel' in r[0]) / reps,
+                                 if 'stream_kernel' in r[0]),
             ctas_per_sm=S.occupancy('probe_tiles_stream',
                                     2 * TT.STREAM_TILES.index(tile0)),
             frame_ptxas=ptxas(log_, 'frame_kernel'),
             frame_library_device_ms=device_ms(
-                lambda: [target[b].zero_() for b in boxes]),
+                lambda: [target[b].zero_() for b in boxes], len(boxes)),
             frame_fill_device_ms=device_ms(
-                lambda: fill[:frame_points].zero_()))
+                lambda: fill[:frame_points].zero_(), 1))
+        edge = ''
+        if lab == 'K4':
+            rec.update(edge_device_ms=sum(
+                r[1] for r in prof if 'edge_rows_kernel' in r[0]),
+                edge_ptxas=ptxas(log_, 'edge_rows_kernel'))
+            edge = (f", edge rows (T={nb_t}) {rec['edge_device_ms']:.4f} "
+                    f"ms ({rec['edge_ptxas']})")
         for key, cands in (('tile', TT.STREAM_TILES), ('x_chunk', S.X_CHUNKS)):
             for cand in cands:
                 xc, tile = (xc0, cand) if key == 'tile' else (cand, tile0)
@@ -1481,12 +1562,13 @@ def tiles_stream(device, N, gen, k6, k7, reps):
             f"{rec['ms_interior']:.4f} ms; device time a call (profiler): "
             f"engine {rec['engine_device_ms']:.4f} ms, frame "
             f"{rec['frame_device_ms']:.4f} ms ({rec['frame_bytes'] / 1e6:.1f}"
-            f" MB of zeros, {gbs:.0f} GB/s), the same frame by "
+            f" MB of zeros, {gbs:.0f} GB/s){edge}, the same frame by "
             f"{rec['frame_library_call']} "
             f"{rec['frame_library_device_ms']:.4f} ms, as many bytes "
             f"zeroed in one run {rec['frame_fill_device_ms']:.4f} ms; "
             f"{rec['ctas_per_sm']} CTAs/SM; {rec.get('ptxas', '')}; frame "
-            f"kernel {rec['frame_ptxas']}")
+            f"kernel {rec['frame_ptxas']}"
+            + ("; into up itself bit-equal to a new tensor" if nb else ''))
     return lines
 
 

@@ -111,13 +111,30 @@ def _target_row(eq, bufs, t, params):
                                  params)
 
 
-def _write_due(eq, t, params):
+def _write_due(eq, bufs, t, params):
     """False on the steps a subsampled (ConditionalDimension) write
-    skips."""
-    cf = eq.cond_factor
-    if eq.time_kind != 'cond' or cf is None:
+    skips: those off its factor, those whose row lies past the saved rows
+    (a write under a condition may run past them; the reference drops
+    it), and those where a condition that reads time alone is false. All
+    are decided before the target row is indexed."""
+    if eq.time_kind != 'cond':
         return True
-    return t % factor_value(cf, params) == 0
+    factor = factor_value(eq.cond_factor, params)
+    if t % factor or not \
+            0 <= t // factor + eq.time_off < bufs[eq.target.name].shape[0]:
+        return False
+    if _time_only(eq.condition):
+        from .translate import translate, BaseCtx
+        return bool(translate(eq.condition, BaseCtx({}, params, t=t)))
+    return True
+
+
+def _time_only(cond):
+    """True when the condition ``cond`` (or None) reads neither a field
+    nor a space dimension, so one value holds for the whole step."""
+    from ..types.basic import AbstractFunction
+    return cond is not None and not cond.atoms(AbstractFunction) and not \
+        any(getattr(s, 'is_Space', False) for s in cond.free_symbols)
 
 
 def _write_region_slices(eq):
@@ -205,7 +222,7 @@ def plan_rows(plan, bufs, t, params):
 
 
 def _exec_dense(eq, plan, bufs, params, t):
-    if not _write_due(eq, t, params):
+    if not _write_due(eq, bufs, t, params):
         return
     if plan is not None:
         stencil_update(plan, plan_rows(plan, bufs, t, params), params)

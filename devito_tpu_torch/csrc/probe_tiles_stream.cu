@@ -1,35 +1,50 @@
-// K6 and K7, the acoustic SO=8 steps of stencil_probe4 and stencil_probe5,
-// on K1's streaming engine:
+// K4, K5, K6 and K7, the acoustic SO=8 steps of stencil_probe2 to
+// stencil_probe5, on K1's streaming engine:
 //   out = (2 uc - up) + m * lap(uc)   over the region (n, n, n),
 //   lap = sum over x, y, z of sum_{k=-4..4} W_k uc(. + k along the axis),
 //   out = 0                           over a frame around it,
 // where the frame is every point of an outer box of out's allocation that
-// lies outside an inner box. K6 (stencil_probe4): uc (n+8, n+8, za), up
+// lies outside an inner box. K4 (stencil_probe2) and K5 (stencil_probe3):
+// uc, up, m and out (n+8, n+8, zp), the update on [4, 4+n)^3; K5 zeroes
+// everything else, K4 everything outside the interior columns (y, z in
+// [4, 4+n)) and computes their x-halo rows, 0-3 and n+4..n+7, in a third
+// kernel (`edge_rows_kernel`). K6 (stencil_probe4): uc (n+8, n+8, za), up
 // and m (n, n, za) columns, out the (n, n, za) columns with the update on
 // the lanes [4, 4+n) and zeros on the others (the loop passes up's own
 // interior columns as out). K7 (stencil_probe5): uc, up, m and out
 // (n+16, n+8, za), the update on [8, 8+n) x [4, 4+n) x [4, 4+n) and zeros
 // everywhere else. The wrappers give each row's origin and the two boxes.
 //
-// Replaces the TPU kernels experiments/stencil_probe4.py `make_v3_step`
-// (pallas_call at :121) and experiments/stencil_probe5.py `make_v4_step`
-// (pallas_call at :128). The first walks (x, y) tiles of columns with z
-// resident, the halo'd window of uc DMA-ed into one of two VMEM slots
-// while the previous tile computes; the second walks x-tiles with y and z
-// resident in the same way, masking everything outside the interior to
-// zero. Ported in those shapes (one CTA an SM, cp.async windows streaming
-// z through a (16, 32) column tile, or every x-tile through an (8, 32)
-// (y, z) tile, uc read 2.8 and 3.75 times over) they reached 19 and 23 %
-// of their bounds on the H100. Here the update is a point of K1's
-// streaming engine (stencil_stream.cuh): uc is the staged group, its
-// halo'd (y, z) planes arriving by TMA through a ring and its x taps held
-// in register queues; up and m are centre groups, their tiles arriving in
-// the same TMA stage; each CTA walks an x-chunk of planes and two or more
-// CTAs share an SM. A point of the engine does not know its coordinates,
-// so the zeros come from a second kernel of this unit, `frame_kernel`,
-// launched in the same call before the engine: a warp a (x, y) row at a
-// time, 16-byte stores wherever a span reaches a 16-byte boundary, and one
-// span for the zeros between two interior rows.
+// Replaces the TPU kernels experiments/stencil_probe2.py and
+// experiments/stencil_probe3.py `make_pallas_step` (pallas_call at :117
+// and :134), experiments/stencil_probe4.py `make_v3_step` (pallas_call at
+// :121) and experiments/stencil_probe5.py `make_v4_step` (pallas_call at
+// :128). The first two walk x-tiles of T rows, each assembled in VMEM from
+// its block of uc and its two neighbour blocks, clamped to the array; the
+// third walks (x, y) tiles of columns with z resident, the halo'd window
+// of uc DMA-ed into one of two VMEM slots while the previous tile
+// computes; the fourth walks x-tiles with y and z resident in the same
+// way, masking everything outside the interior to zero. Ported in those
+// shapes (one CTA walking a cp.async window at a time, or one CTA an SM
+// streaming z or x through a small (y, z) tile, uc read 2.8 to 5 times
+// over) they reached 19 to 48 % of their bounds on the H100. Here the
+// update is a point of K1's streaming engine (stencil_stream.cuh): uc is
+// the staged group, its halo'd (y, z) planes arriving by TMA through a
+// ring and its x taps held in register queues; up and m are centre
+// groups, their tiles arriving in the same TMA stage; each CTA walks an
+// x-chunk of planes and two or more CTAs share an SM. A point of the
+// engine does not know its coordinates, so the zeros come from a second
+// kernel of this unit, `frame_kernel`, launched in the same call before
+// the engine: a warp a (x, y) row at a time, 16-byte stores wherever a
+// span reaches a 16-byte boundary, and one span for the zeros between two
+// interior rows.
+//
+// K4's x-halo rows read uc by the TPU kernel's clamped rule: in tile 0 an
+// x tap with r + k < 0, and in the last tile one with r + k >= n + 8,
+// reads row r + k + T or r + k - T of the tile itself; the interior rows
+// never wrap for T >= 4 dividing n + 8, so the engine computes them as
+// they are. The x-halo rows are 8 of the n + 8 rows (1.5 % of the points
+// at n = 512): one thread a point, 4-byte loads through L2.
 //
 // When out is up's interior (K6's loop): a CTA's tile of up for plane x
 // arrives in the stage of uc's plane x + 4, before the CTA writes plane x,
@@ -37,10 +52,13 @@
 // centre box is TZ + 4 wide (StreamTile::CZ): it reads 16 bytes of the
 // next z tile's columns, or of the frame past the region, which another
 // CTA or the frame kernel may have written; those values are never used.
+// The same holds when K4's or K5's out is up (or m): the frame kernel
+// writes only points the engine never uses, and the edge-row kernel reads
+// up and m only at the point it writes.
 //
 // What bounds it on the card: memory. A point reads uc, up and m once and
 // writes out, 16 bytes in fp32, for 57 flops; the frame adds 6-7 % to the
-// bytes at n = 512 (K6 writes (n, n, za), K7 the whole array).
+// bytes at n = 512 (K6 writes (n, n, za), K4, K5 and K7 the whole array).
 
 #include "stencil_stream.cuh"
 
@@ -145,6 +163,33 @@ __global__ void __launch_bounds__(256) frame_kernel(float* base, Frame g) {
   }
 }
 
+// K4's x-halo rows, j = blockIdx.z (rows 0-3, then n+4..n+7), over the
+// interior columns: the point of the engine with the x taps' rows by the
+// clamped rule. up and m are read with plain loads, out may be either.
+__global__ void __launch_bounds__(256) edge_rows_kernel(
+    const float* __restrict__ uc, const float* up, const float* m,
+    float* out, int n, int zp, int t) {
+  const int z = R + blockIdx.x * blockDim.x + threadIdx.x;
+  if (z >= R + n) return;
+  const int np = n + 2 * R, j = blockIdx.z;
+  const int r = j < R ? j : np - 2 * R + j;
+  const long long plane = static_cast<long long>(np) * zp;
+  const long long yz = static_cast<long long>(R + blockIdx.y) * zp + z;
+  const float* c = uc + r * plane + yz;
+  float l = 0.0f;  // x taps, then y, then z, as the engine's point
+#pragma unroll
+  for (int k = -R; k <= R; ++k) {
+    const int s = r + k < 0 ? r + k + t : r + k >= np ? r + k - t : r + k;
+    l += w(k) * __ldg(uc + s * plane + yz);
+  }
+#pragma unroll
+  for (int k = -R; k <= R; ++k) l += w(k) * __ldg(c + k * zp);
+#pragma unroll
+  for (int k = -R; k <= R; ++k) l += w(k) * __ldg(c + k);
+  const long long p = r * plane + yz;
+  out[p] = (2.0f * __ldg(c) - up[p]) + m[p] * l;
+}
+
 template <class L>
 int launch(void* const* ptrs, const long long* dims, const int* org,
            const int* n, int tx, void* stream) {
@@ -203,4 +248,19 @@ extern "C" int dtpu_probe_stream_occupancy(int flags, int* ctas) {
     case 3: return dtpu::stream_occupancy<Tile3, 0, Point<Tile3>>(ctas);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K4's x-halo rows (edge_rows_kernel): uc, up, m and out (n+8, n+8, zp)
+// fp32, contiguous, zp >= n + 8; T >= 4 divides n + 8; out is not uc.
+// Returns the cudaError_t of the launch.
+extern "C" int dtpu_probe_edge_rows_launch(const void* uc, const void* up,
+                                           const void* m, void* out, int n,
+                                           int zp, int t, void* stream) {
+  if (n < 1 || n > 65535 || zp < n + 2 * R || t < R || (n + 2 * R) % t)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + 255) / 256, n, 2 * R);
+  edge_rows_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(uc), static_cast<const float*>(up),
+      static_cast<const float*>(m), static_cast<float*>(out), n, zp, t);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -10,16 +10,19 @@ kernel and that kernel's plain PyTorch version:
 - ``stencil_probe``: K3, the step of the JAX script's halo'd (x, y)
   tiles, a point of K1's streaming engine
   (``python -m devito_tpu_torch.experiments.stencil_probe [N] [STEPS] [TX] [TY]``);
-- ``stencil_probe2``: K4, x-tiles assembled from neighbour blocks, x-halo
-  rows computed (``python -m devito_tpu_torch.experiments.stencil_probe2 [N] [STEPS] [T]``);
-- ``stencil_probe3``: K5, as K4 with the x-halo rows zeroed
+- ``stencil_probe2``: K4, the step of the JAX script's x-tiles assembled
+  from neighbour blocks, x-halo rows computed: a point of K1's streaming
+  engine over the interior, a frame of zeros and a kernel for the x-halo
+  rows (``python -m devito_tpu_torch.experiments.stencil_probe2 [N] [STEPS] [T]``);
+- ``stencil_probe3``: K5, as K4 with the x-halo rows zeroed: the same
+  point and frame kernel
   (``python -m devito_tpu_torch.experiments.stencil_probe3 [N] [STEPS] [T]``);
 - ``stencil_probe4``: K6, the step of the JAX script's (x, y) tiles with
   a double-buffered window, a point of K1's streaming engine and a frame
   of zeros
   (``python -m devito_tpu_torch.experiments.stencil_probe4 [N] [STEPS] [TX] [TY]``);
 - ``stencil_probe5``: K7, the step of the JAX script's x-tiles writing the
-  whole padded array, the same point and frame kernel as K6
+  whole padded array, the same point and frame kernel as K4 to K6
   (``python -m devito_tpu_torch.experiments.stencil_probe5 [N] [STEPS] [TX]``);
 - ``stencil_probe7``: the parts of an x-tiled step's cost -- K10 streamed
   window copies, K11 arithmetic on resident windows, K12 an empty launch,

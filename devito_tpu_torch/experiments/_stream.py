@@ -10,9 +10,10 @@ allocation given by its base pointer, its extents (x, y, z) and the
 element (x, y, z) of the region's first point in it; the target is written
 with plain stores through those extents, the other rows are read by TMA.
 Each unit exports ``dtpu_probe_stream_launch`` and
-``dtpu_probe_stream_occupancy``. K6 and K7 (``_tiled.stream_step``) launch
-their unit through the same rows and ``launch``, with two centre groups
-and tiles of their own (``_tiled.STREAM_TILES``).
+``dtpu_probe_stream_occupancy``. K4, K5, K6 and K7
+(``_tiled.stream_step``) launch their unit, ``csrc/probe_tiles_stream.cu``,
+through the same rows and ``launch``, with two centre groups and tiles of
+their own (``_tiled.STREAM_TILES``).
 """
 
 import ctypes

@@ -4,11 +4,13 @@ Laplacian in the order the JAX kernels sum their taps, argument checks,
 the comparison against a plain version and the printed timing lines.
 
 All five compute ``2 uc - up + m lap(uc)`` (K3 also ``- damp uc``) in
-fp32 over padded layouts with a halo of H = 4 points. K6 and K7 share one
-CUDA unit, ``csrc/probe_tiles_stream.cu``: a point of K1's streaming engine
-(``csrc/stencil_stream.cuh``) with one staged group (uc) and two centre
-groups (up, m), and a kernel that writes the zeros of a frame around the
-update (``stream_step``).
+fp32 over padded layouts with a halo of H = 4 points. K4, K5, K6 and K7
+share one CUDA unit, ``csrc/probe_tiles_stream.cu``: a point of K1's
+streaming engine (``csrc/stencil_stream.cuh``) with one staged group (uc)
+and two centre groups (up, m), a kernel that writes the zeros of a frame
+around the update (``stream_step``; ``frame_reference`` is its plain
+version), and a kernel for K4's x-halo rows
+(``stencil_probe2.edge_rows``).
 """
 
 import numpy as np
@@ -16,9 +18,10 @@ import torch
 
 from . import _stream, time_ms
 
-__all__ = ['H', 'W', 'TOL', 'SMEM', 'YZ_PLANE', 'STREAM_TILES', 'STREAM_TILE',
-           'lap', 'lap_interior', 'run_interior', 'check', 'apart', 'aligned',
-           'stream', 'frame', 'stream_step', 'close', 'timed_run', 'FLOPS']
+__all__ = ['H', 'W', 'TOL', 'STREAM_TILES', 'STREAM_TILE', 'lap',
+           'lap_interior', 'run_interior', 'check', 'apart', 'stream',
+           'frame', 'frame_reference', 'stream_step', 'close', 'timed_run',
+           'FLOPS']
 
 H = 4  # SO=8 stencil radius, and the halo of every layout
 #: SO=8 second-derivative weights, centre at index 4, as the JAX scripts'.
@@ -29,10 +32,6 @@ TOL = 1e-5      # times max |plain|: fp32 sums in another order
 #: and an add, less the first add, and 4 for the rest (K3's ``- damp uc``
 #: adds 2).
 FLOPS = 57
-SMEM = 232448   # bytes of shared memory a block may use on Hopper
-#: Floats of one halo'd (SY, SZ) = (8, 32) plane of the shared windows of
-#: the x-tiled kernel of K4 and K5 (probe2_neighbour_blocks.cu).
-YZ_PLANE = (8 + 2 * H) * (32 + 2 * H)
 #: The tiles (TY, TZ, PY, STAGES) that ``csrc/probe_tiles_stream.cu`` is
 #: compiled for, in the order its flags pick them, with the CTAs an SM that
 #: ``stream_tile`` fits by shared memory at one staged and two centre groups
@@ -42,10 +41,10 @@ YZ_PLANE = (8 + 2 * H) * (32 + 2 * H)
 #: registers may allow fewer.
 STREAM_TILES = ((16, 64, 4, 3), (16, 64, 4, 2), (16, 32, 2, 3),
                 (16, 64, 4, 4))
-#: The tile K6 and K7 launch, with K3's and K9's x-chunk
+#: The tile K4, K5, K6 and K7 launch, with K3's and K9's x-chunk
 #: (``_stream.X_CHUNK``): of STREAM_TILES and ``_stream.X_CHUNKS``, the
-#: fastest for both at 512^3 on an H100, or within 0.3 % of it
-#: (chip_smoke.py sweeps both; PERF.md §6).
+#: fastest for each of the four at 512^3 on an H100, or within 0.3 % of
+#: it (chip_smoke.py sweeps both; PERF.md §6).
 STREAM_TILE = STREAM_TILES[0]
 
 
@@ -115,12 +114,6 @@ def apart(what, out, uc):
         raise ValueError(f"the {what}'s output shares storage with uc")
 
 
-def aligned(what, *tensors):
-    """Raise unless each tensor starts on a 16-byte boundary (cp.async)."""
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"the {what} kernel needs 16-byte aligned tensors")
-
-
 def stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -134,6 +127,20 @@ def frame(out, outer, inner):
     first = _stream.allocation(out)[2]
     return tuple(v for org, ext in (outer, inner)
                  for v in (*(f + o for f, o in zip(first, org)), *ext))
+
+
+def frame_reference(out, params):
+    """The plain version of the frame kernel: zeros over the frame of the
+    12 ``params`` (``frame``) in the allocation the 3-D view ``out`` lies
+    in (``_stream.whole``)."""
+    alloc = _stream.whole(out)[0]
+    boxes = [tuple(slice(o, o + e) for o, e in zip(params[k:k + 3],
+                                                   params[k + 3:k + 6]))
+             for k in (0, 6)]
+    mask = torch.zeros(alloc.shape, dtype=torch.bool, device=alloc.device)
+    mask[boxes[0]] = True
+    mask[boxes[1]] = False
+    alloc[mask] = 0.0
 
 
 def stream_step(what, rows, n, frame_, x_chunk, tile, device, zeros=True):

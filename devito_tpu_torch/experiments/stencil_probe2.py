@@ -14,8 +14,11 @@ interior from the second step on.
 - A: the interior update written into up (``run_A``, torch-DUS);
 - B: the update over the whole array with ``torch.roll`` taps, times a
   0/1 mask of the interior (``run_B``);
-- C: the loop through K4 (``run_C``, ``csrc/probe2_neighbour_blocks.cu``),
-  rotating three buffers.
+- C: the loop through K4 (``run_C``, ``csrc/probe_tiles_stream.cu``: a
+  point of K1's streaming engine over the interior, uc staged, up and
+  mfull read at the point; a kernel that zeroes everything outside the
+  interior columns, ``_tiled.stream_step``; and one that computes the
+  x-halo rows by the rule above, ``edge_rows``), rotating three buffers.
 
     python -m devito_tpu_torch.experiments.stencil_probe2 [N] [STEPS] [T] [--device cuda|cpu]
 
@@ -33,13 +36,14 @@ import ctypes
 import numpy as np
 import torch
 
-from . import device_for
-from ._tiled import FLOPS, H, W, SMEM, YZ_PLANE, aligned, apart, check, \
-    close, lap, run_interior, stream, timed_run
+from . import _stream, device_for
+from ._tiled import FLOPS, H, W, STREAM_TILE, apart, check, close, frame, \
+    lap, run_interior, stream, stream_step, timed_run
 from ..kernels import _nvcc
 
-__all__ = ['neighbour_blocks_step', 'neighbour_blocks_step_reference',
-           'lap_full', 'run_A', 'run_B', 'run_C', 'inputs', 'main', 'FLOPS']
+__all__ = ['neighbour_blocks_step', 'neighbour_blocks_kernel',
+           'neighbour_blocks_step_reference', 'lap_full', 'run_A', 'run_B',
+           'run_C', 'inputs', 'main', 'FLOPS']
 
 #: K4 kernel launches.
 launches = 0
@@ -58,7 +62,7 @@ def lap_full(u):
 
 def nb_check(what, up, uc, mfull, T, out):
     """The checks of K4 and K5: (NP, NP, ZP) fp32 arrays with ZP >= NP,
-    T >= 4 dividing NP; returns N."""
+    T >= 4 dividing NP, out apart from uc."""
     check(what, (up, uc, mfull) + (() if out is None else (out,)))
     NP, ZP = uc.shape[0], uc.shape[2]
     if NP <= 2 * H or tuple(uc.shape) != (NP, NP, ZP) or ZP < NP or any(
@@ -70,27 +74,83 @@ def nb_check(what, up, uc, mfull, T, out):
         raise ValueError(f"T={T}: the neighbour-block rule needs T >= 4 "
                          f"dividing NP={NP}")
     apart(what, out, uc)
-    return NP - 2 * H
 
 
-def nb_launch(what, symbol, up, uc, mfull, T, out, n):
-    """Launch the neighbour-block kernel ``symbol`` of
-    ``csrc/probe2_neighbour_blocks.cu`` into ``out`` (or a new array);
-    returns it."""
-    ZP = uc.shape[2]
-    aligned(what, uc)
-    if ZP % 4 or (T + 2 * H) * YZ_PLANE * 4 > SMEM:
-        raise ValueError(f"the {what} kernel needs ZP % 4 == 0 and T + 8 "
-                         f"planes in shared memory (T={T}, ZP={ZP})")
-    if out is None:
-        out = torch.empty_like(uc)
-    fn = _nvcc.entry('probe2_neighbour_blocks', symbol,
+def nb_kernel(what, up, uc, mfull, T, out, zeroed, x_chunk, tile, zeros):
+    """K4's (``zeroed`` False) or K5's launches on CUDA tensors that
+    ``nb_check`` has checked: the engine over the interior
+    (``_tiled.stream_step``, each CTA walking ``x_chunk`` x-planes on the
+    engine compiled for ``tile``), with the frame kernel's zeros first
+    unless ``zeros`` is False; then K4's x-halo rows (``edge_rows``), which
+    touch no point of the others'. Returns ``out``."""
+    n = uc.shape[0] - 2 * H
+    stream_step(what, nb_rows(what, up, uc, mfull, out), (n, n, n),
+                nb_frame(out, zeroed), x_chunk, tile, uc.device, zeros)
+    if not zeroed:
+        edge_rows(what, up, uc, mfull, T, out)
+    return out
+
+
+def nb_rows(what, up, uc, mfull, out):
+    """K4's and K5's rows for the engine (``_stream.rows``): out, uc
+    staged, up and mfull, each at the interior's first point (4, 4, 4)."""
+    org = (H, H, H)
+    return _stream.rows(what, (out, org), [(uc, org)],
+                        [(up, org), (mfull, org)])
+
+
+def nb_frame(out, zeroed):
+    """K4's and K5's frame (``_tiled.frame``): the whole (NP, NP, ZP) array
+    less the interior [4, 4+N)^3 (K5, ``zeroed``), or less the interior
+    columns over every x row (K4)."""
+    NP = out.shape[0]
+    n = NP - 2 * H
+    inner = ((H, H, H), (n, n, n)) if zeroed else ((0, H, H), (NP, n, n))
+    return frame(out, ((0, 0, 0), tuple(out.shape)), inner)
+
+
+def edge_rows(what, up, uc, mfull, T, out):
+    """Launch ``csrc/probe_tiles_stream.cu``'s edge-row kernel on CUDA
+    tensors: K4's x-halo rows over the interior columns, into ``out``
+    (``edge_rows_reference`` is its plain version). Raises when the launch
+    fails."""
+    fn = _nvcc.entry('probe_tiles_stream', 'dtpu_probe_edge_rows_launch',
                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                      + [ctypes.c_void_p])
     with torch.cuda.device(uc.device):
         rc = fn(uc.data_ptr(), up.data_ptr(), mfull.data_ptr(),
-                out.data_ptr(), n, ZP, T, stream(uc.device))
-    _nvcc.check_launch(rc, f"{what} kernel")
+                out.data_ptr(), uc.shape[0] - 2 * H, uc.shape[2], T,
+                stream(uc.device))
+    _nvcc.check_launch(rc, f"{what} edge-row kernel")
+
+
+def edge_rows_reference(up, uc, mfull, T, out):
+    """The plain version of the edge-row kernel: K4's x-halo rows 0-3 and
+    NP-4..NP-1 over the interior columns, the x taps from ``x_sources``'
+    rows, then the y and z taps; written into ``out``, which is
+    returned."""
+    NP = uc.shape[0]
+    n = NP - 2 * H
+    srcs = x_sources(NP, T, uc.device)
+    c = slice(H, H + n)
+    for x0 in (0, NP - H):
+        acc = None
+        for w, rows in zip(W, srcs):
+            t = float(w) * uc.index_select(0, rows[x0:x0 + H])[:, c, c]
+            acc = t if acc is None else acc + t
+        acc = lap(uc, (x0, H, H), (H, n, n), axes=(1, 2), out=acc)
+        b = (slice(x0, x0 + H), c, c)
+        out[b] = 2.0 * uc[b] - up[b] + mfull[b] * acc
+    return out
+
+
+def interior_reference(up, uc, mfull, out):
+    """The plain version of the engine on K4's and K5's rows: the update
+    over the interior [4, 4+N)^3, written into ``out``, which is
+    returned."""
+    n = uc.shape[0] - 2 * H
+    b = (slice(H, H + n),) * 3
+    out[b] = 2.0 * uc[b] - up[b] + mfull[b] * lap(uc, (H, H, H), (n, n, n))
     return out
 
 
@@ -131,14 +191,28 @@ def nb_reference(up, uc, mfull, T, zero_x_halo, out=None):
 def neighbour_blocks_step(up, uc, mfull, T=8, out=None):
     """One K4 step: the fresh (NP, NP, ZP) array of the JAX kernel, x-halo
     rows computed by the neighbour-block rule, written into ``out`` (not
-    uc) or a new array, and returned. CUDA tensors go through the kernel;
-    CPU tensors through ``neighbour_blocks_step_reference``."""
-    global launches
-    n = nb_check('neighbour-block step', up, uc, mfull, T, out)
+    uc) or a new array, and returned. CUDA tensors go through the kernels
+    (``neighbour_blocks_kernel``); CPU tensors through
+    ``neighbour_blocks_step_reference``."""
+    nb_check('neighbour-block step', up, uc, mfull, T, out)
     if uc.device.type == 'cpu':
         return neighbour_blocks_step_reference(up, uc, mfull, T, out)
-    out = nb_launch('neighbour-block step', 'dtpu_nb_launch', up, uc, mfull,
-                    T, out, n)
+    if out is None:
+        out = torch.empty_like(uc)
+    return neighbour_blocks_kernel(up, uc, mfull, T, out, _stream.X_CHUNK)
+
+
+def neighbour_blocks_kernel(up, uc, mfull, T, out, x_chunk,
+                            tile=STREAM_TILE, zeros=True):
+    """K4's launches on CUDA tensors that ``neighbour_blocks_step`` has
+    checked (``nb_kernel``): the frame unless ``zeros`` is False, the
+    engine compiled for ``tile``, each CTA walking ``x_chunk`` x-planes,
+    and the x-halo rows (``neighbour_blocks_step`` passes
+    ``_stream.X_CHUNK`` and ``_tiled.STREAM_TILE``; chip_smoke.py sweeps
+    both). Returns ``out``."""
+    global launches
+    nb_kernel('neighbour-block step', up, uc, mfull, T, out, False, x_chunk,
+              tile, zeros)
     launches += 1
     return out
 

@@ -10,8 +10,10 @@ rows written as zero; T >= 4 must divide NP.
 - A: the interior update written into up (``run_A``, torch-DUS);
 - D: the Laplacian as three 1-D convolutions (``run_D``, ``F.conv3d``,
   TF32 off);
-- E: the loop through K5 (``run_E``, ``csrc/probe2_neighbour_blocks.cu``),
-  rotating three buffers.
+- E: the loop through K5 (``run_E``, ``csrc/probe_tiles_stream.cu``: K4's
+  point of K1's streaming engine over the interior, and the frame kernel
+  zeroing everything else, ``stencil_probe2.nb_kernel``), rotating three
+  buffers.
 
     python -m devito_tpu_torch.experiments.stencil_probe3 [N] [STEPS] [T] [--device cuda|cpu]
 
@@ -27,11 +29,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import device_for
-from ._tiled import FLOPS, H, W, close, run_interior, timed_run
-from .stencil_probe2 import nb_check, nb_launch, nb_reference
+from . import _stream, device_for
+from ._tiled import FLOPS, H, STREAM_TILE, W, close, run_interior, timed_run
+from .stencil_probe2 import nb_check, nb_kernel, nb_reference
 
-__all__ = ['neighbour_blocks_zeroed_step',
+__all__ = ['neighbour_blocks_zeroed_step', 'neighbour_blocks_zeroed_kernel',
            'neighbour_blocks_zeroed_step_reference', 'run_A', 'run_D',
            'run_E', 'inputs', 'main', 'FLOPS']
 
@@ -42,14 +44,31 @@ launches = 0
 def neighbour_blocks_zeroed_step(up, uc, mfull, T=8, out=None):
     """One K5 step: the fresh (NP, NP, ZP) array, the interior update and
     zero everywhere else, written into ``out`` (not uc) or a new array, and
-    returned. CUDA tensors go through the kernel; CPU tensors through
+    returned. T, which must divide NP, was the TPU kernel's x-tile; the
+    result does not depend on it, and on the card the tile is the
+    streaming engine's. CUDA tensors go through the kernels
+    (``neighbour_blocks_zeroed_kernel``); CPU tensors through
     ``neighbour_blocks_zeroed_step_reference``."""
-    global launches
-    n = nb_check('zeroed neighbour-block step', up, uc, mfull, T, out)
+    nb_check('zeroed neighbour-block step', up, uc, mfull, T, out)
     if uc.device.type == 'cpu':
         return neighbour_blocks_zeroed_step_reference(up, uc, mfull, T, out)
-    out = nb_launch('zeroed neighbour-block step', 'dtpu_nb_zeroed_launch',
-                    up, uc, mfull, T, out, n)
+    if out is None:
+        out = torch.empty_like(uc)
+    return neighbour_blocks_zeroed_kernel(up, uc, mfull, out,
+                                          _stream.X_CHUNK)
+
+
+def neighbour_blocks_zeroed_kernel(up, uc, mfull, out, x_chunk,
+                                   tile=STREAM_TILE, zeros=True):
+    """K5's launches on CUDA tensors that ``neighbour_blocks_zeroed_step``
+    has checked (``stencil_probe2.nb_kernel``): the frame unless ``zeros``
+    is False, and the engine compiled for ``tile``, each CTA walking
+    ``x_chunk`` x-planes (``neighbour_blocks_zeroed_step`` passes
+    ``_stream.X_CHUNK`` and ``_tiled.STREAM_TILE``; chip_smoke.py sweeps
+    both). Returns ``out``."""
+    global launches
+    nb_kernel('zeroed neighbour-block step', up, uc, mfull, None, out, True,
+              x_chunk, tile, zeros)
     launches += 1
     return out
 

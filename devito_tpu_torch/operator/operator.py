@@ -65,6 +65,17 @@ def _parse_opt(opt):
     return mode
 
 
+def _scalar(sym, v):
+    """The runtime value ``v`` of the scalar symbol ``sym``: a complex
+    rounded to its complex dtype where it has one, else a float, as the
+    reference binds them. A Python complex, not a numpy scalar: torch
+    promotes a real tensor times it to complex."""
+    dt = getattr(sym, 'dtype', None)
+    if dt is not None and np.issubdtype(np.dtype(dt), np.complexfloating):
+        return complex(np.dtype(dt).type(complex(v)))
+    return float(v)
+
+
 class Operator:
     """Compile a list of expressions into a callable time loop.
 
@@ -164,28 +175,63 @@ class Operator:
                 break
 
     def _estimate_flops(self):
+        """Exact flops, points and bytes a step, in all and by section:
+        one section per item of the schedule's body, labelled by its
+        target's name or ``kind:sparse`` (``_sections``)."""
         per_step = points = traffic = static = 0
+        sections = []
         for it in self._schedule.body:
             if isinstance(it, LoweredEq):
-                vol = int(np.prod([b - a for a, b in it.region]))
-                per_step += (estimate_cost(it.rhs)
-                             + (1 if it.increment else 0)) * vol
+                shape = tuple(b - a for a, b in it.region)
+                vol = int(np.prod(shape))
+                c = estimate_cost(it.rhs) + (1 if it.increment else 0)
+                per_step += c * vol
                 points += vol
                 nfuncs = len(retrieve_functions(it.rhs)) + 1
-                traffic += nfuncs * vol * it.target.dtype.itemsize
+                tr = nfuncs * vol * it.target.dtype.itemsize
+                traffic += tr
+                sections.append((it.target.name, c * vol, vol, tr, shape))
             elif isinstance(it, LoweredSparse):
                 npts = it.sparse.npoint or 0
                 corners = it.sparse.interpolator.ncorners(
                     it.sparse.grid.dim if it.sparse.grid else 2)
-                per_step += (estimate_cost(it.expr) + 2) * npts * corners
+                fl = (estimate_cost(it.expr) + 2) * npts * corners
+                per_step += fl
+                sections.append((f'{it.kind}:{it.sparse.name}', fl, npts, 0,
+                                 (npts,)))
         for it in self._schedule.prologue + self._schedule.epilogue:
             if isinstance(it, LoweredEq):
                 vol = int(np.prod([b - a for a, b in it.region]))
                 static += estimate_cost(it.rhs) * vol
+        self._sections = sections
         self._flops_per_step = per_step
         self._points_per_step = points
         self._traffic_per_step = traffic
         self._static_flops = static
+
+    def _add_sections(self, summary, elapsed, nsteps):
+        """One entry of ``summary`` a section (``section0``, ``section1``,
+        ... in schedule order), with its exact flops, points and bytes over
+        ``nsteps`` steps and its label in ``summary.labels``. The loop is
+        timed as a whole, so its ``elapsed`` seconds are shared out by
+        each section's flops + bytes; the times sum to ``elapsed``. An
+        operator with no body item gets one ``section0`` of its totals."""
+        if not self._sections:
+            summary.add('section0', elapsed,
+                        flops=self._flops_per_step * nsteps,
+                        points=self._points_per_step * nsteps,
+                        traffic=self._traffic_per_step * nsteps)
+            return
+        weights = [fl + tr for _, fl, _, tr, _ in self._sections]
+        total = sum(weights)
+        for i, ((label, fl, pts, tr, shape), w) in enumerate(
+                zip(self._sections, weights)):
+            name = f'section{i}'
+            share = w / total if total else 1 / len(weights)
+            summary.add(name, elapsed * share, flops=fl * nsteps,
+                        points=pts * nsteps, traffic=tr * nsteps,
+                        itershapes=(shape,))
+            summary.labels[name] = label
 
     # -- public introspection ---------------------------------------------
 
@@ -363,13 +409,13 @@ class Operator:
                 params[s.name] = float(v)
         for name, s in self._symbols.items():
             if isinstance(s, Constant):
-                params[name] = float(s.value)
+                params[name] = _scalar(s, s.value)
         for name in self._symbols:
             if name in kwargs:
                 v = kwargs.pop(name)
                 if isinstance(v, Constant):
                     v = v.value
-                params[name] = float(v)
+                params[name] = _scalar(self._symbols[name], v)
             elif name not in params:
                 raise InvalidArgument(f"Missing runtime value for `{name}`")
         # dt / spacing overrides are accepted even when folded out of
@@ -447,8 +493,7 @@ class Operator:
         traffic = self._traffic_per_step * nsteps
         summary = PerformanceSummary(
             device=torch.cuda.get_device_name(device) if on_cuda else 'cpu')
-        summary.add('section0', elapsed, flops=flops, points=points,
-                    traffic=traffic)
+        self._add_sections(summary, elapsed, nsteps)
         summary.add_glb(elapsed, flops=flops, points=points, traffic=traffic)
         g = summary.globals['fdlike']
         log_perf(f"Operator `{self._name}` ran in {elapsed:.4f} s on "

@@ -162,11 +162,11 @@ def test_probe7_phase_runs_on_the_cpu():
 
 def test_probe_phases_6_and_7_run_on_the_cpu():
     """Phases 6 and 7 at tiny sizes on the CPU, where every probe runs its
-    plain version: no kernel launches; K9's, K3's, K6's and K7's records
-    get their x-chunk (no sweep and no CTAs per SM off the card), K6's and
+    plain version: no kernel launches; K9's, K3's, K4's to K7's records
+    get their x-chunk (no sweep and no CTAs per SM off the card), K4's to
     K7's also their tile and frame bytes (no times of the frame or without
-    it off the card), and K3 and K6 into up's interior are held bit-equal
-    to K3 and K6 into a new tensor."""
+    it off the card), K3 and K6 into up's interior are held bit-equal to
+    K3 and K6 into a new tensor, and K4 and K5 into up itself likewise."""
     from devito_tpu_torch.experiments import _tiled as T
     from devito_tpu_torch import switchconfig
     from devito_tpu_torch.experiments import _stream as S
@@ -207,3 +207,17 @@ def test_probe_phases_6_and_7_run_on_the_cpu():
             'frame_library_device_ms', 'frame_fill_device_ms'))
         assert rec['frame_bytes'] == 4 * frame and rec['launches'] == 0
     assert by['tiles_step']['in_place_bit_equal']
+    for name, frame in (('neighbour_blocks_step', 24 * 24 * 128 - 24 * 256),
+                        ('neighbour_blocks_zeroed_step',
+                         24 * 24 * 128 - 16 ** 3)):
+        rec = by[name]
+        assert rec['x_chunk'] == S.X_CHUNK and rec['x_chunk_sweep'] == [] \
+            and rec['tile'] == list(T.STREAM_TILE) \
+            and rec['tile_sweep'] == [] and rec['out_up_bit_equal']
+        assert rec['ctas_per_sm'] is None and rec['max_abs_err'] == 0.0
+        assert all(rec[k] is None for k in (
+            'ms_interior', 'frame_device_ms', 'engine_device_ms',
+            'frame_library_device_ms', 'frame_fill_device_ms'))
+        assert rec['frame_bytes'] == 4 * frame and rec['launches'] == 0
+    assert by['neighbour_blocks_step']['edge_device_ms'] is None
+    assert by['neighbour_blocks_step']['edge_rows_t'] == 8

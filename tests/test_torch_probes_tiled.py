@@ -1,8 +1,9 @@
 """K3 (devito_tpu_torch/experiments/stencil_probe.py), K4 (stencil_probe2),
 K5 (stencil_probe3), K6 (stencil_probe4) and K7 (stencil_probe5) against
 the TPU kernels they port, which run here in Pallas interpret mode; and
-the rows, frames and tiles with which K6 and K7 launch K1's streaming
-engine.
+the rows, frames and tiles with which K4, K5, K6 and K7 launch K1's
+streaming engine, and K4's x-halo rows and the split of its and K5's step
+into frame, edge rows and interior through plain functions.
 
 The JAX scripts read their sizes from the environment when they are
 imported, so each test sets them with ``monkeypatch.setenv`` and imports
@@ -351,6 +352,92 @@ def test_neighbour_blocks_zeroed_variants_match_jax(jax_probe, interpret):
     got = P3.run_D(*_t(up, uc, m), 3)
     for g, w in zip(got, want):
         _close(g.numpy(), w)
+
+
+# -- K4 and K5 on K1's streaming engine -----------------------------------------
+
+def _nb_case(N, seed, into):
+    """K4's and K5's inputs at N, and their out: a new NaN-filled tensor
+    (``into`` 'new') or up itself ('up')."""
+    up, uc, mf = _t(*_nb_inputs(N, seed))
+    out = up if into == 'up' else torch.full_like(up, float('nan'))
+    return up, uc, mf, out
+
+
+@pytest.mark.parametrize('into', ['new', 'up'])
+@pytest.mark.parametrize('zeroed', [False, True])
+def test_neighbour_blocks_rows(zeroed, into):
+    """K4's and K5's rows for the streaming engine: out, uc staged, up and
+    mfull, each a whole (NP, NP, ZP) allocation at (4, 4, 4); out may be up
+    itself."""
+    up, uc, mf, out = _nb_case(12, 5, into)
+    ptrs, dims, org = P2.nb_rows('k', up, uc, mf, out)
+    assert list(ptrs) == [out.data_ptr(), uc.data_ptr(), up.data_ptr(),
+                          mf.data_ptr()]
+    assert (ptrs[0] == ptrs[2]) == (into == 'up')
+    assert list(dims) == [20, 20, 128] * 4 and list(org) == [4, 4, 4] * 4
+
+
+@pytest.mark.parametrize('into', ['new', 'up'])
+@pytest.mark.parametrize('zeroed', [False, True])
+@pytest.mark.parametrize('N', [12, 16, 20])
+def test_neighbour_blocks_frame_matches_the_plain_zeros(N, zeroed, into):
+    """K4's and K5's 12 frame parameters, as the kernel gets them: the whole
+    array less the interior columns (K4) or the interior (K5). Into a new
+    tensor, the frame and the region the plain version writes (with K4's
+    x-halo rows) cover exactly its zeros and its update; into up, the
+    frame's points are never read, so up with NaN there gives the step
+    into a new tensor."""
+    up, uc, mf, out = _nb_case(N, N, into)
+    NP, T = N + 2 * H, 4
+    params = P2.nb_frame(out, zeroed)
+    lo = 0 if not zeroed else H
+    assert list(params) == [0, 0, 0, NP, NP, 128,
+                            lo, H, H, NP - 2 * lo, N, N]
+    frame = _frame_mask(out.shape, params)
+    region = _box_mask(out.shape, (lo, H, H), (NP - 2 * lo, N, N))
+    assert not (frame & region).any() and (frame | region).all()
+    ref = P2.nb_reference(up, uc, mf, T, zeroed)
+    if into == 'new':
+        P2.nb_reference(up, uc, mf, T, zeroed, out)
+        assert torch.equal(out == 0, frame) and torch.equal(out, ref)
+        return
+    up[frame] = float('nan')
+    assert torch.equal(P2.nb_reference(up, uc, mf, T, zeroed, out=up), ref)
+
+
+@pytest.mark.parametrize('N,T', [(20, 4), (28, 9), (40, 8), (16, 24)])
+def test_edge_rows_reference_matches_nb_reference(N, T):
+    """The edge-row kernel's plain version gives K4's x-halo rows 0-3 and
+    NP-4..NP-1 over the interior columns, and writes nothing else; T = NP
+    (one tile, both wraps in it) included."""
+    up, uc, mf, out = _nb_case(N, N + T, 'new')
+    want = P2.neighbour_blocks_step_reference(up, uc, mf, T)
+    assert P2.edge_rows_reference(up, uc, mf, T, out) is out
+    c = slice(H, H + N)
+    for rows in (slice(0, H), slice(N + H, None)):
+        _close(out[rows, c, c].numpy(), want[rows, c, c].numpy())
+        out[rows, c, c] = float('nan')
+    assert out.isnan().all()
+
+
+@pytest.mark.parametrize('into', ['new', 'up'])
+@pytest.mark.parametrize('zeroed', [False, True])
+@pytest.mark.parametrize('N,T', [(20, 4), (28, 9), (40, 8)])
+def test_neighbour_blocks_split_matches_nb_reference(N, T, zeroed, into):
+    """The card's split through plain functions: the frame's zeros, K4's
+    edge rows and the engine's update of the interior, in the card's
+    order, into a NaN-filled tensor or into up, give K4's and K5's plain
+    step over the whole array."""
+    up, uc, mf, out = _nb_case(N, 2 * N + T, into)
+    want = P2.nb_reference(up, uc, mf, T, zeroed)
+    from devito_tpu_torch.experiments._tiled import frame_reference
+    frame_reference(out, P2.nb_frame(out, zeroed))
+    if not zeroed:
+        P2.edge_rows_reference(up, uc, mf, T, out)
+    P2.interior_reference(up, uc, mf, out)
+    assert not out.isnan().any()
+    _close(out.numpy(), want.numpy())
 
 
 # -- K6 ------------------------------------------------------------------------
@@ -812,6 +899,51 @@ def test_neighbour_blocks_kernels_on_card(card, N, T, zeroed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('zeroed', [False, True])
+@pytest.mark.parametrize('N,T', [(37, 5), (40, 8), (100, 9)])
+def test_neighbour_blocks_in_place_on_card(card, N, T, zeroed):
+    """K4 and K5 into up itself are bit-equal to K4 and K5 into a new
+    tensor (the frame zeroes only points the engine never uses; the edge
+    rows read up only at the point they write), where N % 4 != 0 or N is
+    not a multiple of the tile; each x-chunk and tile is bit-equal too."""
+    up, uc, mf = _on(card, _nb_inputs(N, N + T))
+    if zeroed:
+        step, ref = P3.neighbour_blocks_zeroed_step, \
+            P3.neighbour_blocks_zeroed_step_reference
+        kernel = lambda out, xc, tile: \
+            P3.neighbour_blocks_zeroed_kernel(up, uc, mf, out, xc, tile)  # noqa
+    else:
+        step, ref = P2.neighbour_blocks_step, \
+            P2.neighbour_blocks_step_reference
+        kernel = lambda out, xc, tile: P2.neighbour_blocks_kernel(  # noqa
+            up, uc, mf, T, out, xc, tile)
+    new = step(up, uc, mf, T)
+    _card_close(new, ref(up, uc, mf, T))
+    inplace = up.clone()
+    step(inplace, uc, mf, T, out=inplace)
+    torch.cuda.synchronize()
+    assert torch.equal(inplace, new)
+    for xc, tile in _candidates():
+        out = torch.full_like(up, float('nan'))
+        assert torch.equal(kernel(out, xc, tile), new), (xc, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('N,T', [(20, 4), (28, 9), (40, 8), (16, 24)])
+def test_edge_rows_kernel_on_card(card, N, T):
+    """The edge-row kernel alone writes K4's x-halo rows over the interior
+    columns of a NaN-filled output, and nothing else, within the tolerance
+    of its plain version (T = NP included)."""
+    up, uc, mf = _on(card, _nb_inputs(N, N * T + 2))
+    out = torch.full_like(up, float('nan'))
+    want = P2.edge_rows_reference(up, uc, mf, T, out.clone())
+    P2.edge_rows('k', up, uc, mf, T, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out.isnan(), want.isnan())
+    _card_close(out.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('N,TX,TY', [(40, 16, 32), (36, 8, 8), (48, 16, 16),
                                      (37, 16, 32), (45, 8, 8)])
 def test_tiles_kernel_on_card(card, N, TX, TY):
@@ -889,13 +1021,39 @@ def test_xtiles_candidates_on_card(card, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('N', [37, 45, 48])
-@pytest.mark.parametrize('kernel', ['K6', 'K7'])
+@pytest.mark.parametrize('kernel', ['K4', 'K5', 'K6', 'K7'])
 def test_stream_frame_on_card(card, kernel, N):
-    """The engine alone writes its update on exactly the region of a
-    NaN-filled output, and the frame kernel before it 0 on exactly the
-    frame, where the frame's rows end off a 16-byte boundary
+    """The engine alone (with K4's edge rows) writes its update on exactly
+    the region of a NaN-filled output, and the frame kernel before it 0 on
+    exactly the frame, where the frame's rows end off a 16-byte boundary
     (N % 4 != 0)."""
     from devito_tpu_torch.experiments._stream import X_CHUNK
+    if kernel in ('K4', 'K5'):
+        zeroed, T = kernel == 'K5', N + 8
+        up, uc, mf = _on(card, _nb_inputs(N, N))
+        alloc = out = torch.full_like(up, float('nan'))
+        if zeroed:
+            run = lambda zeros: P3.neighbour_blocks_zeroed_kernel(  # noqa
+                up, uc, mf, out, X_CHUNK, P3.STREAM_TILE, zeros)
+        else:
+            run = lambda zeros: P2.neighbour_blocks_kernel(  # noqa
+                up, uc, mf, T, out, X_CHUNK, P2.STREAM_TILE, zeros)
+        params = P2.nb_frame(out, zeroed)
+        lo = H if zeroed else 0
+        region = _box_mask(alloc.shape, (lo, H, H),
+                           (N + 2 * (H - lo), N, N)).to(card)
+        frame = _frame_mask(alloc.shape, params).to(card)
+        want = P2.nb_reference(up, uc, mf, T, zeroed)
+        run(False)
+        torch.cuda.synchronize()
+        assert torch.equal(~alloc.isnan(), region)
+        alloc.fill_(float('nan'))
+        run(True)
+        torch.cuda.synchronize()
+        assert torch.equal(alloc == 0, frame)
+        assert not alloc.isnan().any()
+        _card_close(out, want)
+        return
     if kernel == 'K6':
         u0, u1, m_i = _on(card, _tiles_inputs(N, N))
         alloc = torch.full(u0.shape, float('nan'), device=card)
@@ -926,9 +1084,9 @@ def test_stream_frame_on_card(card, kernel, N):
 
 @pytest.mark.cuda
 def test_tiles_stream_builds_clean_on_card(card):
-    """K6's and K7's unit builds without spills (when ptxas ran in this
-    process) and the CUDA runtime fits two or more CTAs of each tile's
-    kernel on an SM."""
+    """K4's to K7's unit, with its frame and edge-row kernels, builds
+    without spills (when ptxas ran in this process) and the CUDA runtime
+    fits two or more CTAs of each tile's kernel on an SM."""
     from devito_tpu_torch.experiments import _stream as S
     from devito_tpu_torch.experiments import _tiled as T
     from devito_tpu_torch.kernels import _nvcc
@@ -937,6 +1095,7 @@ def test_tiles_stream_builds_clean_on_card(card):
     if log is not None:
         assert 'bytes spill' in log and not re.search(
             r'[1-9]\d* bytes spill', log), log
+        assert 'edge_rows_kernel' in log and 'frame_kernel' in log
     for i, _ in enumerate(T.STREAM_TILES):
         assert S.occupancy('probe_tiles_stream', 2 * i) >= 2
 
