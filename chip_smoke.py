@@ -5,7 +5,13 @@
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. Build: nvcc builds every stencil kernel the phases below need.
-3. K1, the stencil kernel, against its plain PyTorch version on the card:
+3. K2, the self-test (TMA boxes through a two-slot mbarrier ring), bit-
+   equal to its plain version on random input and on ones, new and into
+   an out tensor, one launch counted a call; its host microseconds a call
+   and device microseconds a launch (torch.profiler) beside K12's empty
+   grid of 2 CTAs into out, and validate_backend's wall time as the first
+   call of a fresh process. Then
+   K1, the stencil kernel, against its plain PyTorch version on the card:
    one update per case (2-D diffusion on the point design; 3-D damped
    acoustic at SO=2/4/8, a ragged grid and an x not divisible by the
    tile's x-chunk on the streaming design, each also against the point
@@ -64,7 +70,13 @@
    written rows equal to the plain version's to the bit, beside
    torch.add. K12 is timed a call into an out tensor beside out.fill_,
    allocating beside torch.full, through its bare ctypes entry, and
-   replayed from a CUDA graph beside fill_ replayed.
+   replayed from a CUDA graph beside fill_ replayed. K11 at N=512, t0 16,
+   32 reps: every tile (TY, ROWS) of resident_tiles held against its
+   plain version on the varied field, then timed ([resident-sweep]); the
+   pick at twice the reps (fill and launch) and by taps; __fdividef
+   against IEEE division for every taps x fill set
+   ([resident-division]); and the pick's issue floor from the SASS of its
+   repetition loop and its shared-memory floor ([resident-floor]).
 9. The inverse problem on phase 5's solver (512^3 + nbl 10, SO=8, fp32,
    412 steps), each entry point with K1's counts at 0 just before it and
    read just after: (a) AcousticWaveSolver.adjoint of the forward shot's
@@ -513,6 +525,7 @@ def _smoke(device, sizes):
     from devito_tpu_torch import Function, switchconfig
     from devito_tpu_torch.compiler.executor import plan_rows
     from devito_tpu_torch.kernels import stencil as K, _nvcc
+    from devito_tpu_torch.experiments import stencil_probe7 as P7
     from concurrent.futures import ThreadPoolExecutor
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -589,33 +602,56 @@ def _smoke(device, sizes):
             f"kernel (stream): " + ptxas(K.build_log.get(hplan.key, ''))
             + "; point design: " + ptxas(K.build_log.get(
                 points[id(hplan)].key, '')))
+        entries = {'probe7_resident': resident_entry(
+            P7.resident_tile(16)[0], 'full')}
         for name in FIXED:
-            log(f"[build] {name}: "
-                + ptxas(K.build_log.get(_nvcc.fixed_key(name), '')))
+            log(f"[build] {name}: " + ptxas(K.build_log.get(
+                _nvcc.fixed_key(name), ''), entries.get(name, '')))
         for rec, (_, src, _, entry) in zip(records, KERNELS):
             unit = Path(src).stem
             key = hplan.key if unit == 'stencil_stream' \
                 else _nvcc.fixed_key(unit)
-            rec['ptxas'] = ptxas(K.build_log.get(key, ''), entry)
+            rec['ptxas'] = ptxas(K.build_log.get(key, ''),
+                                 entries.get(unit, entry))
     K.validate_backend(device)
     log(f"[selftest] K2 passed on {device} (self-tests run: {K.selftests})")
 
     # -- 3. K1 and K2 against their plain versions -------------------------
     x = torch.randn(K.SELFTEST_SHAPE, generator=gen, device=device)
-    got = K.selftest_window_sum(x)
-    want = K.selftest_window_sum_reference(x)
+    ones = torch.ones(K.SELFTEST_SHAPE, device=device)
+    k2_out = torch.empty(K.SELFTEST_OUT, device=device)
+    for inp in (x, ones):
+        before = K.selftest_launches
+        want = K.selftest_window_sum_reference(inp)
+        got = K.selftest_window_sum(inp)
+        into = K.selftest_window_sum(inp, k2_out)
+        if not (torch.equal(got, want) and into is k2_out and
+                torch.equal(k2_out, want)) or \
+                K.selftest_launches - before != 2 * (device.type == 'cuda'):
+            raise AssertionError("self-test kernel disagrees with its plain "
+                                 "version, new or into out, or did not "
+                                 "count one launch a call")
     err = (got - want).abs().max().item()
-    if not err <= TOL[np.float32] * want.abs().max().item():
-        raise AssertionError(f"self-test kernel disagrees: {err:.3e}")
     selftest.update(
         max_abs_err=err,
-        ms=time_ms(lambda: K.selftest_window_sum(x), sizes['reps'], device),
+        ms=time_ms(lambda: K.selftest_window_sum(x, k2_out), sizes['reps'],
+                   device),
         plain_ms=time_ms(lambda: K.selftest_window_sum_reference(x),
-                         sizes['reps'], device))
+                         sizes['reps'], device),
+        **selftest_calls(K, x, k2_out, device))
     set_bound(selftest, 4 * (x.numel() + got.numel()), got.numel())
-    log(f"[kernel] K2 self-test on random input: max|kernel - plain| "
-        f"{err:.3e}; {selftest['ms']:.4f} ms, plain "
+    log(f"[kernel] K2 self-test (TMA boxes, two-slot mbarrier ring) on "
+        f"random input and on ones, new and into out: bit-equal to its "
+        f"plain version; {selftest['ms']:.4f} ms into out, plain "
         f"{selftest['plain_ms']:.4f} ms")
+    log(f"[selftest] K2 host us a call: into out {selftest['host_us']:.2f}, "
+        f"allocating {selftest['host_us_alloc']:.2f}; K12 empty grid of 2 "
+        f"CTAs into out {selftest['k12_host_us']:.2f}; device us of one "
+        f"launch (torch.profiler): K2 {selftest['device_us']:.2f}, K12 "
+        f"{selftest['k12_device_us']:.2f}; validate_backend as the first "
+        f"call of a fresh process: "
+        + (f"{selftest['first_call_ms']:.2f} ms"
+           if selftest['first_call_ms'] is not None else 'not measured'))
     errs, vs_point = [], []
     for lab, plan in cases:
         err, tol, diff = compare_once(plan, device, gen, points.get(id(plan)))
@@ -887,6 +923,57 @@ def _smoke(device, sizes):
             raise AssertionError(f"kernel record {rec['name']} lacks "
                                  f"{missing}")
     return kind, records
+
+
+#: A fresh process with a CUDA context and a first torch kernel run:
+#: validate_backend's wall time as the first self-test of the process (the
+#: library built already).
+FIRST_CALL = """
+import json, time, torch
+torch.ones(1, device='cuda')
+torch.cuda.synchronize()
+from devito_tpu_torch.kernels import stencil as K
+tic = time.perf_counter()
+K.validate_backend('cuda')
+torch.cuda.synchronize()
+print(json.dumps({'ms': (time.perf_counter() - tic) * 1e3}))
+"""
+
+
+def device_us(fn, device, calls=20):
+    """Device microseconds of one call of ``fn`` under torch.profiler: the
+    device events of ``calls`` calls, over ``calls``."""
+    rows = profiled(lambda: [fn() for _ in range(calls)], device)
+    return sum(ms for _, ms, _ in rows) * 1e3 / calls
+
+
+def selftest_calls(K, x, out, device):
+    """K2's host microseconds a call into ``out`` and allocating, beside
+    K12's empty grid of 2 CTAs into an (8, 128) tensor, the device
+    microseconds of one launch of each under torch.profiler, and (on the
+    card) validate_backend's wall ms as the first call of a fresh
+    process."""
+    from devito_tpu_torch.experiments import stencil_probe7 as P7
+    e = torch.empty(P7.OUT, device=device)
+    res = dict(
+        host_us=host_us_per_call(lambda: K.selftest_window_sum(x, out),
+                                 device, 200),
+        host_us_alloc=host_us_per_call(lambda: K.selftest_window_sum(x),
+                                       device, 200),
+        k12_host_us=host_us_per_call(lambda: P7.empty_grid(2, device, e),
+                                     device, 200),
+        device_us=device_us(lambda: K.selftest_window_sum(x, out), device),
+        k12_device_us=device_us(lambda: P7.empty_grid(2, device, e), device),
+        first_call_ms=None)
+    if device.type == 'cuda':
+        run = subprocess.run(
+            [sys.executable, '-c', FIRST_CALL], capture_output=True,
+            text=True, timeout=300, cwd=Path(__file__).resolve().parent)
+        if run.returncode:
+            raise AssertionError(f"validate_backend in a fresh process: "
+                                 f"{run.stderr[-2000:]}")
+        res['first_call_ms'] = json.loads(run.stdout.splitlines()[-1])['ms']
+    return res
 
 
 def ptxas(log_text, entry=''):
@@ -1726,11 +1813,7 @@ def probe7(device, sizes, gen, records, ceiling):
         if last:
             stream_sweep(P7, src, device, reps, ceiling, k13, k14)
             copy_sweep(P7, src, device, reps, ceiling, k10)
-            k11.update(ms_2x_reps=time_ms(lambda: P7.resident_step(
-                16, 2 * N // 16, 'full', P7.FILLS, N, device), reps, device),
-                ms_by_taps={t: time_ms(lambda t=t: P7.resident_step(
-                    16, N // 16, t, P7.FILLS, N, device), reps, device)
-                    for t in P7.TAPS})
+            resident_probe(P7, device, N, reps, k11, k11_sets)
         del src, out, got
         if device.type == 'cuda':
             torch.cuda.empty_cache()
@@ -1773,9 +1856,7 @@ def probe7(device, sizes, gen, records, ceiling):
             f"{rec['plain_ms']:.4f} ms; library "
             + (f"{rec['library_ms']:.4f} ms ({rec['library_call']})"
                if rec['library_ms'] is not None else 'none'))
-    log(f"[probe7] K11 at N={N}: full {k11['ms']:.4f} ms, twice the reps "
-        f"{k11['ms_2x_reps']:.4f} ms; by taps " + ', '.join(
-            f"{k} {v:.4f}" for k, v in k11['ms_by_taps'].items()))
+    log_resident(k11, N)
     us = k12['us_per_call']
     log(f"[probe7] K12 16 CTAs, us a call over {P7.LOOP}: into out "
         f"{us['out']:.2f} against out.fill_ {us['fill_']:.2f}; allocating "
@@ -1784,6 +1865,188 @@ def probe7(device, sizes, gen, records, ceiling):
         + (f"; bare ctypes {us['ctypes']:.2f}; replayed from a CUDA graph "
            f"{us['graph']:.3f} a launch against fill_ replayed "
            f"{us['graph fill_']:.3f}" if 'graph' in us else ''))
+
+
+def resident_entry(tile, taps, fast=False):
+    """The part of the mangled name of K11's instantiation for ``tile``
+    (TY, ROWS) and ``taps`` that picks its ptxas report and its SASS."""
+    from devito_tpu_torch.experiments import stencil_probe7 as P7
+    return (f"resident_kernelILi{P7.TAPS.index(taps)}ELi{tile[1]}"
+            f"ELb{int(fast)}E")
+
+
+def resident_words(tile, t0, taps):
+    """Shared words K11 loads a point on ``tile``: 'full' two z strips of
+    4 (2 words a point), 8 y rows, (ROWS + 8) / ROWS x rows into the queue
+    and u1, vp, damp; 'z' the strips, the centre and the three; 'none' the
+    centre and the three."""
+    rows = tile[1] or t0
+    return {'full': 2 + 8 + (rows + 8) / rows + 3, 'z': 6, 'none': 4}[taps]
+
+
+def sass_loop(so, entry):
+    """(SASS instructions, of them issued when no division takes its slow
+    path, 16-byte shared loads) of the repetition loop of the kernel whose
+    mangled name holds ``entry`` in the library ``so``: the longest span
+    that a backward branch closes, from ``cuobjdump -sass``, less the
+    ranges that a conditional forward branch skips over a CALL (an IEEE
+    division's slow path); None where cuobjdump is missing or finds no
+    such loop."""
+    import re
+    import shutil
+    exe = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    if not Path(exe).exists():
+        return None
+    out = subprocess.run([exe, '-sass', str(so)], capture_output=True,
+                         text=True, timeout=300).stdout
+    body = next((f for f in re.split(r'\n\s*Function : ', out)[1:]
+                 if entry in f.split('\n', 1)[0]), '')
+    ins = [(int(a, 16), op.strip()) for a, op in
+           re.findall(r'/\*([0-9a-f]{4,})\*/\s+([^;]*);', body)]
+    spans = [(int(t, 16), a) for a, op in ins for t in
+             re.findall(r'\bBRA(?:\.\w+)*\s+(0x[0-9a-f]+)', op)]
+    back = [(t, a) for t, a in spans if t < a]
+    if not back:
+        return None
+    t, a = max(back, key=lambda s: s[1] - s[0])
+    loop = [(at, op) for at, op in ins if t <= at <= a]
+    skipped = set()
+    for at, op in loop:
+        m = re.match(r'@!?P\w+\s+BRA(?:\.\w+)*\s+(0x[0-9a-f]+)', op)
+        if m and int(m.group(1), 16) > at:
+            over = [x for x in loop if at < x[0] < int(m.group(1), 16)]
+            if any(o.startswith('CALL') for _, o in over):
+                skipped.update(x for x, _ in over)
+    loads = sum('LDS.128' in op for _, op in loop)
+    return len(loop), len(loop) - len(skipped), loads
+
+
+def clock_hz():
+    """The card's maximum SM clock (nvidia-smi), in Hz."""
+    return 1e6 * float(subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm',
+         '--format=csv,noheader,nounits'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+
+
+def resident_probe(P7, device, N, reps, k11, sets):
+    """K11 at phase 8's last N, t0 16, N / 16 reps: every tile of
+    ``resident_tiles`` held against its plain version on P7.VARIED, then
+    timed at 'full' (the sweep); the pick at twice the reps and by taps;
+    the division ablation (``__fdividef`` within the tolerance for every
+    taps x fill set, and timed beside IEEE division); the pick's ptxas,
+    CTAs per SM and shared bytes; and two floors of the pick at 'full':
+    issue (the SASS instructions of its repetition loop a point over the
+    card's 128 thread-instructions a clock an SM) and shared memory (the
+    words it loads a point over 32 a clock an SM), both at the maximum SM
+    clock -- diagnostics beside the bound, which they do not replace."""
+    from devito_tpu_torch.kernels import _nvcc
+    t0, r = 16, N // 16
+    on_card = device.type == 'cuda'
+    fills, vary = P7.VARIED
+    pick = P7.resident_tile(t0)
+    log_text = _nvcc.build_log.get(_nvcc.fixed_key('probe7_resident'), '') \
+        if on_card else ''
+    sweep = []
+    for tile, smem, threads, _, _ in P7.resident_tiles(t0):
+        err = check_close(
+            f"K11 at N={N} tile {tile}",
+            P7.resident_step(t0, r, 'full', fills, N, device, vary, tile),
+            P7.resident_step_reference(t0, r, 'full', fills, N, device,
+                                       vary))
+        ms = time_ms(lambda tile=tile: P7.resident_step(
+            t0, r, 'full', P7.FILLS, N, device, tile=tile), reps, device)
+        ctas = P7.resident_occupancy(t0, 'full', tile, device=device) \
+            if on_card else None
+        sweep.append(dict(
+            tile=tile, kind=P7.resident_instantiation(tile), ms=ms, err=err,
+            threads=threads, smem_bytes=smem, ctas_per_sm=ctas,
+            warps_per_sm=ctas * threads // 32 if ctas else None,
+            words=resident_words(tile, t0, 'full'),
+            ptxas=ptxas(log_text, resident_entry(tile, 'full'))))
+    division = {}
+    for taps in P7.TAPS:
+        errs = []
+        for f, v in sets:
+            got = P7.resident_step(t0, r, taps, f, N, device, v,
+                                   fast_div=True)
+            want = P7.resident_step_reference(t0, r, taps, f, N, device, v)
+            errs.append(((got - want).abs().max().item(),
+                         P7.TOL * want.abs().max().item()))
+        division[taps] = dict(
+            max_err=max(e for e, _ in errs),
+            within_tol=all(e <= tol for e, tol in errs),
+            ms=time_ms(lambda taps=taps: P7.resident_step(
+                t0, r, taps, P7.FILLS, N, device), reps, device),
+            fast_ms=time_ms(lambda taps=taps: P7.resident_step(
+                t0, r, taps, P7.FILLS, N, device, fast_div=True), reps,
+                device))
+    pts = t0 * N * N * r
+    k11.update(
+        tile=pick[0], kind=P7.resident_instantiation(pick[0]),
+        threads=pick[2], smem_bytes=pick[1], sweep=sweep, division=division,
+        ms_2x_reps=time_ms(lambda: P7.resident_step(
+            t0, 2 * r, 'full', P7.FILLS, N, device), reps, device),
+        ms_by_taps={t: division[t]['ms'] for t in P7.TAPS},
+        ctas_per_sm=P7.resident_occupancy(t0, 'full', device=device)
+        if on_card else None,
+        ptxas=ptxas(log_text, resident_entry(pick[0], 'full')),
+        words=resident_words(pick[0], t0, 'full'), points=pts)
+    k11['fixed_ms'] = 2 * k11['ms'] - k11['ms_2x_reps']
+    if on_card:
+        so = _nvcc._BUILD / (f"probe7_resident_"
+                             f"{_nvcc.fixed_key('probe7_resident')}.so")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        hz = clock_hz()
+        loop, issued, loads = sass_loop(
+            so, resident_entry(pick[0], 'full')) or (None, None, None)
+        rows = pick[0][1] or t0
+        pts_loop = rows * 4
+        # a repetition primes the queue (8 rows) and loads 14 a row: the
+        # new queue row, two z strips, 8 y rows, u1, vp and damp
+        if loop and loads != 8 + 14 * rows:
+            raise AssertionError(f"K11's repetition loop holds {loads} "
+                                 f"shared loads, not {8 + 14 * rows}: one "
+                                 f"left the loop")
+        k11.update(sass_loop=loop, sass_issued=issued, sass_loads=loads,
+                   clock_hz=hz, sms=sms,
+                   sass_per_point=issued / pts_loop if loop else None)
+        k11['issue_floor_ms'] = issued / pts_loop * pts / (
+            sms * 128 * hz) * 1e3 if loop else None
+        k11['smem_floor_ms'] = k11['words'] * pts / (sms * 32 * hz) * 1e3
+
+
+def log_resident(k11, N):
+    """The [probe7] lines of K11's probe (``resident_probe``)."""
+    fl = k11.get('issue_floor_ms')
+    log(f"[probe7] K11 at N={N}: full {k11['ms']:.4f} ms on tile "
+        f"{k11['tile']} (TY, ROWS; {k11['kind']}), {k11['threads']} "
+        f"threads, {k11['smem_bytes']} B shared, {k11['ctas_per_sm']} "
+        f"CTAs/SM; {k11['ptxas']}; twice the reps {k11['ms_2x_reps']:.4f} "
+        f"ms, so fill and launch {k11['fixed_ms']:.4f} ms; by taps "
+        + ', '.join(f"{k} {v:.4f}" for k, v in k11['ms_by_taps'].items()))
+    for row in k11['sweep']:
+        log(f"[resident-sweep] tile {row['tile']} ({row['kind']}): "
+            f"{row['ms']:.4f} ms, {row['threads']} threads, "
+            f"{row['smem_bytes']} B, {row['ctas_per_sm']} CTAs/SM = "
+            f"{row['warps_per_sm']} warps/SM, {row['words']:.2f} shared "
+            f"words/pt, max|kernel - plain| {row['err']:.2e} (varied); "
+            f"{row['ptxas']}")
+    for taps, d in k11['division'].items():
+        log(f"[resident-division] {taps}: IEEE {d['ms']:.4f} ms, "
+            f"__fdividef {d['fast_ms']:.4f} ms; __fdividef max|kernel - "
+            f"plain| {d['max_err']:.2e} over 3 fill sets, within "
+            f"1e-5 x max|plain|: {d['within_tol']}")
+    log(f"[resident-floor] full at N={N}: {k11['points']} points; SASS "
+        f"of the repetition loop {k11.get('sass_loop')} instructions, "
+        f"{k11.get('sass_issued')} issued off the divisions' slow paths "
+        f"({k11.get('sass_loads')} LDS.128) = "
+        + (f"{k11['sass_per_point']:.2f} a point; issue floor {fl:.4f} ms "
+           f"at {k11['clock_hz'] / 1e9:.3f} GHz x {k11['sms']} SMs x 128 "
+           f"= {100 * fl / k11['ms']:.1f} % of the time; shared-memory "
+           f"floor {k11['smem_floor_ms']:.4f} ms ({k11['words']:.2f} "
+           f"words/pt); bound {k11['bound_ms']:.4f} ms (operations)"
+           if fl else "not measured"))
 
 
 def stream_sweep(P7, src, device, reps, ceiling, k13, k14):

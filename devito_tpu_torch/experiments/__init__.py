@@ -27,7 +27,10 @@ kernel and that kernel's plain PyTorch version:
 - ``stencil_probe7``: the parts of an x-tiled step's cost -- K10 streamed
   window copies, K11 arithmetic on resident windows, K12 an empty launch,
   K13 and K14 copy pipelines of depth 2 and d in one launch
-  (``python -m devito_tpu_torch.experiments.stencil_probe7 A|B|C|D|E ...``).
+  (``python -m devito_tpu_torch.experiments.stencil_probe7 A|B|C|D|E ...``);
+- ``compare_trees``: K2 and K11 of another checkout (the parent commit)
+  beside this one's on one card, in turns
+  (``python -m devito_tpu_torch.experiments.compare_trees OTHER``).
 
 All take ``--device cuda`` (the default) or ``--device cpu``; on the CPU
 the plain versions run. Asking for ``cuda`` without CUDA raises.

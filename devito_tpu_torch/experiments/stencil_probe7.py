@@ -53,6 +53,7 @@ import torch
 
 from . import bound_ms, device_for, time_ms
 from ..kernels import _nvcc
+from ..logger import debug
 
 __all__ = ['copy_windows', 'copy_windows_reference', 'resident_step',
            'resident_step_reference', 'resident_update', 'u_window',
@@ -60,7 +61,8 @@ __all__ = ['copy_windows', 'copy_windows_reference', 'resident_step',
            'empty_grid', 'empty_launcher', 'empty_grid_reference',
            'stream_windows', 'stream_windows_reference',
            'stream_needs', 'stream_tiles', 'stream_tile', 'stream_occupancy',
-           'resident_tile', 'inputs', 'probe_A', 'probe_B', 'probe_C',
+           'resident_tile', 'resident_tiles', 'resident_instantiation',
+           'resident_occupancy', 'inputs', 'probe_A', 'probe_B', 'probe_C',
            'probe_D', 'probe_E', 'main']
 
 N = 256
@@ -112,6 +114,19 @@ COPY_DEPTH = 3
 #: csrc/probe7_copy.cu).
 COPY_STAGES = 2
 _K11_TZ = 32       # z extent of a K11 tile
+_K11_MIN_THREADS = 10  # a K11 CTA fills a 40-float u row in 16-byte stores
+#: The t0 of K11's unrolled instantiations at the pick by shape; any other
+#: t0 takes the generic one.
+RESIDENT_T0 = 16
+#: K11's candidate tiles: TY (a CTA owns (TY, 32) of (y, z)) and ROWS
+#: (the x-rows a thread walks, unrolled; 0: all t0, generic).
+RESIDENT_TYS = (4, 8, 16)
+RESIDENT_ROWS = (2, 4, 8)
+#: K11's tile (TY, ROWS) at t0 = RESIDENT_T0, pinned by chip_smoke.py's
+#: sweep (PERF.md §6).
+RESIDENT_TILE = (16, 4)
+#: K11 launches by instantiation ('unrolled', 'generic').
+resident_picks = {'unrolled': 0, 'generic': 0}
 
 
 def _stream(dev):
@@ -127,6 +142,7 @@ def _device(device):
 
 
 _devices = {}
+_resident_logged = set()
 _F32 = torch.float32
 #: K12's ctypes entry point, once ``empty_launcher`` has built it.
 _empty_entry = None
@@ -140,16 +156,6 @@ def _ctas_per_sm(smem, threads):
     """CTAs of ``threads`` threads using ``smem`` bytes of shared memory
     that fit on one SM (registers not counted)."""
     return min(_SM_SMEM // (smem + _CTA_SMEM), 2048 // threads)
-
-
-def _pick(what, fits, threads):
-    fits = [(ty, b) for ty, b in fits if b <= _SMEM]
-    if not fits:
-        raise ValueError(f"the {what} kernel's windows do not fit in "
-                         f"{_SMEM} bytes of shared memory")
-    ty, b = next(((ty, b) for ty, b in fits
-                  if _ctas_per_sm(b, threads(ty)) >= 2), fits[0])
-    return ty, b, _ctas_per_sm(b, threads(ty))
 
 
 def _ring_tiles(windows, t0):
@@ -243,16 +249,66 @@ def _stream_fit(depth, nwin, t0, tile):
     return _fit(stream_tiles(depth, nwin, t0), tile)
 
 
-def resident_tile(t0):
-    """The (TY, 32) tile of K11 for t0 x-rows: windows u (t0+8, TY+8, 40)
-    and u1, vp, damp (t0, TY, 32); the largest TY of 8, 4, 2 and 1 that
-    lets two CTAs share an SM, else the largest that fits one. Returns
-    (TY, shared bytes, CTAs per SM); raises when no tile fits."""
-    zp = _K11_TZ + 2 * R
-    return _pick('resident-step',
-                 [(ty, 4 * ((t0 + 2 * R) * (ty + 2 * R) * zp
-                            + 3 * t0 * ty * _K11_TZ)) for ty in (8, 4, 2, 1)],
-                 lambda ty: ty * _K11_TZ)
+def resident_tiles(t0):
+    """Every tile (TY, ROWS) of K11 for t0 x-rows whose windows fit a
+    block's shared memory: a CTA owns (TY, 32) points of the (y, z) plane,
+    each thread 4 z-neighbours of them over ROWS x-rows (0: all t0 rows in
+    a runtime loop, the generic instantiation; else ROWS divides t0 and
+    the walk is unrolled), with at least 10 threads a CTA and at most the
+    instantiation's ``__launch_bounds__`` (``_k11_max_threads``). Records
+    ((TY, ROWS), shared bytes, threads a CTA, CTAs per SM (registers not
+    counted), warps per SM), in the order of RESIDENT_TYS, RESIDENT_ROWS."""
+    recs = []
+    for ty in RESIDENT_TYS:
+        b = 4 * ((t0 + 2 * R) * (ty + 2 * R) * (_K11_TZ + 2 * R)
+                 + 3 * t0 * ty * _K11_TZ)
+        for rows in (0,) + RESIDENT_ROWS:
+            if rows and t0 % rows:
+                continue
+            threads = ty * (_K11_TZ // 4) * (t0 // rows if rows else 1)
+            if b > _SMEM or not \
+                    _K11_MIN_THREADS <= threads <= _k11_max_threads(rows):
+                continue
+            ctas = _ctas_per_sm(b, threads)
+            recs.append(((ty, rows), b, threads, ctas, ctas * threads // 32))
+    return recs
+
+
+def _k11_max_threads(rows):
+    """``max_threads`` of csrc/probe7_resident.cu: the most threads a CTA
+    of the instantiation for ``rows`` takes."""
+    return 128 if rows == 0 else 512 if rows <= 4 else 2048 // rows
+
+
+def resident_tile(t0, tile=None):
+    """K11's tile for t0 x-rows, as ``resident_tiles`` records it: ``tile``
+    when given (raises unless it is one of them), else the pick by shape.
+    At t0 = RESIDENT_T0 the unrolled RESIDENT_TILE; at any other t0 the
+    generic instantiation, (TY, 0) with the largest TY of 8, 4 and 2 that
+    lets two CTAs share an SM, else the largest that fits. Raises when no
+    tile fits."""
+    fits = resident_tiles(t0)
+    if tile is not None:
+        fit = next((f for f in fits if f[0] == tuple(tile)), None)
+        if fit is None:
+            raise ValueError(
+                f"tile {tile}: expected (TY, ROWS) with TY in "
+                f"{RESIDENT_TYS} and ROWS 0 or one of {RESIDENT_ROWS} "
+                f"dividing t0={t0}, whose windows fit in {_SMEM} bytes of "
+                f"shared memory")
+        return fit
+    if t0 == RESIDENT_T0:
+        return resident_tile(t0, RESIDENT_TILE)
+    generic = [f for ty in (8, 4, 2) for f in fits if f[0] == (ty, 0)]
+    if not generic:
+        raise ValueError(f"the resident-step kernel's windows do not fit in "
+                         f"{_SMEM} bytes of shared memory at t0={t0}")
+    return next((f for f in generic if f[3] >= 2), generic[0])
+
+
+def resident_instantiation(tile):
+    """'unrolled' or 'generic': the kernel instantiation of a K11 tile."""
+    return 'unrolled' if tile[1] else 'generic'
 
 
 def _buffer(what, src):
@@ -360,36 +416,65 @@ def _resident_args(t0, reps, taps, fills, n):
 
 
 def resident_step(t0=16, reps=16, taps='full', fills=FILLS, n=N,
-                  device='cuda', vary=0.0):
+                  device='cuda', vary=0.0, tile=None, fast_div=False):
     """K11: probe_B's update computed ``reps`` times over t0 x-rows of the
     n x n interior, from windows holding the constant ``fills`` (u, u1, vp,
     damp) -- u times ``1 + vary * pattern`` (``u_window``) when vary is
     not 0. Returns an (8, 128) fp32 tensor of zeros whose [:min(8, n),
     :min(128, n)] holds the first x-row's update at the interior corner (y
     and z from H). On a CUDA device the kernel computes it from shared
-    memory, reading nothing from device memory; on the CPU
-    ``resident_step_reference`` does."""
+    memory, reading nothing from device memory, on ``tile`` (default
+    ``resident_tile``'s pick by shape, logged at the first launch of each
+    pick and counted by instantiation in ``resident_picks``), dividing
+    with ``__fdividef`` when ``fast_div``; on the CPU
+    ``resident_step_reference`` does, after the same checks."""
     global resident_launches
     fills = _resident_args(t0, reps, taps, fills, n)
     dev = torch.device(device)
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError(f"no resident-step kernel for device {dev}")
+    (ty, rows), _, threads, _, _ = fit = resident_tile(t0, tile)
     if dev.type == 'cpu':
         return resident_step_reference(t0, reps, taps, fills, n, vary=vary)
-    if dev.type != 'cuda':
-        raise ValueError(f"no resident-step kernel for device {dev}")
-    ty, _, _ = resident_tile(t0)
+    kind = resident_instantiation(fit[0])
+    if (t0, fit[0], bool(fast_div)) not in _resident_logged:
+        _resident_logged.add((t0, fit[0], bool(fast_div)))
+        debug(f"resident-step kernel at t0={t0}: tile (TY, ROWS) "
+              f"{fit[0]}, the {kind} instantiation"
+              + (", __fdividef" if fast_div else ""))
     ctas = -(-n // _K11_TZ) * -(-n // ty)
     out = torch.empty(OUT, dtype=torch.float32, device=dev)
-    sink = torch.empty(ctas * ty * _K11_TZ, dtype=torch.float32, device=dev)
+    sink = torch.empty(ctas * threads, dtype=torch.float32, device=dev)
     f = (ctypes.c_float * 4)(*fills)
     fn = _nvcc.entry('probe7_resident', 'dtpu_probe7_resident_launch',
-                     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                     [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
                      + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(dev):
         rc = fn(out.data_ptr(), sink.data_ptr(), n, t0, reps,
-                TAPS.index(taps), ty, f, float(vary), _stream(out.device))
+                TAPS.index(taps), ty, rows, int(bool(fast_div)), f,
+                float(vary), _stream(out.device))
     _nvcc.check_launch(rc, "resident-step kernel")
     resident_launches += 1
+    resident_picks[kind] += 1
     return out
+
+
+def resident_occupancy(t0=16, taps='full', tile=None, fast_div=False,
+                       device='cuda'):
+    """The CTAs of K11 on ``tile`` (default ``resident_tile``'s) that fit
+    on one SM of ``device``, as the CUDA runtime counts them from the
+    kernel's registers, shared memory and threads."""
+    if taps not in TAPS:
+        raise ValueError(f"taps {taps!r}: expected one of {TAPS}")
+    ty, rows = resident_tile(t0, tile)[0]
+    fn = _nvcc.entry('probe7_resident', 'dtpu_probe7_resident_occupancy',
+                     [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(t0, TAPS.index(taps), ty, rows, int(bool(fast_div)),
+                ctypes.addressof(ctas))
+    _nvcc.check_launch(rc, "resident-step occupancy query")
+    return ctas.value
 
 
 def resident_update(ut, u1, vp, dp, taps='full'):
@@ -670,7 +755,9 @@ def probe_B(t0=16, reps=16, taps='full', n=N, device='cuda'):
     pts = t0 * n * n * reps
     flops = FLOPS[taps] * pts
     bms, by = bound_ms(4 * OUT[0] * OUT[1], flops)
-    ty, _, ctas = resident_tile(t0)
+    (ty, rows), smem, threads, ctas, _ = resident_tile(t0)
+    if dev.type == 'cuda':
+        ctas = resident_occupancy(t0, taps, device=dev)
     share = bms / ms if dev.type == 'cuda' else None
     print(f"B t0={t0} taps={taps}: {ms:.4f} ms/virtual-step -> "
           f"{pts / ms / 1e6:.1f} GPts/s compute-only; "
@@ -678,12 +765,15 @@ def probe_B(t0=16, reps=16, taps='full', n=N, device='cuda'):
           + (f", {100 * share:.1f} % of the bound ({bms:.4f} ms, {by})"
              if share is not None else '')
           + f"; max|kernel - plain| {err:.2e}; tile ({ty}, {_K11_TZ}), "
-          f"{ctas} CTAs/SM on {_name(dev)}", flush=True)
+          f"4 points a thread over {rows or t0} rows "
+          f"({resident_instantiation((ty, rows))}), {threads} threads, "
+          f"{smem} B shared, {ctas} CTAs/SM on {_name(dev)}", flush=True)
     return {'probe': 'B', 't0': t0, 'reps': reps, 'taps': taps, 'n': n,
             'ms': ms, 'gpts': pts / ms / 1e6, 'tflops': flops / ms / 1e9,
             'bound_ms': bms, 'bound_by': by, 'share': share, 'err': err,
-            'tol': tol, 'tile': (ty, _K11_TZ), 'ctas_per_sm': ctas,
-            'device': _name(dev)}
+            'tol': tol, 'tile': (ty, _K11_TZ),
+            'rows': rows, 'threads': threads, 'smem_bytes': smem,
+            'ctas_per_sm': ctas, 'device': _name(dev)}
 
 
 def probe_C(reps=16, device='cuda'):

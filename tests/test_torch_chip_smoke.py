@@ -221,3 +221,59 @@ def test_probe_phases_6_and_7_run_on_the_cpu():
         assert rec['frame_bytes'] == 4 * frame and rec['launches'] == 0
     assert by['neighbour_blocks_step']['edge_device_ms'] is None
     assert by['neighbour_blocks_step']['edge_rows_t'] == 8
+
+
+_SASS = """
+        Function : _ZN12_GLOBAL__N_115resident_kernelILi2ELi4ELb0EEEvPfS1_NS_4ArgsE
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   FADD R5, R4, R6 ;
+        /*0030*/                   LDS.128 R8, [R2+0x10] ;
+        /*0040*/                   FCHK P1, R5, R8 ;
+        /*0050*/               @!P1 BRA 0x90 ;
+        /*0060*/                   MOV R10, R5 ;
+        /*0070*/                   CALL.REL.NOINC 0x200 ;
+        /*0080*/                   MOV R5, R10 ;
+        /*0090*/                   FFMA R6, R5, R5, R4 ;
+        /*00a0*/               @P0 BRA 0x10 ;
+        /*00b0*/                   EXIT ;
+        Function : _ZN12_GLOBAL__N_115resident_kernelILi2ELi8ELb0EEEvPfS1_NS_4ArgsE
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_sass_loop_counts_the_issued_loop(monkeypatch):
+    """The repetition loop is the longest backward branch's span (0x10 to
+    0xa0: 10 instructions); the 3 that a forward branch skips over a CALL
+    (a division's slow path) are not issued; 2 LDS.128 in it. A kernel
+    without a loop, or no cuobjdump, gives None."""
+    import shutil
+    monkeypatch.setattr(shutil, 'which', lambda exe: sys.executable)
+    monkeypatch.setattr(C.subprocess, 'run', lambda *a, **k: type(
+        'R', (), {'stdout': _SASS})())
+    assert C.sass_loop('k.so', 'resident_kernelILi2ELi4ELb0E') == (10, 7, 2)
+    assert C.sass_loop('k.so', 'resident_kernelILi2ELi8ELb0E') is None
+    monkeypatch.setattr(shutil, 'which', lambda exe: None)
+    monkeypatch.setattr(C.Path, 'exists', lambda self: False)
+    assert C.sass_loop('k.so', 'resident_kernelILi2ELi4ELb0E') is None
+
+
+@pytest.mark.parametrize('tile,t0,taps,words', [
+    ((16, 4), 16, 'full', 16.0), ((8, 8), 16, 'full', 15.0),
+    ((8, 0), 16, 'full', 14.5), ((4, 2), 16, 'z', 6), ((4, 2), 16, 'none', 4)])
+def test_resident_words_and_entry(tile, t0, taps, words):
+    assert C.resident_words(tile, t0, taps) == words
+    assert C.resident_entry(tile, taps, True) == (
+        f"resident_kernelILi{P7.TAPS.index(taps)}ELi{tile[1]}ELb1E")
+
+
+def test_selftest_calls_on_the_cpu():
+    """K2's and K12's host and device times on the CPU: device 0 (no
+    device events), no first-call process off the card."""
+    from devito_tpu_torch.kernels import stencil as K
+    x = torch.ones(K.SELFTEST_SHAPE)
+    res = C.selftest_calls(K, x, torch.empty(K.SELFTEST_OUT),
+                           torch.device('cpu'))
+    assert res['first_call_ms'] is None
+    assert res['device_us'] == res['k12_device_us'] == 0
+    assert min(res['host_us'], res['host_us_alloc'], res['k12_host_us']) > 0

@@ -339,6 +339,68 @@ def test_resident_reference_reads_unwritten_scratch(p7, interpret):
                        rtol=TOL, atol=0)
 
 
+def test_resident_tile_picks_by_shape():
+    """t0 = 16 takes the pinned tile on the unrolled instantiation; any
+    other t0 the generic one, the largest TY that lets two CTAs share an
+    SM; the pick is the record ``resident_tiles`` lists for it."""
+    fit = P7.resident_tile(P7.RESIDENT_T0)
+    assert fit[0] == P7.RESIDENT_TILE
+    assert fit in P7.resident_tiles(P7.RESIDENT_T0)
+    assert P7.resident_instantiation(fit[0]) == 'unrolled'
+    for t0 in (1, 3, 5, 8, 17):
+        (ty, rows), smem, threads, ctas, _ = P7.resident_tile(t0)
+        assert rows == 0 and ctas >= 2 and threads == ty * 8
+        assert P7.resident_instantiation((ty, rows)) == 'generic'
+        bigger = [f for f in P7.resident_tiles(t0)
+                  if f[0][1] == 0 and ty < f[0][0] <= 8]
+        assert all(f[3] < 2 for f in bigger)
+    with pytest.raises(ValueError, match='do not fit'):
+        P7.resident_tile(80)
+
+
+@pytest.mark.parametrize('t0', [3, 16, 24])
+def test_resident_tiles_fit_and_count_threads(t0):
+    recs = P7.resident_tiles(t0)
+    assert len({r[0] for r in recs}) == len(recs)
+    for (ty, rows), smem, threads, ctas, warps in recs:
+        assert rows == 0 or t0 % rows == 0
+        assert smem == 4 * ((t0 + 8) * (ty + 8) * 40 + 3 * t0 * ty * 32)
+        assert smem <= 232448 and threads == ty * 8 * (t0 // rows if rows
+                                                       else 1)
+        # the kernel's __launch_bounds__: 128 registers a thread at most
+        assert 10 <= threads <= (128 if rows == 0 else 512 if rows <= 4
+                                 else 2048 // rows)
+        assert ctas == min(233472 // (smem + 1024), 2048 // threads)
+        assert warps == ctas * threads // 32
+    # every candidate ROWS that divides t0 is there with some TY
+    assert {r[0][1] for r in recs} == {0} | {
+        r for r in P7.RESIDENT_ROWS if t0 % r == 0}
+
+
+@pytest.mark.parametrize('t0,tile,match', [
+    (16, (8, 3), 'ROWS'), (16, (6, 4), 'TY'), (64, (16, 0), 'fit'),
+    (16, (16, 2), 'TY'), (16, (8, 1, 4), 'ROWS')])
+def test_resident_step_checks_tile(t0, tile, match):
+    """A tile outside ``resident_tiles`` raises, on the CPU as on the
+    card, and counts no pick."""
+    picks = dict(P7.resident_picks)
+    with pytest.raises(ValueError, match=match):
+        P7.resident_step(t0, 1, 'full', P7.FILLS, N, 'cpu', tile=tile)
+    assert P7.resident_picks == picks
+
+
+def test_resident_step_on_cpu_takes_any_tile_and_division():
+    """On the CPU the plain version runs whatever the tile and division:
+    the same values, no launch and no pick counted."""
+    launches, picks = P7.resident_launches, dict(P7.resident_picks)
+    want = P7.resident_step_reference(T0, 2, 'full', P7.FILLS, N)
+    for tile, *_ in P7.resident_tiles(T0):
+        got = P7.resident_step(T0, 2, 'full', P7.FILLS, N, 'cpu',
+                               tile=tile, fast_div=True)
+        assert torch.equal(got, want)
+    assert (P7.resident_launches, P7.resident_picks) == (launches, picks)
+
+
 def test_resident_step_checks_arguments():
     with pytest.raises(ValueError, match='taps'):
         P7.resident_step(4, 1, 'x', device='cpu')
@@ -508,7 +570,7 @@ def test_tiles_fit_shared_memory():
     tile, smem, ctas = P7.copy_tile(P7.COPY_DEPTH, 4, 16)
     assert (tile, smem, ctas) == ((1, 64), 57600, 3)
     assert P7.copy_tile(4, 4, 16)[::2] == ((1, 64), 3)  # a ring of 4 slots
-    assert P7.resident_tile(16) == (8, 110592, 2)
+    assert P7.resident_tile(16) == ((16, 4), 190464, 512, 1, 16)
     with pytest.raises(ValueError, match='do not fit'):
         P7.copy_tile(8, 8, 64)
 
@@ -636,16 +698,48 @@ def test_copy_kernel_on_card(card, n, t0, za, tiles, depths):
 @pytest.mark.cuda
 @pytest.mark.parametrize('fills,vary', [(f, 0.0) for f in FILL_SETS]
                          + [P7.VARIED])
-@pytest.mark.parametrize('n,t0', [(40, 3), (20, 16), (7, 5)])
+@pytest.mark.parametrize('n,t0', [(40, 3), (20, 16), (7, 5), (37, 16),
+                                  (70, 16), (45, 24)])
 def test_resident_kernel_on_card(card, n, t0, fills, vary):
-    before = P7.resident_launches
+    """The pick by shape -- the unrolled instantiation at t0 = 16, the
+    generic one elsewhere -- for every tap ablation, at n that a tile
+    divides and n that none does (37, 45, 70), with IEEE division and
+    with __fdividef; each launch counted once, under its instantiation."""
+    before, picks = P7.resident_launches, dict(P7.resident_picks)
+    kind = P7.resident_instantiation(P7.resident_tile(t0)[0])
     for taps in P7.TAPS:
-        got = P7.resident_step(t0, 3, taps, fills, n, card, vary)
         want = P7.resident_step_reference(t0, 3, taps, fills, n, card, vary)
-        torch.cuda.synchronize()
-        assert (got - want).abs().max().item() <= \
-            TOL * want.abs().max().item()
-    assert P7.resident_launches == before + 3
+        for fast in (False, True):
+            got = P7.resident_step(t0, 3, taps, fills, n, card, vary,
+                                   fast_div=fast)
+            torch.cuda.synchronize()
+            assert (got - want).abs().max().item() <= \
+                TOL * want.abs().max().item()
+    assert P7.resident_launches == before + 6
+    assert P7.resident_picks[kind] == picks[kind] + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,t0', [(37, 16), (64, 8)])
+def test_resident_tiles_on_card(card, n, t0):
+    """Every tile of ``resident_tiles`` (both instantiations, every ROWS
+    dividing t0) on the varied field, every tap ablation, with 0 spills in
+    the kernel's ptxas report."""
+    from devito_tpu_torch.kernels import _nvcc
+    fills, vary = P7.VARIED
+    for taps in P7.TAPS:
+        want = P7.resident_step_reference(t0, 2, taps, fills, n, card, vary)
+        for tile, *_ in P7.resident_tiles(t0):
+            got = P7.resident_step(t0, 2, taps, fills, n, card, vary, tile)
+            torch.cuda.synchronize()
+            assert (got - want).abs().max().item() <= \
+                TOL * want.abs().max().item(), (taps, tile)
+            assert P7.resident_occupancy(t0, taps, tile, device=card) >= 1
+    report = _nvcc.build_log.get(_nvcc.fixed_key('probe7_resident'))
+    if report is not None:          # built by this process: ptxas ran
+        assert re.findall(r'(\d+) bytes spill stores', report)
+        assert not any(int(b) for b in re.findall(
+            r'(\d+) bytes spill stores', report))
 
 
 @pytest.mark.cuda

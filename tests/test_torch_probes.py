@@ -143,6 +143,27 @@ def test_selftest_rejects_other_inputs():
         K.selftest_window_sum(torch.ones(K.SELFTEST_SHAPE, device='meta'))
 
 
+@pytest.mark.parametrize('out', [
+    torch.empty(8, 4, 64), torch.empty(8, 4, 128, dtype=torch.float64),
+    torch.empty(8, 128, 4).transpose(1, 2), torch.empty(8, 4, 128,
+                                                        device='meta')])
+def test_selftest_checks_out(out):
+    with pytest.raises(ValueError, match='out'):
+        K.selftest_window_sum(torch.ones(K.SELFTEST_SHAPE), out)
+
+
+def test_selftest_into_out_on_cpu():
+    """On the CPU ``out`` gets the plain version's values, stale lanes
+    zeroed; no launch is counted."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        K.SELFTEST_SHAPE).astype(np.float32))
+    out = torch.full(K.SELFTEST_OUT, 5.0)
+    launches = K.selftest_launches
+    assert K.selftest_window_sum(x, out) is out
+    assert np.array_equal(out.numpy(), _window_sum_formula(x.numpy()))
+    assert K.selftest_launches == launches
+
+
 # -- K15 -----------------------------------------------------------------------
 
 def _ring_inputs(N, seed):
@@ -399,12 +420,22 @@ def test_entry_points_need_cuda_when_asked(run, monkeypatch):
 
 @pytest.mark.cuda
 def test_selftest_kernel_on_card(card, monkeypatch):
-    x = torch.randn(K.SELFTEST_SHAPE, device=card)
-    before = K.selftest_launches
-    got = K.selftest_window_sum(x)
-    torch.cuda.synchronize()
-    assert K.selftest_launches == before + 1
-    assert torch.equal(got, K.selftest_window_sum_reference(x))
+    """K2 bit-equal to its plain version on random input and on ones, new
+    and into ``out``, one launch counted a call; then validate_backend."""
+    out = torch.full(K.SELFTEST_OUT, 7.0, device=card)
+    for x in (torch.randn(K.SELFTEST_SHAPE, device=card),
+              torch.ones(K.SELFTEST_SHAPE, device=card)):
+        want = K.selftest_window_sum_reference(x)
+        before = K.selftest_launches
+        got = K.selftest_window_sum(x)
+        torch.cuda.synchronize()
+        assert K.selftest_launches == before + 1
+        assert torch.equal(got, want)
+        assert K.selftest_window_sum(x, out) is out
+        torch.cuda.synchronize()
+        assert K.selftest_launches == before + 2
+        assert torch.equal(out, want)
+        out.fill_(7.0)
     monkeypatch.setattr(K, 'validated', set())
     runs = K.selftests
     assert K.validate_backend(card) is True
