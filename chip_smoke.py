@@ -91,6 +91,30 @@
    and J dot tests, the checkpointed gradient against the full-save one,
    and the adjoint and the gradient against the plain versions on the
    CPU.
+10. The TTI path (models/seismic/tti.py, with CIRE and the hoisting of
+   invariants under the default opt): every operator of the phase is
+   lowered first and all its K1 units built at once, each unit's nvcc
+   seconds, registers and spills logged; (1) K1's point design on the
+   halo-extended items -- CIRE's temporaries and the hoisted prologue
+   items -- of a 2-D TTI forward (600x500 SO=8, trig taps on) in fp32 and
+   fp64 and of the 3-D forwards of (3) and (5), each against its plain
+   version on seeded rows within TOL x max; (2) the centered forward at
+   the canonical shape, 512x402x890 + nbl 10, SO=12, fp32, through
+   tti_setup's model and AnisotropicWaveSolver.forward with a Ricker and
+   a line of 512 receivers, every count at 0 just before it and read just
+   after: every dense equation on K1's point design, CIRE's temporaries
+   included, each body plan launched once a step and each hoisted item
+   once, no equation in the translator; its loop and host time a step,
+   its bound, peak device memory, a torch.profiler window of warm steps
+   (device time by kernel, idle share) and each equation's launch timed
+   alone; hoist-trig-taps' 'auto' setting at that size, and the same
+   forward with it forced the other way, timed and with the same record;
+   (3) the same forward at 96^3 (+nbl 10) SO=8 through the kernels against
+   the plain version on the CPU (RUN_TOL); (4) the staggered kernel's
+   forward at 256^3 (+nbl 10) SO=8, finite and non-zero, each plan's
+   launches counted; (5) the fp64 dot tests F (atol 1e-11) and J (atol
+   1e-12) through the kernels on tests/test_adjoint.py's 24x26x28 model
+   at SO=8.
 
 Every failure raises, and the script exits non-zero. The next-to-last
 lines are the kernel records (one JSON line, a record per kernel, each with
@@ -99,7 +123,7 @@ result needs (each input point it reads once, each output point written
 once) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s, the H100
 SXM's data-sheet peaks -- the one PyTorch call that computes the same
 function, where there is one, and its launches on its own path and on the
-main path, phases 4, 5 and 9, every kernel's count read there) and the
+main path, phases 4, 5, 9 and 10, every kernel's count read there) and the
 card's name and power limit; the last line is {"ok": true, "device":
 {...}}.
 """
@@ -149,7 +173,17 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
             # phase 9: the fp64 checks' model (+fwd_nbl), tn and receivers;
             # the steps the gradient's increment and its reverse step are
             # profiled over
-            inv_n=64, inv_tn=100., inv_nrec=64, inc_steps=10)
+            inv_n=64, inv_tn=100., inv_nrec=64, inc_steps=10,
+            # phase 10: the canonical TTI shape (+nbl), space order, grid
+            # spacing, steps and the steps profiled; the 96^3 comparison,
+            # the staggered forward, the halo-extended K1 cases and the
+            # fp64 dot tests' model
+            tti_shape=(512, 402, 890), tti_nbl=10, tti_so=12,
+            tti_spacing=20., tti_steps=100, tti_prof_steps=5,
+            tti_nrec=512, tti_cmp_n=96, tti_cmp_so=8, tti_cmp_steps=60,
+            tti_stag_n=256, tti_stag_so=8, tti_stag_steps=60,
+            tti_2d_shape=(600, 500), tti_dot_shape=(24, 26, 28),
+            tti_dot_so=8, tti_dot_tn=250.)
 #: (name, source, TPU kernel replaced, the part of the kernel's mangled name
 #: that picks its ptxas report out of its unit's) of every kernel, in record
 #: order.
@@ -915,6 +949,10 @@ def _smoke(device, sizes):
         raise AssertionError("the inverse problem built a kernel")
     if (K.selftests, K.selftest_launches) != (on_card, on_card):
         raise AssertionError("the inverse problem ran the self-test again")
+    del solver, vp0, small64
+    tti(device, sizes, record, gen)
+    if (K.selftests, K.selftest_launches) != (on_card, on_card):
+        raise AssertionError("the TTI path ran the self-test again")
     for rec in records:
         rec.setdefault('library_ms', None)
         rec.setdefault('point_ms', None)
@@ -2562,6 +2600,560 @@ def inverse_fp64(device, sizes, small, rng):
     return res
 
 
+# -- 10. the TTI path --------------------------------------------------------
+
+#: The kinds of K1 launches on the TTI path, by the item of the schedule
+#: they run.
+TTI_KINDS = ('body update', 'CIRE temporary', 'hoisted prologue item',
+             'interpolation temporary')
+
+
+def tti_solver(shape, so, nbl, steps, nrec, dtype=np.float32,
+               kernel='centered', spacing=20., model=None, **kwargs):
+    """AnisotropicWaveSolver on tti_setup's layered TTI model at ``shape``
+    (+``nbl``), ``spacing`` m, ``so``, in ``dtype`` (or on ``model``),
+    running ``steps`` steps: a 10 Hz Ricker at the centre of the surface,
+    2 spacings deep, and ``nrec`` receivers along x at y centre (2-D: at
+    the surface), 2 spacings deep. ``kwargs`` go to its operators
+    (``opt``)."""
+    from devito_tpu_torch.models.seismic import (
+        AcquisitionGeometry, AnisotropicWaveSolver, tti_setup)
+    if model is None:
+        model = tti_setup(shape=shape, spacing=(spacing,) * len(shape),
+                          tn=1., space_order=so, nbl=nbl, dtype=dtype,
+                          kernel=kernel).model
+    ext = [spacing * (n - 1) for n in shape]
+    src = np.array([[e / 2 for e in ext[:-1]] + [2 * spacing]])
+    rec = np.stack([np.linspace(0, ext[0], nrec)] +
+                   [np.full(nrec, e / 2) for e in ext[1:-1]] +
+                   [np.full(nrec, 2 * spacing)], 1)
+    # the time axis has ceil((tn + dt) / dt) = steps + 2 rows
+    geom = AcquisitionGeometry(model, rec, src, 0., (steps + .5) *
+                               model.critical_dt, f0=0.010,
+                               src_type='Ricker')
+    return AnisotropicWaveSolver(model, geom, space_order=so, kernel=kernel,
+                                 **kwargs)
+
+
+def tti_kinds(op):
+    """(kind, lowered eq, plan or None) of every dense item of ``op``'s
+    schedule, ``kind`` one of TTI_KINDS."""
+    plans = {id(eq): p for eq, p in op.kernel_plans}
+    out = []
+    for sec in ('prologue', 'body', 'epilogue'):
+        for it in getattr(op.schedule, sec):
+            if not hasattr(it, 'region'):
+                continue
+            kind = ('hoisted prologue item' if sec != 'body' else
+                    'body update' if not it.target._compiler_temp else
+                    'interpolation temporary'
+                    if it.target.name.endswith('_itmp') else
+                    'CIRE temporary')
+            out.append((kind, it, plans[id(it)]))
+    return out
+
+
+def trig_taps_on(op):
+    """True when ``op``'s time loop reads no sin or cos of a field: its
+    transcendentals of the tilt fields were hoisted (hoist-trig-taps)."""
+    import sympy
+    return not any(sympy.sympify(it.rhs).atoms(sympy.sin, sympy.cos)
+                   for it in op.schedule.body if hasattr(it, 'region'))
+
+
+def tti_bound(op, kinds):
+    """(bytes, flops, schedule bytes) a step of ``op``'s time loop needs.
+    The bytes are the function's: each (user field, time row) that the
+    step's dense equations read, read once, and each field that its body
+    updates write, written once, over the whole grid. A read of a
+    compiler temporary (CIRE's, the hoisting pass's, the interpolation's)
+    stands for the reads of the equation that computes it, so the bound
+    leaves out the temporaries' round trips. The schedule bytes count
+    every field that this schedule reads and writes, temporaries
+    included: the floor of this schedule, not of the function. The flops
+    are the operations of each equation's point expression
+    (``point_flops``) over its region. The sparse operations and the
+    prologue's own work are left out."""
+    from devito_tpu_torch.kernels import stencil as K
+    from devito_tpu_torch.ir.lowering import time_access_of
+    from devito_tpu_torch.types.basic import retrieve_functions
+    temps = {eq.target.name: eq for kind, eq, _ in kinds
+             if kind != 'body update'}
+
+    def user_reads(eq, seen):
+        for a in retrieve_functions(eq.rhs):
+            name = a.function.name
+            if name not in temps:
+                yield name, str(time_access_of(a))
+            elif name not in seen:
+                seen.add(name)
+                yield from user_reads(temps[name], seen)
+
+    reads, writes, sreads, swrites, flops = set(), set(), set(), set(), 0
+    for kind, eq, plan in kinds:
+        if kind == 'hoisted prologue item':
+            continue
+        for a in retrieve_functions(eq.rhs):
+            sreads.add((a.function.name, str(time_access_of(a))))
+        swrites.add(eq.target.name)
+        if kind == 'body update':
+            reads.update(user_reads(eq, set()))
+            writes.add(eq.target.name)
+        flops += K.point_flops(plan) * int(np.prod(plan.extents))
+    npts = int(np.prod(op._grid.shape))
+    size = np.dtype(op._grid.dtype).itemsize
+    return ((len(reads) + len(writes)) * npts * size, flops,
+            (len(sreads) + len(swrites)) * npts * size)
+
+
+def loop_steps(op):
+    """Steps of ``op``'s time loop under its default time bounds."""
+    tm, tM = op._default_time_bounds()
+    return tM - tm + 1
+
+
+def tti_drive(label, fn, kinds, steps, device):
+    """``fn()`` with every count at 0 just before it and read just after;
+    raises unless each body plan launched its design ``steps`` times and
+    each prologue plan once, and no other kernel launched. Returns fn's
+    result, the launches by kind and the wall seconds."""
+    from devito_tpu_torch.kernels import stencil as K
+    on_card = int(device.type == 'cuda')
+    for _, _, p in kinds:
+        p.launches = 0
+    K.launches = 0
+    K.launches_by_design.update(point=0, stream=0)
+    probe_launches(zero=True)
+    k2 = K.selftest_launches
+    tic = time.perf_counter()
+    out = fn()
+    sync(device)
+    wall = time.perf_counter() - tic
+    by_kind = {k: 0 for k in TTI_KINDS}
+    by_design = {'point': 0, 'stream': 0}
+    for kind, eq, p in kinds:
+        want = on_card * (1 if kind == 'hoisted prologue item' else steps)
+        if p.launches != want:
+            raise AssertionError(f"{label}: {eq!r} launched {p.launches} "
+                                 f"times, not {want}")
+        by_kind[kind] += p.launches
+        by_design[p.design] += p.launches
+    if K.launches_by_design != by_design or \
+            K.launches != sum(by_kind.values()):
+        raise AssertionError(f"{label}: K1 launched {K.launches_by_design}, "
+                             f"not {by_design}")
+    off = {n: c for n, c in probe_launches().items() if c}
+    if off or K.selftest_launches != k2:
+        raise AssertionError(f"{label} launched kernels off its path: {off}")
+    return out, by_kind, wall
+
+
+def check_tti_plans(label, kinds, design='point'):
+    """Log every K1 decline on the path with its reason; raise when a
+    dense equation runs in the translator, or off ``design`` (None: any
+    design)."""
+    from devito_tpu_torch.kernels import stencil as K
+    bad = [(k, eq.target.name, K.decline_reason(eq)) for k, eq, p in kinds
+           if p is None]
+    for k, name, why in bad:
+        log(f"[tti] {label}: {k} {name} declined: {why}")
+    off = [(k, eq.target.name, p.design) for k, eq, p in kinds
+           if p is not None and design not in (None, p.design)]
+    if bad or off:
+        raise AssertionError(f"{label}: a dense equation runs in the "
+                             f"translator ({bad}) or off K1's {design} "
+                             f"design ({off})")
+
+
+def halo_cases(device, ops, gen):
+    """Phase 10 (1): each halo-extended item of ``ops`` ((label, operator)
+    pairs) -- CIRE's temporaries and the hoisted prologue items -- through
+    K1 on seeded rows against its plain version on the same rows; raises
+    beyond TOL x max |plain|. Returns a row per item."""
+    from devito_tpu_torch.compiler.executor import plan_rows
+    from devito_tpu_torch.kernels import stencil as K
+    rows = []
+    for label, op in ops:
+        bufs, params = op.arguments(time_M=1, dt=0.1)
+        # new seeded tensors: the functions' own keep their values
+        bufs = {n: torch.rand(b.shape, generator=gen, device=device,
+                              dtype=b.dtype)
+                if b.is_floating_point() and not n.endswith('_coords')
+                else b for n, b in bufs.items()}
+        for kind, eq, plan in tti_kinds(op):
+            if eq.region[0][0] >= 0:
+                continue
+            t = None if kind == 'hoisted prologue item' else 1
+            out, ins = plan_rows(plan, bufs, t, params)
+            ref = out.clone()
+            K.stencil_update(plan, (out, ins), params)
+            K.stencil_update_reference(plan, (ref, ins), params)
+            sync(device)
+            err = (out - ref).abs().max().item()
+            tol = TOL[plan.dtype.type] * ref.abs().max().item()
+            if not (err <= tol and ref.abs().max().item() > 0):
+                raise AssertionError(f"halo-extended {label} {eq!r}: "
+                                     f"max|kernel - plain| {err:.3e} > "
+                                     f"{tol:.3e}")
+            rows.append(dict(case=label, item=f'{kind} {eq.target.name}',
+                             region=eq.region, max_abs_err=err, tol=tol))
+            log(f"[tti-halo] {label}: {kind} {eq.target.name} over "
+                f"{eq.region}: max|kernel - plain| {err:.3e} (tolerance "
+                f"{tol:.3e})")
+        del bufs
+    return rows
+
+
+def tti_profile(solver, kinds, k, device):
+    """Device time of ``k`` warm steps of ``solver``'s forward by kernel
+    (torch.profiler, the prologue in), the idle share of the loop's
+    time, and ``tti_launch_ms``."""
+    out = {}
+
+    def run():
+        out['fwd'] = solver.forward(time_M=k)
+    rows = profiled(run, device)
+    busy = sum(m for _, m, _ in rows)
+    _, u, v, summary = out.pop('fwd')
+    loop = summary.globals['fdlike'].time * 1e3
+    return dict(steps=k, loop_ms=loop, busy_ms=busy,
+                idle_share=1 - busy / loop if loop else None,
+                kernels=[dict(name=n[:120], ms=m, calls=c)
+                         for n, m, c in rows[:12]],
+                per_equation=tti_launch_ms(solver, kinds, u, v, device))
+
+
+def tti_launch_ms(solver, kinds, u, v, device):
+    """Each K1 launch of ``solver``'s forward timed alone, by equation
+    (CUDA events, 3 launches after a warm-up, on the rows of step 1 of the
+    wavefields ``u`` and ``v``)."""
+    from devito_tpu_torch.compiler.executor import plan_rows
+    from devito_tpu_torch.kernels import stencil as K
+    bufs, params = solver.op_fwd(None).arguments(time_M=1, dt=solver.dt,
+                                                 u=u, v=v)
+    out = []
+    for kind, eq, plan in kinds:
+        t = None if kind == 'hoisted prologue item' else 1
+        r = plan_rows(plan, bufs, t, params)
+        out.append(dict(kind=kind, target=eq.target.name,
+                        ms=time_ms(lambda: K.stencil_update(plan, r, params),
+                                   3, device)))
+    return out
+
+
+def tti_gather_ms(solver, kinds, u, v, device):
+    """The receivers' interpolation of ``solver``'s forward, both ways, on
+    the rows of step 1 of ``u`` and ``v`` (``time_ms``, 3 calls after a
+    warm-up): as its schedule runs it under devito_tpu's 4096-corner rule
+    (K1 writes the sampled expression into ``<rec>_itmp``, and the points
+    gather from it), and the direct gather of the sampled expression from
+    the fields, which the schedule runs below that rule. None when the
+    schedule has no interpolation temporary. Raises unless both ways give
+    the same record."""
+    import copy
+    from devito_tpu_torch.compiler.executor import _exec_sparse, plan_rows
+    from devito_tpu_torch.kernels import stencil as K
+    tmp = [(eq, p) for kind, eq, p in kinds
+           if kind == 'interpolation temporary']
+    if not tmp:
+        return None
+    (teq, plan), = tmp
+    op = solver.op_fwd(None)
+    item = next(it for it in op.schedule.body
+                if getattr(it, 'kind', None) == 'interp'
+                and getattr(it.expr, 'name', None) == teq.target.name)
+    direct = copy.copy(item)
+    direct.expr = teq.rhs
+    bufs, params = op.arguments(time_M=1, dt=solver.dt, u=u, v=v)
+    rows = plan_rows(plan, bufs, 1, params)
+    geom = {}
+    rec = bufs[item.sparse.name][1 + item.target_time_off]
+
+    def record(it):
+        _exec_sparse(it, bufs, params, 1, geom)
+        return rec.clone()
+
+    out = dict(npoint=item.sparse.npoint,
+               itmp_ms=time_ms(lambda: K.stencil_update(plan, rows, params),
+                               3, device))
+    want = record(item)
+    out['gather_ms'] = time_ms(lambda: record(item), 3, device)
+    got = record(direct)
+    out['direct_ms'] = time_ms(lambda: record(direct), 3, device)
+    out['max_abs_diff'] = float((got - want).abs().max())
+    tol = RUN_TOL[np.float32] * float(want.abs().max())
+    if not out['max_abs_diff'] <= tol:
+        raise AssertionError(f"the direct gather differs from the gather "
+                             f"from {teq.target.name} by "
+                             f"{out['max_abs_diff']:.3e} (tolerance "
+                             f"{tol:.3e})")
+    return out
+
+
+def tti(device, sizes, record, gen):
+    """Phase 10, the TTI path: (1) K1's point design on halo-extended
+    regions against its plain version; (2) the centered forward at the
+    canonical shape, driven with every count at 0 just before and read
+    just after, profiled, and again with hoist-trig-taps forced the other
+    way; (3) the forward at tti_cmp_n^3 against the plain version on the
+    CPU; (4) the staggered kernel's forward; (5) the fp64 dot tests F and
+    J. Adds the canonical forward's launches to K1's ``record``."""
+    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch.builtins import inner, norm
+    from devito_tpu_torch.experiments import bound_ms
+    from devito_tpu_torch.kernels import stencil as K
+    from devito_tpu_torch.models.seismic import tti_setup
+    from concurrent.futures import ThreadPoolExecutor
+    on_card = device.type == 'cuda'
+    res = record['tti'] = {}
+    release(device)
+    shape, nbl, so = sizes['tti_shape'], sizes['tti_nbl'], sizes['tti_so']
+    steps, h = sizes['tti_steps'], sizes['tti_spacing']
+    cn, cso, csteps = sizes['tti_cmp_n'], sizes['tti_cmp_so'], \
+        sizes['tti_cmp_steps']
+    cshape, dshape = (cn,) * 3, sizes['tti_dot_shape']
+
+    # -- every operator of the phase, and all their kernels built at once --
+    tic = time.perf_counter()
+    main = tti_solver(shape, so, nbl, steps, sizes['tti_nrec'], spacing=h)
+    fop = main.op_fwd(None)
+    auto_on = trig_taps_on(fop)
+    forced = tti_solver(shape, so, nbl, steps, sizes['tti_nrec'], spacing=h,
+                        model=main.model,
+                        opt=('advanced', {'hoist-trig-taps': not auto_on}))
+    fop2 = forced.op_fwd(None)
+    if trig_taps_on(fop2) == auto_on:
+        raise AssertionError("hoist-trig-taps forced the other way left the "
+                             "schedule as it was")
+    small = tti_solver(cshape, cso, nbl, csteps, cn)
+    stag = tti_solver((sizes['tti_stag_n'],) * 3, sizes['tti_stag_so'], nbl,
+                      sizes['tti_stag_steps'], sizes['tti_stag_n'],
+                      kernel='staggered')
+    # the dot tests' solver as tests/test_adjoint.py builds it
+    dot = tti_setup(shape=dshape, spacing=(15.,) * len(dshape), nbl=nbl,
+                    tn=sizes['tti_dot_tn'], space_order=sizes['tti_dot_so'],
+                    dtype=np.float64)
+    halo_ops = [(f'2-D {sizes["tti_2d_shape"]} SO=8 {np.dtype(d).name}',
+                 tti_solver(sizes['tti_2d_shape'], 8, nbl, 1, 64, dtype=d,
+                            opt=('advanced', {'hoist-trig-taps': True}))
+                 .op_fwd(None)) for d in (np.float32, np.float64)]
+    halo_ops += [(f'3-D {cn}^3 SO={cso} float32', small.op_fwd(None)),
+                 (f'3-D {dshape} SO={sizes["tti_dot_so"]} float64',
+                  dot.op_fwd(None))]
+    ops = {'forward': fop, 'forward, trig taps forced': fop2,
+           f'{cn}^3 forward': small.op_fwd(None),
+           'staggered forward': stag.op_fwd(None),
+           'dot F': dot.op_fwd(False), 'dot F adjoint': dot.op_adj(),
+           'dot J forward (save)': dot.op_fwd(True),
+           'dot J Born': dot.op_jac(), 'dot J gradient': dot.op_jacadj(True)}
+    ops.update(halo_ops)
+    lower_s = time.perf_counter() - tic
+    kinds = {lab: tti_kinds(op) for lab, op in ops.items()}
+    for lab in ('forward', 'forward, trig taps forced', f'{cn}^3 forward'):
+        check_tti_plans(lab, kinds[lab])
+    check_tti_plans('staggered forward', kinds['staggered forward'], None)
+    plans = [p for ks in kinds.values() for _, _, p in ks if p is not None]
+    uniq = list({p.key: p for p in plans}.values())
+    nvcc_s = 0.
+    if on_card:
+        tic = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(K.build, uniq))
+        nvcc_s = sum(K.build_seconds.get(p.key, 0.) for p in uniq)
+        log(f"[tti-build] {len(uniq)} K1 units in "
+            f"{time.perf_counter() - tic:.2f} s wall (nvcc {nvcc_s:.2f} s); "
+            f"the operators' lowering took {lower_s:.2f} s")
+    units = [dict(op=lab, kind=k, target=eq.target.name, key=p.key,
+                  nvcc_s=K.build_seconds.get(p.key),
+                  ptxas=ptxas(K.build_log.get(p.key, '')))
+             for lab in ('forward', 'forward, trig taps forced')
+             for k, eq, p in kinds[lab]]
+    for u in units:
+        log(f"[tti-unit] {u['op']}: {u['kind']} {u['target']}: nvcc "
+            f"{u['nvcc_s'] or 0:.2f} s; {u['ptxas'] or 'no ptxas report'}")
+    res.update(units=units, nvcc_s=nvcc_s, lower_s=lower_s,
+               n_units=len(uniq))
+
+    # -- (1) K1's point design on halo-extended regions -------------------
+    res['halo'] = halo_cases(device, halo_ops, gen)
+    release(device)
+
+    # -- (2) the canonical forward ------------------------------------------
+    nf = tuple(n + 2 * nbl for n in shape)
+    fk, k2 = kinds['forward'], kinds['forward, trig taps forced']
+    nbytes, flops, sbytes = tti_bound(fop, fk)
+    bound, bound_by = bound_ms(nbytes, flops)
+    sbound = bound_ms(sbytes, flops)[0]
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    host = time_host(fop)
+    (rec, _, _, fsum), by_kind, wall = tti_drive(
+        'TTI forward', main.forward, fk, loop_steps(fop), device)
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    r = np.array(rec.data)
+    if not (np.isfinite(r).all() and np.abs(r).max() > 0):
+        raise AssertionError("TTI forward: the shot record is not finite "
+                             "and non-zero")
+    del rec
+    record['launches'] += sum(by_kind.values())
+    record['launches_by_design']['point'] += sum(by_kind.values())
+    record['launches_main_path'] = record['launches']
+    record.setdefault('launches_by_path', {})['tti forward'] = by_kind
+    cold = fsum.globals['fdlike'].time * 1e3 / steps, host['s'] * 1e3 / steps
+    (rec2, u2, v2, _), by2, _ = tti_drive(
+        'TTI forward, trig taps forced', forced.forward, k2, loop_steps(fop2),
+        device)
+    forced_eqs = tti_launch_ms(forced, k2, u2, v2, device)
+    gather = tti_gather_ms(forced, k2, u2, v2, device)
+    del u2, v2
+    r2 = np.array(rec2.data)
+    diff = float(np.abs(r2 - r).max())
+    if not diff <= RUN_TOL[np.float32] * np.abs(r).max():
+        raise AssertionError(f"the two hoist-trig-taps settings give shot "
+                             f"records {diff:.3e} apart")
+    del rec2, r2
+    # warm, in turns: 'auto', forced, forced, 'auto'
+    warm = {True: [], False: []}
+    turns = [(main, fop, auto_on), (forced, fop2, not auto_on)]
+    for sv, op_, setting in turns + turns[::-1]:
+        host = time_host(op_)
+        loop = sv.forward()[3].globals['fdlike'].time * 1e3 / steps
+        warm[setting].append((loop, host['s'] * 1e3 / steps))
+    ms = {k: float(np.mean([w[0] for w in v])) for k, v in warm.items()}
+    hms = {k: float(np.mean([w[1] for w in v])) for k, v in warm.items()}
+    loop = ms[auto_on]
+    nbody = sum(k != 'hoisted prologue item' for k, _, _ in fk)
+    res['forward'] = dict(
+        shape=nf, so=so, steps=steps, nrec=r.shape[1],
+        hoist_trig_taps_auto=auto_on, loop_ms_per_step=loop,
+        host_ms_per_step=hms[auto_on], cold_loop_ms_per_step=cold[0],
+        cold_host_ms_per_step=cold[1], wall_s=wall,
+        launches_by_kind=by_kind, launches_per_step=nbody,
+        bound_ms=bound, bound_by=bound_by, bound_bytes=nbytes,
+        bound_flops=flops, share_of_bound=bound / loop,
+        schedule_bytes=sbytes, schedule_bound_ms=sbound,
+        max_memory_allocated=peak, rec_norm=float(np.linalg.norm(r)),
+        warm_runs={str(k): v for k, v in warm.items()})
+    res['forward_forced'] = dict(
+        hoist_trig_taps=not auto_on, loop_ms_per_step=ms[not auto_on],
+        host_ms_per_step=hms[not auto_on], launches_by_kind=by2,
+        bound_ms=bound_ms(*tti_bound(fop2, k2)[:2])[0], rec_max_abs_diff=diff,
+        per_equation=forced_eqs, receiver_gather=gather)
+    log(f"[tti] forward {shape} (+nbl {nbl}: {nf}) SO={so} fp32, {steps} "
+        f"steps, {r.shape[1]} receivers, hoist-trig-taps 'auto' -> "
+        f"{auto_on}: first run (the main path) loop {cold[0]:.3f} ms/step, "
+        f"host time in the loop {cold[1]:.3f} ms/step, wall {wall:.2f} s; "
+        f"warm loop {loop:.3f} ms/step, host {hms[auto_on]:.3f} ms/step; "
+        f"bound {bound:.3f} ms/step by {bound_by} ({nbytes / 1e9:.2f} GB, "
+        f"{flops / 1e9:.1f} GFlop a step) = {100 * bound / loop:.1f} % of "
+        f"the warm step; this schedule's own floor, its temporaries' round "
+        f"trips included, {sbound:.3f} ms/step ({sbytes / 1e9:.2f} GB); K1 "
+        f"launches by kind {by_kind} ({nbody} a step, all "
+        f"on the point design, no equation in the translator); peak device "
+        f"memory " + (f"{peak / 1e9:.2f} GB" if peak else "not measured")
+        + f"; rec norm {np.linalg.norm(r):.6g}")
+    log(f"[tti] hoist-trig-taps, warm, in turns ('auto' = {auto_on}, "
+        f"forced, forced, 'auto'): {auto_on} "
+        f"{[round(w[0], 3) for w in warm[auto_on]]} ms/step, "
+        f"{not auto_on} {[round(w[0], 3) for w in warm[not auto_on]]} "
+        f"ms/step; host {hms[auto_on]:.3f} and {hms[not auto_on]:.3f} "
+        f"ms/step; launches by kind with it forced {by2}; rec max|diff| "
+        f"between the two {diff:.3e}; a launch by equation with it forced "
+        f"(CUDA events): " + '; '.join(
+            f"{e['kind']} {e['target']} {e['ms']:.3f} ms"
+            for e in forced_eqs))
+    if gather:
+        log(f"[tti] the receivers' interpolation, {gather['npoint']} "
+            f"points (CUDA events on the card): K1's {gather['itmp_ms']:.4f}"
+            f" ms for the dense temporary and {gather['gather_ms']:.4f} ms "
+            f"for the gather from it, as the schedule runs it under the "
+            f"4096-corner rule; the direct gather from the fields "
+            f"{gather['direct_ms']:.4f} ms; max|diff| "
+            f"{gather['max_abs_diff']:.3e}")
+    prof = res['forward']['profile'] = tti_profile(
+        main, fk, sizes['tti_prof_steps'], device)
+    log(f"[tti-profile] {prof['steps']} warm steps: loop "
+        f"{prof['loop_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
+        f"idle share {100 * (prof['idle_share'] or 0):.1f} %; by kernel: "
+        + '; '.join(f"{m['ms']:.3f} ms x{m['calls']}: {m['name'][:60]}"
+                    for m in prof['kernels'][:8]))
+    log("[tti-profile] a launch by equation (CUDA events): " + '; '.join(
+        f"{e['kind']} {e['target']} {e['ms']:.3f} ms"
+        for e in prof['per_equation']))
+    del r, forced, fop2, main, fop
+    ops.pop('forward')
+    ops.pop('forward, trig taps forced')
+    release(device)
+
+    # -- (3) the forward at cn^3 against the plain version on the CPU -----
+    rk = np.array(small.forward()[0].data)
+    with switchconfig(device='cpu'):
+        plain = tti_solver(cshape, cso, nbl, csteps, cn)
+        rp = np.array(plain.forward()[0].data)
+    err = float(np.abs(rk - rp).max())
+    tol = RUN_TOL[np.float32] * float(np.abs(rp).max())
+    if not (err <= tol and tol > 0):
+        raise AssertionError(f"TTI forward at {cn}^3: kernel and plain recs "
+                             f"differ by {err:.3e} > {tol:.3e}")
+    res['compare'] = dict(n=cn, so=cso, steps=csteps, max_abs_diff=err,
+                          tol=tol, rec_norm=float(np.linalg.norm(rk)))
+    log(f"[tti] {cn}^3 (+nbl {nbl}) SO={cso} fp32, {csteps} steps: rec "
+        f"through the kernels vs the plain version (CPU): max|diff| "
+        f"{err:.3e} (tolerance {tol:.3e}), rec norm "
+        f"{np.linalg.norm(rk):.6g}")
+    del small, plain
+    release(device)
+
+    # -- (4) the staggered kernel's forward ----------------------------------
+    ks = kinds['staggered forward']
+    # the first-order system's loop runs from t = 0: one step more
+    sst = loop_steps(stag.op_fwd(None))
+    (srec, _, _, ssum), sby, swall = tti_drive(
+        'staggered TTI forward', stag.forward, ks, sst, device)
+    sr = np.array(srec.data)
+    if not (np.isfinite(sr).all() and np.abs(sr).max() > 0):
+        raise AssertionError("staggered TTI forward: the shot record is not "
+                             "finite and non-zero")
+    sloop = ssum.globals['fdlike'].time * 1e3 / sst
+    designs = {eq.target.name: p.design for _, eq, p in ks}
+    res['staggered'] = dict(n=sizes['tti_stag_n'], so=sizes['tti_stag_so'],
+                            steps=sst, loop_ms_per_step=sloop,
+                            launches_by_kind=sby, designs=designs,
+                            rec_norm=float(np.linalg.norm(sr)))
+    log(f"[tti] staggered forward {sizes['tti_stag_n']}^3 (+nbl {nbl}) "
+        f"SO={sizes['tti_stag_so']} fp32, {sst} steps: loop {sloop:.3f} "
+        f"ms/step, K1 launches by kind {sby}, designs {designs}, rec norm "
+        f"{np.linalg.norm(sr):.6g}")
+    del stag, srec, sr
+    release(device)
+
+    # -- (5) the fp64 dot tests through the kernels --------------------------
+    rec = dot.forward(save=False)[0]
+    srca = dot.adjoint(rec)[0]
+    t1, t2 = inner(srca, dot.geometry.src), norm(rec) ** 2
+    dot_f = (t1 - t2) / t1
+    vp = np.asarray(dot.model.vp.data)
+    dm = vp ** -2 - np.full_like(vp, 1.5) ** -2
+    lin = dot.jacobian(dm)[0]
+    t2 = norm(lin) ** 2
+    _, u0, v0, _ = dot.forward(save=True)
+    im = dot.jacobian_adjoint(lin, u0, v0)[0]
+    t1 = float(np.dot(np.asarray(im.data).ravel(), dm.ravel()))
+    dot_j = (t1 - t2) / t1
+    res['dot'] = dict(shape=dshape, so=sizes['tti_dot_so'],
+                      steps=dot.geometry.nt - 2, F=float(dot_f),
+                      J=float(dot_j))
+    log(f"[tti-fp64] {dshape} (+nbl {nbl}) SO={sizes['tti_dot_so']} fp64, "
+        f"{dot.geometry.nt - 2} steps, through the kernels: dot test F "
+        f"{dot_f:.3e} (atol 1e-11), J {dot_j:.3e} (atol 1e-12)")
+    if not (abs(dot_f) <= 1e-11 and abs(dot_j) <= 1e-12):
+        raise AssertionError(f"TTI fp64 dot tests: F {dot_f:.3e}, J "
+                             f"{dot_j:.3e}")
+    del dot, rec, srca, lin, u0, v0, im
+    release(device)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
@@ -2574,7 +3166,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     tic = time.perf_counter()
     kind, records = smoke(torch.device('cuda', 0), FULL)
-    log(f"[smoke] phases 2-9 in {time.perf_counter() - tic:.1f} s")
+    log(f"[smoke] phases 2-10 in {time.perf_counter() - tic:.1f} s")
     print(json.dumps({'kernels': records}))
     print(smi())
     print(json.dumps({'ok': True, 'device': {

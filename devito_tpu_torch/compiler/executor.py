@@ -140,7 +140,9 @@ def _time_only(cond):
 def _write_region_slices(eq):
     """Row slices of the write region of a dense eq. Regions are GLOBAL
     domain coordinates; a target defined on a SubDomain subtracts its
-    origin offset to address the local buffer."""
+    origin offset to address the local buffer. A halo-extended region
+    (CIRE's temporaries, the hoisted prologue items) starts before the
+    domain and stops past it, inside the target's halo."""
     fn = eq.target
     return tuple(slice(hl + start - oo, hl + stop - oo)
                  for (start, stop), (hl, hr), oo

@@ -224,12 +224,18 @@ def cuda_expr(expr, ctx):
     the kernel's scalar type ``T``. ``ctx.access(e)`` and ``ctx.symbol(s)``
     print accesses and symbols; ``ctx.literal(v)`` prints a number in the
     scalar type (fp32 literals carry the ``f`` suffix, so nothing
-    silently promotes to double). Raises CompilationError on anything
-    else."""
+    silently promotes to double). Math functions are called by their fp32
+    names (``sinf``, ``sqrtf``, ``rsqrtf``, ...) when ``ctx.ctype`` is
+    ``'float'``, so an fp32 kernel computes sin, cos and square roots in
+    fp32 whatever overloads the headers declare. Raises CompilationError
+    on anything else."""
     expr = sympy.sympify(expr)
 
     def p(e):
         return cuda_expr(e, ctx)
+
+    def fn(name):
+        return name + 'f' if ctx.ctype == 'float' else name
 
     if isinstance(expr, AbstractFunction):
         return ctx.access(expr)
@@ -255,12 +261,12 @@ def cuda_expr(expr, ctx):
             if -4 <= n <= 4:
                 prod = '(' + ' * '.join([base] * abs(n)) + ')'
                 return prod if n > 0 else f'({one} / {prod})'
-            return f'pow({base}, {ctx.literal(float(n))})'
+            return f'{fn("pow")}({base}, {ctx.literal(float(n))})'
         if e == sympy.Rational(1, 2):
-            return f'sqrt({base})'
+            return f'{fn("sqrt")}({base})'
         if e == sympy.Rational(-1, 2):
-            return f'rsqrt({base})'
-        return f'pow({base}, {p(e)})'
+            return f'{fn("rsqrt")}({base})'
+        return f'{fn("pow")}({base}, {p(e)})'
     for cls, op in _CUDA_REL:
         if isinstance(expr, cls):
             return f'({p(expr.lhs)} {op} {p(expr.rhs)})'
@@ -271,10 +277,10 @@ def cuda_expr(expr, ctx):
     if isinstance(expr, sympy.Not):
         return f'(!{p(expr.args[0])})'
     if isinstance(expr, (sympy.Min, sympy.Max)):
-        fn = 'fmin' if isinstance(expr, sympy.Min) else 'fmax'
+        name = fn('fmin' if isinstance(expr, sympy.Min) else 'fmax')
         out = p(expr.args[0])
         for a in expr.args[1:]:
-            out = f'{fn}({out}, {p(a)})'
+            out = f'{name}({out}, {p(a)})'
         return out
     if isinstance(expr, sympy.Piecewise):
         out = None
@@ -287,14 +293,14 @@ def cuda_expr(expr, ctx):
                 out = f'({p(cond)} ? {v} : {other})'
         return out
     if isinstance(expr, sympy.atan2):
-        return f'atan2({p(expr.args[0])}, {p(expr.args[1])})'
+        return f'{fn("atan2")}({p(expr.args[0])}, {p(expr.args[1])})'
     if isinstance(expr, sympy.sign):
         a = p(expr.args[0])
         zero = ctx.literal(0.0)
         return f'(({a} > {zero}) - ({a} < {zero}))'
     for sfunc, name in _CUDA_FN.items():
         if isinstance(expr, sfunc):
-            return f'{name}({p(expr.args[0])})'
+            return f'{fn(name)}({p(expr.args[0])})'
     raise CompilationError(
         f"No CUDA printing for {type(expr).__name__}: {expr}")
 
@@ -421,6 +427,15 @@ class DenseCtx(BaseCtx):
                 s = hl + start + off - oo
                 slices.append(slice(s, s + length))
                 idx_dims.append(dn)
+        for ax, sl in enumerate(slices):
+            # a halo-extended region (CIRE's temporaries, hoisted prologue
+            # items) reads past the domain: every tap must stay inside the
+            # allocation, where a Python slice would wrap or clip silently
+            taps = range(sl.start, sl.stop, sl.step or 1)
+            if taps and (taps[0] < 0 or taps[-1] >= arr.shape[ax]):
+                raise CompilationError(
+                    f"{e} over the region {dict(self.region)} reads outside "
+                    f"its allocation {tuple(arr.shape)}")
         arr = arr[tuple(slices)]
         # Align axes to the region's dimension order: free-dimension
         # contractions, transposed indexing and reduced-rank functions

@@ -5,8 +5,8 @@ Reference parity: this module plays the role of devito/ir/equations
 (devito/ir/clusters/algorithms.py — toposort, direction detection,
 SteppingDimension -> modulo lowering). Equations lower directly to
 slice-algebra over halo'd tensors, so the four reference IRs collapse
-into one. The CIRE pass (derivative temporaries) is not ported yet
-(ROADMAP.md), so this is the JAX package's lowering with ``cire=False``.
+into one. ``lower_expressions`` runs the CIRE pass (ir/cire.py) first when
+asked to.
 """
 
 import numpy as np
@@ -535,13 +535,25 @@ def _normalize_subs(subs):
     return out
 
 
-def lower_expressions(expressions, subs=None):
-    """Evaluate + lower a list of user expressions into a Schedule."""
+def lower_expressions(expressions, subs=None, cire=None):
+    """Evaluate + lower a list of user expressions into a Schedule.
+
+    ``cire``: None = follow configuration['cire']; False disables the
+    extraction pass (opt='noop' mode)."""
     from ..operations.interpolators import Interpolation, Injection
+    from ..parameters import configuration
 
     subs = _normalize_subs(subs)
 
     flat = list(_flatten_exprs(expressions))
+    if cire is None:
+        cire = configuration['cire']
+    if cire:
+        # CIRE analog: materialize nested / cross-equation-shared
+        # derivative subexpressions into temporaries (ir/cire.py)
+        from .cire import extract_derivative_temps
+        temps, flat = extract_derivative_temps(flat)
+        flat = list(temps) + list(flat)
 
     items = []
     for e in flat:
@@ -566,13 +578,10 @@ def lower_expressions(expressions, subs=None):
 
     # Transitive time dependence: an equation reading a function written
     # per-step is itself per-step even when its DIRECT reads carry no
-    # time index — cire2 = f(cire0) where cire0 = f(u[t]) read only
-    # timeless temps and lowered with time_dep=False, so the chunk
-    # planner declined it as a one-shot and the monolithic whole-grid
-    # trig fusion crashed the XLA compiler at the canonical TTI
-    # z-quarter (round 5). Accesses of TimeFunctions always carry a time
-    # index, so only reads of body-written TIMELESS temporaries are
-    # affected.
+    # time index -- cire2 = f(cire0) where cire0 = f(u[t]) reads only
+    # timeless temps, so it would otherwise land in the prologue and run
+    # once. Accesses of TimeFunctions always carry a time index, so only
+    # reads of body-written TIMELESS temporaries are affected.
     def _witem(it):
         if isinstance(it, LoweredEq):
             return {it.target.name}

@@ -23,7 +23,10 @@ equation's shape alone, records it on the plan (``plan.design`` and
 - ``'point'`` (``csrc/stencil.cuh``): one thread per point, every tap
   through the read-only cache. Every other equation: 2-D regions, taps
   off the axes (cross derivatives), wider stars, windows the tile does
-  not fit.
+  not fit, and halo-extended regions -- CIRE's temporaries and the
+  hoisted prologue items, computed into the halo -- whose first point the
+  launch's row pointers move back by the overhang (``_origin``). Every
+  tap, and the write, must stay inside its function's allocation.
 
 On a CUDA tensor the chosen design launches or raises; nothing falls back
 to the other design or to the plain version. At its first CUDA launch the
@@ -94,6 +97,7 @@ class StencilPlan:
     the staged taps' reach per axis; ``tile``: ``stream_tile``'s choice
     (stream design only). ``source``: the generated CUDA translation unit;
     ``key`` hashes it with every ``csrc/`` header it includes.
+    ``launches``: this plan's kernel launches (``stencil_update``).
     """
 
     def __init__(self, eq, groups, param_names, design, reason, staged,
@@ -107,6 +111,7 @@ class StencilPlan:
         self.centre = centre
         self.radii = radii
         self.tile = tile
+        self.launches = 0
         self.dtype = np.dtype(eq.target.dtype)
         self.ndim = len(eq.region)
         self.extents = tuple(b - a for a, b in eq.region)
@@ -177,8 +182,6 @@ def _plan_or_reason(eq, _design=None, _tile=None):
     fn = eq.target
     if fn.grid is None:
         return None, "target has no grid"
-    if any(a < 0 for a, _ in eq.region):
-        return None, "halo-extended region"
     ndim = len(eq.region)
     if ndim not in (2, 3):
         return None, f"{ndim}-D region"
@@ -190,6 +193,11 @@ def _plan_or_reason(eq, _design=None, _tile=None):
         return None, "increment"
     if np.dtype(fn.dtype) not in _CTYPE:
         return None, f"dtype {np.dtype(fn.dtype)}"
+    for (s, e), (hl, hr), oo, n in zip(eq.region, fn.halo, fn.origin_offset,
+                                        fn._allocated_space()):
+        if hl + s - oo < 0 or hl + e - oo > n:
+            return None, f"{fn.name}'s region {eq.region} writes outside " \
+                f"its allocation"
 
     own = [d.root.name if d.is_Derived else d.name
            for d in fn.space_dimensions]
@@ -322,6 +330,9 @@ def _choose_design(eq, groups, offsets, force=None, tile=None):
         return point("asked for")
     if len(eq.region) != 3:
         return point(f"{len(eq.region)}-D region")
+    if _halo_extended(eq):
+        return point(f"halo-extended region {eq.region}: the streaming "
+                     f"design takes regions inside the domain only")
     if not staged:
         return point("no group is read off its centre")
     for k in staged:
@@ -345,6 +356,15 @@ def _choose_design(eq, groups, offsets, force=None, tile=None):
     return ('stream', f"3-D star of {names}, radii {radii}, tile "
             f"{fit['ty']}x{fit['tz']}x{fit['tx']}, {fit['ctas_per_sm']} "
             f"CTAs/SM", staged, centre, radii, fit)
+
+
+def _halo_extended(eq):
+    """True when ``eq``'s region starts before its target's domain or stops
+    past it on some axis: CIRE's temporaries and the hoisted prologue
+    items are computed into the halo (ir/lowering.py ``_halo_write``)."""
+    fn = eq.target
+    return any(a < oo or b > oo + n for (a, b), oo, n in zip(
+        eq.region, fn.origin_offset, fn.shape[-len(eq.region):]))
 
 
 def _distinct_rows(eq, tk, toff):
@@ -589,6 +609,7 @@ def stencil_update(plan, rows, params):
         check_launch(rc, f"streaming stencil kernel for {plan.eq!r}")
         launches += 1
         launches_by_design['stream'] += 1
+        plan.launches += 1
         return
     for i, (r, org) in enumerate(zip([out] + list(ins), plan.origins)):
         st = r.stride()
@@ -605,6 +626,7 @@ def stencil_update(plan, rows, params):
     check_launch(rc, f"stencil kernel for {plan.eq!r}")
     launches += 1
     launches_by_design['point'] += 1
+    plan.launches += 1
 
 
 class _RowsCtx:

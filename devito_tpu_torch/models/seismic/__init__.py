@@ -3,3 +3,4 @@ from .source import *  # noqa
 from .geometry import *  # noqa
 from .acoustic import *  # noqa
 from .utils import *  # noqa
+from .tti import *  # noqa

@@ -11,7 +11,7 @@ import numpy as np
 import sympy
 
 from ..finite_differences.differentiable import evaluate_expr
-from ..ir.lowering import LoweredSparse, time_access_of
+from ..ir.lowering import LoweredEq, LoweredSparse, time_access_of
 from ..types.basic import AbstractFunction
 from ..exceptions import InvalidOperator
 
@@ -77,9 +77,37 @@ class Interpolation:
         expr = _shift_time(expr, self.u_t)
         if subs:
             expr = expr.subs(subs)
-        return [LoweredSparse('interp', self.sparse, expr,
-                              target_time_off=_u_t_delta(self.p_t),
-                              increment=self.increment)]
+        out = []
+        expr = self._densify(expr, out)
+        out.append(LoweredSparse('interp', self.sparse, expr,
+                                 target_time_off=_u_t_delta(self.p_t),
+                                 increment=self.increment))
+        return out
+
+    def _densify(self, expr, out):
+        """A sampled expression of two or more fields (rec on ``u + v``,
+        TTI) over 4096 or more interpolation corners is first computed
+        into a dense temporary (``<sparse>_itmp``, a dense equation of the
+        step that K1 runs), and the points gather from it once. This is
+        devito_tpu's rule, kept so that both packages build the same
+        schedule."""
+        from ..types.basic import retrieve_functions
+        npts = self.sparse.npoint or 0
+        accs = [a for a in retrieve_functions(expr)
+                if not a.function.is_SparseFunction]
+        if len(accs) < 2 or npts * (2 ** max(
+                len(self.sparse.grid.dimensions), 1)) < 4096:
+            return expr
+        grid = self.sparse.grid
+        from ..types.dense import Function
+        tmp = Function(name=f'{self.sparse.name}_itmp', grid=grid,
+                       space_order=self.sparse.interpolator.max_radius,
+                       dtype=accs[0].function.dtype)
+        type(tmp)._compiler_temp = True
+        region = tuple((0, n) for n in grid.shape)
+        out.append(LoweredEq(tmp.function, None, None, region, expr,
+                             time_dep=True))
+        return tmp.function
 
     def __add__(self, other):
         # reference API: `[eqs...] + sf.interpolate(...)` builds a flat

@@ -25,14 +25,13 @@ from ..types.basic import AbstractFunction, retrieve_functions
 from ..types.constant import Constant
 from ..types.dimension import Dimension
 from ..exceptions import InvalidArgument, ExecutionError
-from ..logger import debug, perf as log_perf
+from ..logger import perf as log_perf
 from ..parameters import configuration
 from .profiling import PerformanceSummary
 
 __all__ = ['Operator']
 
-#: ``opt`` options that steer the CIRE and invariant-hoisting passes: no-ops
-#: while 'advanced' lowers as 'noop'.
+#: ``opt`` options that steer the CIRE and invariant-hoisting passes.
 LOWERING_OPTIONS = ('cire', 'hoist-invariants', 'hoist-trig-taps')
 #: ``opt`` options devito_tpu honours that this package does not implement
 #: yet (ROADMAP.md Queue 1, item 7).
@@ -40,9 +39,9 @@ UNPORTED_OPTIONS = ('storage-dtype', 'storage-dtype-scope', 'errctl')
 
 
 def _parse_opt(opt):
-    """The mode of an ``opt`` argument: a mode string, or a tuple of a mode
-    and option dicts. Raises InvalidArgument on an unknown mode and on any
-    option outside ``LOWERING_OPTIONS``."""
+    """``(mode, options)`` of an ``opt`` argument: a mode string, or a
+    tuple of a mode and option dicts. Raises InvalidArgument on an unknown
+    mode and on any option outside ``LOWERING_OPTIONS``."""
     mode, options = opt, {}
     if isinstance(opt, (tuple, list)):
         mode = opt[0] if opt else None
@@ -59,10 +58,7 @@ def _parse_opt(opt):
                                   f"devito_tpu_torch yet")
         if k not in LOWERING_OPTIONS:
             raise InvalidArgument(f"Unknown opt option {k!r}")
-    if options:
-        debug(f"opt options {sorted(options)} accepted as no-ops: "
-              f"'{mode}' lowers as 'noop'")
-    return mode
+    return mode, options
 
 
 def _scalar(sym, v):
@@ -83,21 +79,34 @@ class Operator:
     run with ``op.apply(dt=..., time_M=...)`` (also accepts ``time`` as an
     alias for ``time_M``, and per-function data overrides by name).
 
-    ``opt``: 'noop' or 'advanced', also as ``(mode, {options})``. Until
-    the CIRE and invariant-hoisting passes are ported (ROADMAP.md),
-    'advanced' lowers exactly as 'noop' does, and the options that steer
-    those passes (``LOWERING_OPTIONS``) are accepted as no-ops. Every
-    other option raises InvalidArgument: those devito_tpu honours and this
-    package does not yet (``UNPORTED_OPTIONS``: narrow storage, the errctl
-    stability scan), and unknown ones.
+    ``opt``: 'noop' or 'advanced', also as ``(mode, {options})``, as in
+    devito_tpu. 'advanced' runs CIRE (ir/cire.py; ``'cire'``, on by
+    default, and ``configuration['cire']`` turn it off) and the hoisting of
+    time-invariant subexpressions into prologue temporaries
+    (ir/optimize.py; ``'hoist-invariants'``, on by default, with
+    ``'hoist-trig-taps'`` True, False or 'auto', the default); 'noop'
+    runs neither. Every other option raises InvalidArgument: those
+    devito_tpu honours and this package does not yet
+    (``UNPORTED_OPTIONS``: narrow storage, the errctl stability scan), and
+    unknown ones.
     """
 
     def __init__(self, expressions, subs=None, name='Kernel', opt=None,
                  **kwargs):
         self._name = name
-        self._opt = _parse_opt(opt)
+        self._opt, options = _parse_opt(opt)
         tic = _time.perf_counter()
-        self._schedule = lower_expressions(expressions, subs=subs)
+        cire_on = (self._opt != 'noop' and bool(options.get('cire', True))
+                   and bool(configuration['cire']))
+        self._schedule = lower_expressions(expressions, subs=subs,
+                                           cire=cire_on)
+        if self._opt != 'noop' and options.get('hoist-invariants', True):
+            # flop reduction: hoist time-invariant subexpressions into
+            # prologue temporaries (reference: Lift + CIRE 'invariants',
+            # passes/clusters/misc.py:13, aliases.py:34)
+            from ..ir.optimize import hoist_invariants
+            hoist_invariants(self._schedule, trig_taps=options.get(
+                'hoist-trig-taps', 'auto'))
         self._collect()
         self._runner = build_runner(self._schedule)
         self._estimate_flops()

@@ -51,9 +51,11 @@ configuration = Parameters()
 configuration.add('log-level', 'INFO',
                   accepted=['DEBUG', 'PERF', 'INFO', 'WARNING', 'ERROR'],
                   callback=set_log_level)
-# Lowering mode. 'advanced' lowers exactly as 'noop' until the CIRE and
-# invariant-hoisting passes are ported (ROADMAP.md, Queue 1).
+# Lowering mode: 'advanced' runs the CIRE and invariant-hoisting passes
+# (ir/cire.py, ir/optimize.py), 'noop' neither.
 configuration.add('opt', 'advanced', accepted=['noop', 'advanced'])
+# CIRE (derivative temporaries) under 'advanced'; False turns it off.
+configuration.add('cire', True, accepted=[True, False])
 # Where Function tensors live and operators run.
 configuration.add('device', 'cuda', accepted=['cuda', 'cpu'])
 configuration.add('develop-mode', False, accepted=[True, False])
@@ -64,6 +66,7 @@ configuration.add('dtype', 'float32', accepted=['float32', 'float64'])
 _ENV_MAP = {
     'DEVITO_TPU_TORCH_LOG_LEVEL': 'log-level',
     'DEVITO_TPU_TORCH_OPT': 'opt',
+    'DEVITO_TPU_TORCH_CIRE': 'cire',
     'DEVITO_TPU_TORCH_DEVICE': 'device',
     'DEVITO_TPU_TORCH_DEVELOP': 'develop-mode',
     'DEVITO_TPU_TORCH_DTYPE': 'dtype',

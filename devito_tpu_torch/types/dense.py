@@ -47,6 +47,11 @@ class DiscreteFunction(AbstractFunction):
     # data coherence states
     _HOST, _DEV, _BOTH = 'host', 'dev', 'both'
 
+    # compiler-generated temporary (CIRE's derivative temporaries, the
+    # interpolation's dense temporary): written every step, never
+    # user-facing
+    _compiler_temp = False
+
     @classmethod
     def __init_metadata__(cls, name=None, grid=None, shape=None,
                           dimensions=None, dtype=None, space_order=1,

@@ -277,3 +277,75 @@ def test_selftest_calls_on_the_cpu():
     assert res['first_call_ms'] is None
     assert res['device_us'] == res['k12_device_us'] == 0
     assert min(res['host_us'], res['host_us_alloc'], res['k12_host_us']) > 0
+
+
+#: Phase 10 at a tiny size: SO=12 on a 14x15x16 (+nbl 4) grid, 4 steps.
+TTI_TINY = dict(C.FULL, tti_shape=(14, 15, 16), tti_nbl=4, tti_so=12,
+                tti_steps=4, tti_prof_steps=2, tti_nrec=8, tti_cmp_n=12,
+                tti_cmp_so=8, tti_cmp_steps=3, tti_stag_n=12, tti_stag_so=4,
+                tti_stag_steps=3, tti_2d_shape=(20, 18),
+                tti_dot_shape=(12, 13, 14), tti_dot_so=4, tti_dot_tn=30.)
+
+
+def test_tti_solver_runs_the_steps_asked_for():
+    from devito_tpu_torch import switchconfig
+    with switchconfig(device='cpu'):
+        s = C.tti_solver((10, 11, 12), 8, 4, 7, 5)
+        kinds = C.tti_kinds(s.op_fwd(None))
+        assert s.geometry.nt - 2 == 7 and s.geometry.rec.npoint == 5
+    assert {k for k, _, _ in kinds} == {
+        'body update', 'CIRE temporary', 'hoisted prologue item'}
+    assert all(p.design == 'point' for _, _, p in kinds)
+    assert not C.trig_taps_on(s.op_fwd(None))
+
+
+def test_tti_phase_runs_on_the_cpu():
+    """Phase 10 at a tiny size on the CPU, where no kernel launches: the
+    halo-extended items equal their plain version, the forward's counts
+    stay at 0, both hoist-trig-taps settings give the same record, the
+    comparison with the plain version and the fp64 dot tests hold, and
+    the bound counts the step's bytes and operations."""
+    from devito_tpu_torch import switchconfig
+    record = {'launches': 0, 'launches_by_design': {'stream': 0, 'point': 0}}
+    with switchconfig(device='cpu'):
+        res = C.tti(torch.device('cpu'), TTI_TINY, record,
+                    torch.Generator().manual_seed(1))
+    assert record['launches'] == 0 and res is record['tti']
+    import json
+    json.dumps(res)      # the kernels line carries it
+    assert {r['item'].split()[-1][:4] for r in res['halo']} >= {'cire'}
+    assert all(r['max_abs_err'] <= r['tol'] for r in res['halo'])
+    f = res['forward']
+    assert f['steps'] == 4 and not f['hoist_trig_taps_auto']
+    assert res['forward_forced']['hoist_trig_taps'] is True
+    assert res['forward_forced']['rec_max_abs_diff'] == 0
+    # the function's bytes: u and v read at t and t-1, m, damp, epsilon,
+    # delta, theta and phi read, u and v written; the schedule's floor
+    # adds its temporaries' round trips
+    npts = int(np.prod([n + 2 * 4 for n in TTI_TINY['tti_shape']]))
+    assert f['bound_bytes'] == 12 * npts * 4 and f['bound_flops'] > 0
+    assert f['schedule_bytes'] > f['bound_bytes']
+    # four CIRE temporaries, u and v
+    assert f['launches_per_step'] == 6 and not any(
+        f['launches_by_kind'].values())
+    assert abs(res['dot']['F']) < 1e-11 and abs(res['dot']['J']) < 1e-12
+    assert res['compare']['max_abs_diff'] <= res['compare']['tol']
+
+
+def test_tti_receiver_gather_both_ways_agree():
+    """With 512 receivers in 3-D the schedule computes the sampled u + v
+    into a dense temporary (devito_tpu's 4096-corner rule); the phase
+    times that way against the direct gather from the fields, and both
+    give the same record."""
+    from devito_tpu_torch import switchconfig
+    with switchconfig(device='cpu'):
+        s = C.tti_solver((10, 11, 12), 4, 4, 3, 512)
+        kinds = C.tti_kinds(s.op_fwd(None))
+        rec, u, v, _ = s.forward()
+        out = C.tti_gather_ms(s, kinds, u, v, torch.device('cpu'))
+        assert out['npoint'] == 512 and np.abs(rec.data).max() > 0
+        assert out['max_abs_diff'] <= 1e-6 * np.abs(rec.data).max()
+        assert min(out['itmp_ms'], out['gather_ms'], out['direct_ms']) > 0
+        small = C.tti_solver((10, 11, 12), 4, 4, 3, 8)
+        assert C.tti_gather_ms(small, C.tti_kinds(small.op_fwd(None)),
+                               u, v, torch.device('cpu')) is None

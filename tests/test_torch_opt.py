@@ -1,7 +1,7 @@
 """The ``opt`` argument of devito_tpu_torch's Operator: every option the
 port does not implement raises InvalidArgument (narrow storage, the errctl
-scan, unknown keys), and the lowering options are no-ops that build the
-schedule 'noop' builds, while 'advanced' lowers as 'noop'."""
+scan, unknown keys), and the lowering options steer CIRE and the hoisting
+pass as devito_tpu's do."""
 
 import numpy as np
 import pytest
@@ -54,13 +54,39 @@ def test_bad_modes_and_option_containers_raise(opt):
         dt.Operator(eq, subs=grid.spacing_map, opt=opt)
 
 
+def _tti_items(pkg_tti, opt):
+    """Normalised schedule items of a small 3-D TTI forward built with
+    ``opt`` (tests/test_torch_cire.py ``schedule_items``)."""
+    from test_torch_cire import schedule_items
+    s = pkg_tti.tti_setup(shape=(14, 15, 16), spacing=(15.,) * 3, tn=30.,
+                          space_order=4, nbl=4, opt=opt)
+    return schedule_items(s.op_fwd(None))
+
+
 @pytest.mark.parametrize('options', [{'cire': False},
                                      {'hoist-invariants': False},
                                      {'hoist-trig-taps': True},
                                      {}])
 def test_lowering_options_build_the_noop_schedule(options):
+    """'advanced' runs CIRE and the hoisting pass. Each lowering option
+    changes a TTI schedule as it changes devito_tpu's: the port's schedule
+    under the option equals devito_tpu's, and differs from the default's
+    and from 'noop''s exactly where devito_tpu's does. The acoustic update
+    has nothing to extract or hoist, so under the option it still builds
+    the 'noop' schedule, and runs to the bit as 'noop' does."""
+    from devito_tpu.models.seismic import tti as tj
+    from devito_tpu_torch.models.seismic import tti as tt
+    opt = ('advanced', options)
+    got = {k: _tti_items(tt, o) for k, o in
+           (('opt', opt), ('default', None), ('noop', 'noop'))}
+    want = {k: _tti_items(tj, o) for k, o in
+            (('opt', opt), ('default', None), ('noop', 'noop'))}
+    assert got == want
+    assert (got['opt'] == got['default']) == (options == {})
+    assert got['opt'] != got['noop']
+
     grid, u, eq = _bench_eq()
-    op = dt.Operator(eq, subs=grid.spacing_map, opt=('advanced', options))
+    op = dt.Operator(eq, subs=grid.spacing_map, opt=opt)
     noop = dt.Operator(eq, subs=grid.spacing_map, opt='noop')
     assert str(op) == str(noop)
     start = u.data_with_halo.copy()

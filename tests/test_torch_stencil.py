@@ -234,3 +234,138 @@ def test_kernel_matches_reference_on_card(shape, so, dtype):
     assert K.launches == before + 1
     tol = (1e-5 if dtype == np.float32 else 1e-12) * ref.abs().max().item()
     assert (out - ref).abs().max().item() <= tol
+
+
+def _tti_items(shape, so, dtype=np.float32, trig='auto'):
+    """The port's TTI centered forward at ``shape``: (operator, its CIRE
+    temporaries' items, its hoisted prologue items)."""
+    from devito_tpu_torch.models.seismic import tti as tt
+    s = tt.tti_setup(shape=shape, spacing=[15.] * len(shape), tn=30.,
+                     space_order=so, nbl=4, dtype=dtype,
+                     opt=('advanced', {'hoist-trig-taps': trig}))
+    op = s.op_fwd(None)
+    temps = [it for it in op.schedule.body if hasattr(it, 'region')
+             and it.target.name.startswith('cire')]
+    return op, temps, [it for it in op.schedule.prologue if it.internal]
+
+
+@pytest.mark.parametrize('shape,so', [((14, 15), 8), ((10, 11, 12), 4)])
+def test_plan_for_takes_halo_extended_regions(shape, so):
+    """CIRE's temporaries are computed into the halo: the point design
+    takes them, with the write moved back by the overhang; the streaming
+    design declines them by shape, with its reason."""
+    _, temps, _ = _tti_items(shape, so)
+    ext = [it for it in temps if it.region[0][0] < 0]
+    assert ext
+    for it in ext:
+        plan = K.plan_for(it)
+        assert plan is not None and plan.design == 'point'
+        hw = -it.region[0][0]
+        assert plan.origins[0] == tuple(h - hw for h, _ in it.target.halo)
+        if len(shape) == 3:
+            assert 'halo-extended region' in plan.design_reason
+
+
+def test_plan_for_declines_taps_outside_the_allocation():
+    """The same temporary over a region wider than its operands' halo:
+    a tap would leave u's allocation, so the kernel declines it, and the
+    translator raises rather than read past the allocation."""
+    from devito_tpu_torch.compiler.executor import _exec_dense
+    from devito_tpu_torch.ir.lowering import LoweredEq
+    from devito_tpu_torch.exceptions import CompilationError
+    op, temps, _ = _tti_items((14, 15), 4)
+    it = temps[0]
+    so = it.target.space_order
+    wide = dt.Function(name='wide', grid=it.target.grid, space_order=3 * so)
+    eq = LoweredEq(wide, None, None, tuple((a - so, b + so)
+                                           for a, b in it.region), it.rhs)
+    assert K.plan_for(eq) is None
+    assert 'reads outside its allocation' in K.decline_reason(eq)
+    bufs, params = op.arguments(time_M=1, dt=0.1)
+    bufs['wide'] = wide._device_array()
+    with pytest.raises(CompilationError, match='outside its allocation'):
+        _exec_dense(eq, None, bufs, params, 1)
+
+
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+@pytest.mark.parametrize('shape,so', [((14, 15), 8), ((10, 11, 12), 4)])
+def test_plain_version_over_halo_extended_region_equals_translator(
+        shape, so, dtype):
+    """On seeded rows, the kernel's plain version of each CIRE temporary
+    and hoisted prologue item writes what the torch translator writes, over
+    the whole halo-extended region, and nothing outside it."""
+    from devito_tpu_torch.compiler.executor import _exec_dense, plan_rows
+    op, temps, hoisted = _tti_items(shape, so, dtype, trig=True)
+    assert hoisted and all(it.region[0][0] < 0 for it in hoisted)
+    bufs, params = op.arguments(time_M=1, dt=0.1)
+    gen = torch.Generator().manual_seed(3)
+    for name, b in bufs.items():
+        if b.is_floating_point() and not name.endswith('_coords'):
+            b.copy_(torch.rand(b.shape, generator=gen, dtype=b.dtype))
+    for it in hoisted + temps:
+        plan = K.plan_for(it)
+        assert plan is not None
+        t = None if it in hoisted else 1
+        out, ins = plan_rows(plan, bufs, t, params)
+        out.zero_()
+        K.stencil_update(plan, (out, ins), params)    # CPU: plain version
+        got = out.clone()
+        out.zero_()
+        _exec_dense(it, None, bufs, params, t)        # the translator
+        assert got.abs().max() > 0
+        tol = (1e-6 if dtype == np.float32 else 1e-13) * got.abs().max()
+        assert (got - out).abs().max() <= tol
+        region = tuple(slice(o, o + n) for o, n in
+                       zip(plan.origins[0], plan.extents))
+        outside = got.clone()
+        outside[region] = 0
+        assert not outside.any()
+
+
+def test_trig_prologue_source_keeps_fp32():
+    """A hoisted trig item and a TTI update print fp32 math calls in an
+    fp32 kernel (sinf, cosf, sqrtf; no double-precision call), fp64 ones
+    in an fp64 kernel."""
+    import re
+    for dtype, names in ((np.float32, ('cosf(', 'sinf(')),
+                         (np.float64, ('cos(', 'sin('))):
+        op, temps, hoisted = _tti_items((10, 11, 12), 4, dtype, trig=True)
+        srcs = [K.plan_for(it).source for it in hoisted]
+        assert any(n in s for s in srcs for n in names)
+        body = [K.plan_for(it).source for it in op.schedule.body
+                if hasattr(it, 'region')]
+        if dtype == np.float32:
+            calls = set(re.findall(r'\b([a-z]+[0-9]*)\(', ' '.join(
+                s.split('return', 1)[1] for s in srcs + body)))
+            assert not calls & {'sin', 'cos', 'sqrt', 'rsqrt', 'pow', 'exp'}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+@pytest.mark.parametrize('shape,so', [((64, 48), 8), ((30, 33, 40), 12)])
+def test_halo_extended_kernel_matches_reference_on_card(shape, so, dtype):
+    """K1's point design over CIRE's halo-extended temporaries and the
+    hoisted trig items against its plain version, on seeded rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card)")
+    from devito_tpu_torch.compiler.executor import plan_rows
+    with dt.switchconfig(device='cuda'):
+        op, temps, hoisted = _tti_items(shape, so, dtype, trig=True)
+        bufs, params = op.arguments(time_M=1, dt=0.1)
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    for name, b in bufs.items():
+        if b.is_floating_point() and not name.endswith('_coords'):
+            b.copy_(torch.rand(b.shape, generator=gen, device='cuda',
+                               dtype=b.dtype))
+    for it in hoisted + temps:
+        plan = K.plan_for(it)
+        out, ins = plan_rows(plan, bufs, None if it in hoisted else 1, params)
+        out.zero_()
+        ref = out.clone()
+        before = K.launches
+        K.stencil_update(plan, (out, ins), params)
+        K.stencil_update_reference(plan, (ref, ins), params)
+        torch.cuda.synchronize()
+        assert K.launches == before + 1
+        tol = (1e-5 if dtype == np.float32 else 1e-12) * ref.abs().max()
+        assert (out - ref).abs().max() <= tol

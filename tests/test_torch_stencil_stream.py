@@ -45,7 +45,9 @@ def _acoustic(pkg, shape, so, dtype=np.float32):
 
 
 def _plan_of(eq, grid):
-    (it,) = _dense(lower_t([eq], subs=grid.spacing_map))
+    # lowered as under opt='noop': CIRE would take a nested derivative
+    # (u.dx.dy) apart into a temporary and an update along one axis each
+    (it,) = _dense(lower_t([eq], subs=grid.spacing_map, cire=False))
     return K.plan_for(it)
 
 
