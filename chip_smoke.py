@@ -106,8 +106,9 @@
    included, each body plan launched once a step and each hoisted item
    once, no equation in the translator; its loop and host time a step,
    its bound, peak device memory, a torch.profiler window of warm steps
-   (device time by kernel, idle share) and each equation's launch timed
-   alone; hoist-trig-taps' 'auto' setting at that size, and the same
+   (device time by kernel, idle share) and each equation's launch at that
+   shape held against its plain version on seeded rows (TOL x max) and
+   timed alone; hoist-trig-taps' 'auto' setting at that size, and the same
    forward with it forced the other way, timed and with the same record;
    (3) the same forward at 96^3 (+nbl 10) SO=8 through the kernels against
    the plain version on the CPU (RUN_TOL); (4) the staggered kernel's
@@ -115,6 +116,33 @@
    launches counted; (5) the fp64 dot tests F (atol 1e-11) and J (atol
    1e-12) through the kernels on tests/test_adjoint.py's 24x26x28 model
    at SO=8.
+11. The other solvers (models/seismic elastic, viscoelastic,
+   viscoacoustic, self_adjoint) and the geometry's sinc and precomputed
+   interpolation: every operator of the phase is lowered first and all
+   its K1 units built at once, each dense equation's design, reason and
+   group count and each unit's nvcc seconds, registers and spills logged,
+   no equation in the translator; (2) the elastic and viscoelastic
+   forwards, viscoacoustic sls (time order 2) forward and adjoint at SO=4
+   and self-adjoint forward and adjoint at SO=8, each at 512^3 + nbl 10
+   through its *_setup's layered model with setup_geometry's receivers
+   (512 x 512 at the surface) over 100 steps or more, every count at 0
+   just before and read just after, each plan launched once a step: loop
+   and host time a step, its bound and this schedule's floor, peak device
+   memory, finite non-zero records, each equation's launch at that shape
+   held against its plain version on seeded rows (TOL x max) and timed
+   alone, a torch.profiler window of warm steps (device time by kernel,
+   idle share), and a warm run with CUDA events around every K1 launch
+   and every sparse operation (the loop's time in each, and outside all
+   of them); (3) each of them and the other five viscoacoustic kernels,
+   forward and adjoint, and the elastic forward with sinc and with
+   precomputed receivers, at 48^3 + nbl 10 through the kernels against
+   the plain versions on the CPU (RUN_TOL); (4) the fp64 dot tests of
+   tests/test_viscoacoustic.py (six kernels, 21x25) and
+   tests/test_self_adjoint.py (41x41, SO=8) through the kernels, atol
+   1e-11; (5) the elastic forward at full width
+   with sinc (r=4) and with precomputed receivers, driven as (2), each
+   sparse operation timed alone beside linear's, and its loop split as
+   (2) splits it.
 
 Every failure raises, and the script exits non-zero. The next-to-last
 lines are the kernel records (one JSON line, a record per kernel, each with
@@ -123,8 +151,8 @@ result needs (each input point it reads once, each output point written
 once) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s, the H100
 SXM's data-sheet peaks -- the one PyTorch call that computes the same
 function, where there is one, and its launches on its own path and on the
-main path, phases 4, 5, 9 and 10, every kernel's count read there) and the
-card's name and power limit; the last line is {"ok": true, "device":
+main path, phases 4, 5, 9, 10 and 11, every kernel's count read there) and
+the card's name and power limit; the last line is {"ok": true, "device":
 {...}}.
 """
 
@@ -183,7 +211,15 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
             tti_nrec=512, tti_cmp_n=96, tti_cmp_so=8, tti_cmp_steps=60,
             tti_stag_n=256, tti_stag_so=8, tti_stag_steps=60,
             tti_2d_shape=(600, 500), tti_dot_shape=(24, 26, 28),
-            tti_dot_so=8, tti_dot_tn=250.)
+            tti_dot_so=8, tti_dot_tn=250.,
+            # phase 11: the other solvers' full width (+nbl), grid spacing,
+            # steps and the warm steps profiled; the size and steps of their
+            # comparison with the CPU; the fp64 dot tests' models
+            # (tests/test_viscoacoustic.py, tests/test_self_adjoint.py)
+            sol_n=512, sol_nbl=10, sol_spacing=10., sol_steps=100,
+            sol_prof_steps=5, sol_cmp_n=48, sol_cmp_steps=40,
+            sol_dot_shape=(21, 25), sol_dot_tn=250., sa_dot_shape=(41, 41),
+            sa_dot_tn=250.)
 #: (name, source, TPU kernel replaced, the part of the kernel's mangled name
 #: that picks its ptxas report out of its unit's) of every kernel, in record
 #: order.
@@ -953,6 +989,9 @@ def _smoke(device, sizes):
     tti(device, sizes, record, gen)
     if (K.selftests, K.selftest_launches) != (on_card, on_card):
         raise AssertionError("the TTI path ran the self-test again")
+    solvers(device, sizes, record, gen)
+    if (K.selftests, K.selftest_launches) != (on_card, on_card):
+        raise AssertionError("the other solvers ran the self-test again")
     for rec in records:
         rec.setdefault('library_ms', None)
         rec.setdefault('point_ms', None)
@@ -2670,10 +2709,13 @@ def tti_bound(op, kinds):
     stands for the reads of the equation that computes it, so the bound
     leaves out the temporaries' round trips. The schedule bytes count
     every field that this schedule reads and writes, temporaries
-    included: the floor of this schedule, not of the function. The flops
-    are the operations of each equation's point expression
-    (``point_flops``) over its region. The sparse operations and the
-    prologue's own work are left out."""
+    included: the floor of this schedule, not of the function. A read of
+    a row that the step's own updates write (a first-order system's
+    v.forward in its stress update) is inside the function, so the bytes
+    leave it out; the schedule bytes count it. The flops are the
+    operations of each equation's point expression (``point_flops``) over
+    its region. The sparse operations and the prologue's own work are left
+    out."""
     from devito_tpu_torch.kernels import stencil as K
     from devito_tpu_torch.ir.lowering import time_access_of
     from devito_tpu_torch.types.basic import retrieve_functions
@@ -2690,6 +2732,8 @@ def tti_bound(op, kinds):
                 yield from user_reads(temps[name], seen)
 
     reads, writes, sreads, swrites, flops = set(), set(), set(), set(), 0
+    rows = {(eq.target.name, str((eq.time_kind, eq.time_off)))
+            for kind, eq, _ in kinds if kind == 'body update'}
     for kind, eq, plan in kinds:
         if kind == 'hoisted prologue item':
             continue
@@ -2697,7 +2741,7 @@ def tti_bound(op, kinds):
             sreads.add((a.function.name, str(time_access_of(a))))
         swrites.add(eq.target.name)
         if kind == 'body update':
-            reads.update(user_reads(eq, set()))
+            reads.update(set(user_reads(eq, set())) - rows)
             writes.add(eq.target.name)
         flops += K.point_flops(plan) * int(np.prod(plan.extents))
     npts = int(np.prod(op._grid.shape))
@@ -2804,10 +2848,10 @@ def halo_cases(device, ops, gen):
     return rows
 
 
-def tti_profile(solver, kinds, k, device):
+def tti_profile(solver, kinds, k, device, gen):
     """Device time of ``k`` warm steps of ``solver``'s forward by kernel
     (torch.profiler, the prologue in), the idle share of the loop's
-    time, and ``tti_launch_ms``."""
+    time, and ``launch_ms`` of its forward."""
     out = {}
 
     def run():
@@ -2820,25 +2864,9 @@ def tti_profile(solver, kinds, k, device):
                 idle_share=1 - busy / loop if loop else None,
                 kernels=[dict(name=n[:120], ms=m, calls=c)
                          for n, m, c in rows[:12]],
-                per_equation=tti_launch_ms(solver, kinds, u, v, device))
-
-
-def tti_launch_ms(solver, kinds, u, v, device):
-    """Each K1 launch of ``solver``'s forward timed alone, by equation
-    (CUDA events, 3 launches after a warm-up, on the rows of step 1 of the
-    wavefields ``u`` and ``v``)."""
-    from devito_tpu_torch.compiler.executor import plan_rows
-    from devito_tpu_torch.kernels import stencil as K
-    bufs, params = solver.op_fwd(None).arguments(time_M=1, dt=solver.dt,
-                                                 u=u, v=v)
-    out = []
-    for kind, eq, plan in kinds:
-        t = None if kind == 'hoisted prologue item' else 1
-        r = plan_rows(plan, bufs, t, params)
-        out.append(dict(kind=kind, target=eq.target.name,
-                        ms=time_ms(lambda: K.stencil_update(plan, r, params),
-                                   3, device)))
-    return out
+                per_equation=launch_ms(solver.op_fwd(None), kinds,
+                                       dict(u=u, v=v), solver.dt, device,
+                                       gen))
 
 
 def tti_gather_ms(solver, kinds, u, v, device):
@@ -2907,6 +2935,10 @@ def tti(device, sizes, record, gen):
     on_card = device.type == 'cuda'
     res = record['tti'] = {}
     release(device)
+    if on_card:
+        res['held_at_start'] = torch.cuda.memory_allocated(device)
+        log(f"[tti] device memory allocated at the start of phase 10: "
+            f"{res['held_at_start'] / 1e9:.2f} GB")
     shape, nbl, so = sizes['tti_shape'], sizes['tti_nbl'], sizes['tti_so']
     steps, h = sizes['tti_steps'], sizes['tti_spacing']
     cn, cso, csteps = sizes['tti_cmp_n'], sizes['tti_cmp_so'], \
@@ -2973,6 +3005,7 @@ def tti(device, sizes, record, gen):
             f"{u['nvcc_s'] or 0:.2f} s; {u['ptxas'] or 'no ptxas report'}")
     res.update(units=units, nvcc_s=nvcc_s, lower_s=lower_s,
                n_units=len(uniq))
+    del plans, uniq     # they would keep every operator's temporaries
 
     # -- (1) K1's point design on halo-extended regions -------------------
     res['halo'] = halo_cases(device, halo_ops, gen)
@@ -3003,7 +3036,8 @@ def tti(device, sizes, record, gen):
     (rec2, u2, v2, _), by2, _ = tti_drive(
         'TTI forward, trig taps forced', forced.forward, k2, loop_steps(fop2),
         device)
-    forced_eqs = tti_launch_ms(forced, k2, u2, v2, device)
+    forced_eqs = launch_ms(forced.op_fwd(None), k2, dict(u=u2, v=v2),
+                           forced.dt, device, gen)
     gather = tti_gather_ms(forced, k2, u2, v2, device)
     del u2, v2
     r2 = np.array(rec2.data)
@@ -3070,8 +3104,14 @@ def tti(device, sizes, record, gen):
             f"4096-corner rule; the direct gather from the fields "
             f"{gather['direct_ms']:.4f} ms; max|diff| "
             f"{gather['max_abs_diff']:.3e}")
+    # nothing below reads the forced setting's solver: its model and
+    # temporaries are freed before the profile's seeded rows need room
+    del forced, fop2, turns, k2
+    ops.pop('forward, trig taps forced')
+    kinds.pop('forward, trig taps forced')
+    release(device)
     prof = res['forward']['profile'] = tti_profile(
-        main, fk, sizes['tti_prof_steps'], device)
+        main, fk, sizes['tti_prof_steps'], device, gen)
     log(f"[tti-profile] {prof['steps']} warm steps: loop "
         f"{prof['loop_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
         f"idle share {100 * (prof['idle_share'] or 0):.1f} %; by kernel: "
@@ -3080,9 +3120,8 @@ def tti(device, sizes, record, gen):
     log("[tti-profile] a launch by equation (CUDA events): " + '; '.join(
         f"{e['kind']} {e['target']} {e['ms']:.3f} ms"
         for e in prof['per_equation']))
-    del r, forced, fop2, main, fop
+    del r, main, fop, sv, op_
     ops.pop('forward')
-    ops.pop('forward, trig taps forced')
     release(device)
 
     # -- (3) the forward at cn^3 against the plain version on the CPU -----
@@ -3154,6 +3193,697 @@ def tti(device, sizes, record, gen):
     return res
 
 
+#: Phase 11's solvers at full width and their space orders.
+SOLVERS = {'elastic': 4, 'viscoelastic': 4, 'viscoacoustic sls-2': 4,
+           'self-adjoint': 8}
+#: The viscoacoustic kernels, (rheology, time order), as
+#: models/seismic/viscoacoustic.py ``stencils`` names them.
+VISCO = [(k, o) for k in ('sls', 'kv', 'maxwell') for o in (1, 2)]
+
+
+def precomputed_rec(geom, name='rec', coordinates=None):
+    """A receiver set of ``geom`` as a precomputed sparse function: each
+    point's minimum corner and the linear weights of its two points an
+    axis, computed on the host from the geometry's positions."""
+    from devito_tpu_torch import PrecomputedSparseTimeFunction
+    grid = geom.grid
+    pos = (np.asarray(coordinates if coordinates is not None else
+                      geom.rec_positions) - np.array(grid.origin)) / \
+        np.array(grid.spacing, dtype=np.float64)
+    base = np.floor(pos)
+    frac = pos - base
+    return PrecomputedSparseTimeFunction(
+        name=name, grid=grid, npoint=len(pos), nt=geom.nt, r=2,
+        gridpoints=base.astype(np.int32),
+        interpolation_coeffs=np.stack([1 - frac, frac], -1).astype(
+            grid.dtype))
+
+
+def solver_for(kind, shape, so, nbl, steps, spacing, dtype=np.float32,
+               interpolation='linear', model=None, tn=None):
+    """The solver ``kind`` (a key of SOLVERS, or 'viscoacoustic <rheology>-
+    <time order>') built by its ``*_setup`` on its layered model at
+    ``shape`` (+``nbl``), ``spacing`` m, ``so``, in ``dtype`` (an elastic
+    one on ``model`` when given), with setup_geometry's geometry -- a
+    Ricker at the centre of the surface, one spacing deep, and a receiver
+    at every surface node (3-D: shape[0] x shape[1]), two spacings deep --
+    up to ``tn`` ms, or over ``steps`` steps, its receivers interpolated by
+    ``interpolation`` ('linear', 'sinc' at r=4, or 'precomputed': linear
+    weights as precomputed tables)."""
+    from devito_tpu_torch.models import seismic as S
+    if model is not None:
+        s = S.ElasticWaveSolver(model, None, space_order=so)
+    else:
+        if kind.startswith('viscoacoustic'):
+            rheology, order = kind.split()[1].split('-')
+            setup, kw = S.viscoacoustic_setup, dict(kernel=rheology,
+                                                    time_order=int(order))
+        else:
+            setup, kw = {'elastic': S.elastic_setup,
+                         'viscoelastic': S.viscoelastic_setup,
+                         'self-adjoint': S.sa_setup}[kind], {}
+        kw['npad' if kind == 'self-adjoint' else 'nbl'] = nbl
+        s = setup(shape=shape, spacing=(spacing,) * len(shape), tn=1.,
+                  space_order=so, dtype=dtype, **kw)
+    # steps: the time axis has ceil((tn + dt) / dt) = steps + 2 rows
+    tn = tn or (steps + .5) * s.model.critical_dt
+    s.geometry = S.setup_geometry(
+        s.model, tn, interpolation='linear' if interpolation ==
+        'precomputed' else interpolation)
+    if interpolation == 'precomputed':
+        geom = s.geometry
+        geom.new_rec = lambda name='rec', coordinates=None: \
+            precomputed_rec(geom, name, coordinates)
+    return s
+
+
+def wavefields(out):
+    """{name: function} of every wavefield component in a solver's
+    outputs (vector and tensor components, time functions)."""
+    fields = {}
+    for f in out:
+        comps = f.values() if hasattr(f, 'values') else \
+            getattr(f, 'components', [f])
+        for c in comps:
+            if getattr(c, 'is_TimeFunction', False) and \
+                    not getattr(c, 'is_SparseFunction', False):
+                fields[c.name] = c
+    return fields
+
+
+def records_of(out):
+    """The sparse records (receivers, adjoint sources) in a solver's
+    outputs, as arrays, by name; raises unless each is finite and
+    non-zero."""
+    recs = {f.name: np.array(f.data) for f in out
+            if getattr(f, 'is_SparseFunction', False)}
+    for name, r in recs.items():
+        if not (np.isfinite(r).all() and np.abs(r).max() > 0):
+            raise AssertionError(f"record {name} is not finite and "
+                                 f"non-zero")
+    return recs
+
+
+def held(label, plan, rows, params, device):
+    """K1 of ``plan`` on ``rows`` against its plain version on the same
+    rows (the plain one first, into a copy of the target row); raises
+    beyond TOL x max |plain|. Returns (max |kernel - plain|, tolerance)."""
+    from devito_tpu_torch.kernels import stencil as K
+    out, ins = rows
+    ref = out.clone()
+    K.stencil_update_reference(plan, (ref, ins), params)
+    K.stencil_update(plan, rows, params)
+    sync(device)
+    top = ref.abs().max().item()
+    err, tol = (out - ref).abs().max().item(), TOL[plan.dtype.type] * top
+    if not (err <= tol and 0 < top < float('inf')):
+        raise AssertionError(f"{label}: {plan.eq!r} on the {plan.design} "
+                             f"design: max|kernel - plain| {err:.3e} > "
+                             f"{tol:.3e}")
+    return err, tol
+
+
+def launch_ms(op, kinds, fields, dt, device, gen, alts=None):
+    """Each K1 launch of ``op``, by equation, at the shapes its loop gives
+    it (the rows of step 1; ``fields`` stand in for the operator's own
+    wavefields, which are then not allocated): the wavefields' rows and
+    the target row seeded in [1, 2) over the whole allocation, the
+    model's and the temporaries' rows as they are (a seeded model could
+    divide by zero: sls's relaxation times at a point where two equal
+    draws meet). Each launch is held against its plain version (``held``:
+    ``max_abs_err``, ``tol``), then timed alone (``ms``: CUDA events, 3
+    launches after a warm-up). A row read and written is one seeded row.
+    With ``alts`` ({id(plan): the same equation's point-design plan}), a
+    streaming equation's point design is held and timed beside it
+    (``point_max_abs_err``, ``point_ms``)."""
+    from devito_tpu_torch.compiler.executor import plan_rows
+    from devito_tpu_torch.kernels import stencil as K
+    bufs, params = op.arguments(time_M=1, dt=dt, **fields)
+    out = []
+    for kind, eq, plan in kinds:
+        t = None if kind == 'hoisted prologue item' else 1
+        seeded = {}
+
+        def seed(r, fn):
+            key = (r.data_ptr(), r.dtype, tuple(r.shape))
+            if key not in seeded and fn is not None and \
+                    not getattr(fn, 'is_TimeFunction', False):
+                return r
+            if key not in seeded:
+                seeded[key] = r.clone().uniform_(1, 2, generator=gen)
+            return seeded[key]
+        dst, ins = plan_rows(plan, bufs, t, params)
+        rows = (seed(dst, None), [seed(r, g['fn'])
+                                  for r, g in zip(ins, plan.groups)])
+        row = dict(kind=kind, target=eq.target.name, design=plan.design,
+                   groups=len(plan.groups))
+        for pre, p in (('', plan), ('point_', (alts or {}).get(id(plan)))):
+            if p is None:
+                continue
+            row[f'{pre}max_abs_err'], row['tol'] = held(
+                f'{op.name} at {tuple(dst.shape)}', p, rows, params, device)
+            row[f'{pre}ms'] = time_ms(
+                lambda: K.stencil_update(p, rows, params), 3, device)
+        out.append(row)
+        del seeded, rows
+    return out
+
+
+def sparse_ms(op, fields, dt, device):
+    """Each sparse operation of ``op``'s time loop timed alone on the rows
+    of step 1 of ``fields``, the geometry built before: [(label, points,
+    ms, device ms)], ``ms`` by ``time_ms`` (3 calls after a warm-up; CUDA
+    events, so host-paced where the host is slower than the device) and
+    ``device ms`` the device time of a call under torch.profiler; and the
+    host ms the first call took with its geometry built (synchronised)."""
+    from devito_tpu_torch.compiler.executor import _exec_sparse
+    from devito_tpu_torch.ir.lowering import LoweredSparse
+    bufs, params = op.arguments(time_M=1, dt=dt, **fields)
+    geom, rows = {}, []
+    sync(device)
+    tic = time.perf_counter()
+    items = [it for it in op.schedule.body if isinstance(it, LoweredSparse)]
+    for it in items:
+        _exec_sparse(it, bufs, params, 1, geom)
+    sync(device)
+    first = (time.perf_counter() - tic) * 1e3
+    for it in items:
+        def call():
+            _exec_sparse(it, bufs, params, 1, geom)
+        dev = sum(m for _, m, _ in profiled(
+            lambda: [call() for _ in range(3)], device)) / 3
+        rows.append((f'{it.kind} {it.sparse.name}', it.sparse.npoint,
+                     time_ms(call, 3, device), dev))
+    return rows, first
+
+
+def loop_split(fn, steps, device):
+    """``fn()`` (a solver's entry point; its outputs end with the summary)
+    with a span around every K1 launch and every sparse operation of its
+    loop: CUDA events on the card, the host clock elsewhere, with the
+    executor's ``stencil_update`` and ``_exec_sparse`` wrapped for the
+    call. Returns the loop's ms a step (its own CUDA events), the ms a
+    step in each K1 target and each sparse item (the first call of a
+    sparse item, which builds its geometry, also alone: ``first_ms``), and
+    ``rest_ms``: the loop's time outside every span. The spans of one
+    stream are disjoint, so ``rest_ms`` is time in which the device ran
+    no kernel of the loop: it waited for the host."""
+    from devito_tpu_torch.compiler import executor as E
+    on_card = device.type == 'cuda'
+    spans, wrapped = [], (E.stencil_update, E._exec_sparse)
+
+    def stamp():
+        if not on_card:
+            return time.perf_counter()
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed(label, f):
+        def call(*args):
+            a = stamp()
+            f(*args)
+            spans.append((label(*args), a, stamp()))
+        return call
+    E.stencil_update = timed(lambda p, *_: f'K1 {p.eq.target.name}',
+                             wrapped[0])
+    E._exec_sparse = timed(lambda it, *_: f'{it.kind} {it.sparse.name}',
+                           wrapped[1])
+    try:
+        loop = fn()[-1].globals['fdlike'].time * 1e3
+    finally:
+        E.stencil_update, E._exec_sparse = wrapped
+    sync(device)
+    ms, first = {}, {}
+    for label, a, b in spans:
+        t = a.elapsed_time(b) if on_card else (b - a) * 1e3
+        if label not in ms and not label.startswith('K1'):
+            first[label] = t
+        ms[label] = ms.get(label, 0.) + t
+    return dict(loop_ms=loop / steps,
+                ms={k: v / steps for k, v in ms.items()},
+                first_ms=first, rest_ms=(loop - sum(ms.values())) / steps)
+
+
+def log_split(label, sp, plain_ms, plain='the warm run'):
+    k1 = sum(v for k, v in sp['ms'].items() if k.startswith('K1'))
+    log(f"[sol-split] {label}: loop {sp['loop_ms']:.3f} ms/step with a span "
+        f"around every call ({plain_ms:.3f} in {plain}, without); K1 "
+        f"{k1:.3f} ms/step "
+        f"({100 * k1 / sp['loop_ms']:.1f} %), the sparse operations "
+        f"{sp['loop_ms'] - k1 - sp['rest_ms']:.3f}, outside every span "
+        f"(the device waiting for the host) {sp['rest_ms']:.3f} "
+        f"({100 * sp['rest_ms'] / sp['loop_ms']:.1f} %); by call: "
+        + '; '.join(f"{k} {v:.3f}" for k, v in sp['ms'].items())
+        + (f"; first calls (the geometry built): " + '; '.join(
+            f"{k} {v:.1f} ms" for k, v in sp['first_ms'].items())
+           if sp['first_ms'] else ''))
+
+
+def log_units(label, ops, kinds):
+    """Log every dense equation of ``ops`` ((label, op) pairs) with its
+    design, design reason and group count, and every K1 unit with its
+    nvcc seconds, registers and spills; return the units' rows."""
+    from devito_tpu_torch.kernels import stencil as K
+    units = []
+    for lab, _ in ops:
+        for k, eq, p in kinds[lab]:
+            u = dict(op=lab, kind=k, target=eq.target.name, design=p.design,
+                     reason=p.design_reason, groups=len(p.groups),
+                     key=p.key, nvcc_s=K.build_seconds.get(p.key),
+                     ptxas=ptxas(K.build_log.get(p.key, '')))
+            units.append(u)
+            log(f"[{label}-unit] {lab}: {k} {u['target']}: {u['design']} "
+                f"({u['reason']}), {u['groups']} groups; nvcc "
+                f"{u['nvcc_s'] or 0:.2f} s; {u['ptxas'] or 'no ptxas'}")
+    return units
+
+
+def by_design(kinds):
+    """Launches by design of the plans of ``kinds`` (their counts)."""
+    out = {'point': 0, 'stream': 0}
+    for _, _, p in kinds:
+        out[p.design] += p.launches
+    return out
+
+
+def drive_solver(label, fn, op, kinds, device, record):
+    """``tti_drive`` of ``fn`` (a solver's entry point) over ``op``'s loop
+    steps, its peak device memory, loop and host time a step; adds the
+    launches to K1's ``record``. Returns (fn's outputs, a row)."""
+    on_card = device.type == 'cuda'
+    steps = loop_steps(op)
+    held = torch.cuda.memory_allocated(device) if on_card else None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    host = time_host(op)
+    out, by_kind, wall = tti_drive(label, fn, kinds, steps, device)
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    summary = out[-1]
+    designs = by_design(kinds)
+    record['launches'] += sum(by_kind.values())
+    for d, c in designs.items():
+        record['launches_by_design'][d] += c
+    record['launches_main_path'] = record['launches']
+    record.setdefault('launches_by_path', {})[label] = by_kind
+    return out, dict(steps=steps, wall_s=wall,
+                     loop_ms_per_step=summary.globals['fdlike'].time * 1e3
+                     / steps, host_ms_per_step=host['s'] * 1e3 / steps,
+                     launches_by_kind=by_kind, launches_by_design=designs,
+                     held_bytes=held, max_memory_allocated=peak)
+
+
+def solvers(device, sizes, record, gen):
+    """Phase 11, the other solvers (elastic, viscoelastic, viscoacoustic,
+    self-adjoint) and the geometry's sinc and precomputed interpolation:
+    (1) every operator of the phase lowered first and all their K1 units
+    built at once; (2) each solver at full width driven with every count
+    at 0 just before and read just after, timed, bounded, profiled, its
+    loop split by ``loop_split`` and each launch at that shape held
+    against its plain version (``launch_ms``); (3) each at sol_cmp_n^3,
+    with the other five viscoacoustic kernels (forward and adjoint) and
+    the sinc and precomputed elastic forwards, against the plain versions
+    on the CPU; (4) the fp64 dot tests through the kernels; (5) sinc and
+    precomputed receivers on the elastic forward at full width beside
+    linear's. Adds the full-width launches to K1's ``record``."""
+    from devito_tpu_torch import (NODE, TensorTimeFunction, TimeFunction,
+                                  switchconfig)
+    from devito_tpu_torch.builtins import inner, norm
+    from devito_tpu_torch.experiments import bound_ms
+    from devito_tpu_torch.kernels import stencil as K
+    from concurrent.futures import ThreadPoolExecutor
+    on_card = device.type == 'cuda'
+    res = record['solvers'] = {}
+    release(device)
+    if on_card:
+        res['held_at_start'] = torch.cuda.memory_allocated(device)
+        log(f"[sol] device memory allocated at the start of phase 11: "
+            f"{res['held_at_start'] / 1e9:.2f} GB")
+    n, nbl, h = sizes['sol_n'], sizes['sol_nbl'], sizes['sol_spacing']
+    steps, cn, csteps = sizes['sol_steps'], sizes['sol_cmp_n'], \
+        sizes['sol_cmp_steps']
+    shape, cshape = (n,) * 3, (cn,) * 3
+    small_kinds = [k for k in SOLVERS if k != 'viscoacoustic sls-2'] + [
+        f'viscoacoustic {r}-{o}' for r, o in VISCO]
+
+    def so_of(kind):
+        return 8 if kind == 'self-adjoint' else 4
+
+    # -- (1) every operator of the phase, and all their K1 units built --
+    tic = time.perf_counter()
+    full = {k: solver_for(k, shape, so, nbl, steps, h)
+            for k, so in SOLVERS.items()}
+    emodel = full['elastic'].model
+    interp = {i: solver_for('elastic', shape, 4, nbl, steps, h,
+                            interpolation=i, model=emodel)
+              for i in ('sinc', 'precomputed')}
+    small = {k: solver_for(k, cshape, so_of(k), nbl, csteps, h)
+             for k in small_kinds}
+    small.update({f'elastic {i}': solver_for('elastic', cshape, 4, nbl,
+                                             csteps, h, interpolation=i)
+                  for i in ('sinc', 'precomputed')})
+    # the dot tests' models, as tests/test_viscoacoustic.py and
+    # tests/test_self_adjoint.py build them
+    dots = {f'viscoacoustic {r}-{o}': solver_for(
+        f'viscoacoustic {r}-{o}', sizes['sol_dot_shape'], 4, nbl, None, 20.,
+        np.float64, tn=sizes['sol_dot_tn']) for r, o in VISCO}
+    dots['self-adjoint'] = solver_for(
+        'self-adjoint', sizes['sa_dot_shape'], 8, nbl, None, 10., np.float64,
+        tn=sizes['sa_dot_tn'])
+    ops = {}
+    for k, s in full.items():
+        ops[f'{k} forward'] = s.op_fwd(None)
+        if hasattr(s, 'op_adj'):
+            ops[f'{k} adjoint'] = s.op_adj()
+    for i, s in interp.items():
+        ops[f'elastic forward, {i} receivers'] = s.op_fwd(None)
+    for k, s in small.items():
+        ops[f'{cn}^3 {k} forward'] = s.op_fwd(None)
+        if hasattr(s, 'op_adj'):
+            ops[f'{cn}^3 {k} adjoint'] = s.op_adj()
+    for k, s in dots.items():
+        ops[f'fp64 {k} forward'] = s.op_fwd(None)
+        ops[f'fp64 {k} adjoint'] = s.op_adj()
+    lower_s = time.perf_counter() - tic
+    kinds = {lab: tti_kinds(op) for lab, op in ops.items()}
+    for lab, ks in kinds.items():
+        check_tti_plans(lab, ks, None)
+    # the point design of each streaming equation at full width, timed
+    # beside it
+    alts = {id(p): K.plan_for(eq, _design='point') for k in SOLVERS
+            for _, eq, p in kinds[f'{k} forward'] if p.design == 'stream'}
+    uniq = list({p.key: p for p in [p for ks in kinds.values()
+                                    for _, _, p in ks] + list(alts.values())
+                 }.values())
+    nvcc_s, build_wall = 0., 0.
+    if on_card:
+        tic = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(K.build, uniq))
+        build_wall = time.perf_counter() - tic
+        nvcc_s = sum(K.build_seconds.get(p.key, 0.) for p in uniq)
+    nuniq = len(uniq)
+    del uniq            # its plans would keep every operator's temporaries
+    neqs = sum(len(ks) for ks in kinds.values())
+    log(f"[sol-build] {len(ops)} operators, {neqs} dense equations, every "
+        f"one on K1 (0 in the translator); {nuniq} K1 units in "
+        f"{build_wall:.2f} s wall (nvcc {nvcc_s:.2f} s); lowering took "
+        f"{lower_s:.2f} s")
+    res.update(n_ops=len(ops), n_equations=neqs, n_units=nuniq,
+               build_wall_s=build_wall, nvcc_s=nvcc_s, lower_s=lower_s,
+               units=log_units('sol', [
+                   (lab, None) for lab in ops if lab.startswith((
+                       'elastic', 'viscoelastic', 'viscoacoustic sls-2',
+                       'self-adjoint'))], kinds))
+    release(device)
+
+    def extra(k, grid):
+        """New wavefields a forward of ``k`` is given, each run its own:
+        forward() returns no memory variable, so one is passed in."""
+        if k == 'viscoelastic':
+            return {'r': TensorTimeFunction(name='r', grid=grid,
+                                            space_order=4, time_order=1)}
+        if k.startswith('viscoacoustic'):
+            return {'r': TimeFunction(name='r', grid=grid, space_order=4,
+                                      time_order=2, staggered=NODE)}
+        return {}
+
+    def drop(prefix):
+        """Forget the operators labelled ``prefix``..., and with them
+        their temporaries' device memory."""
+        for lab in [lab for lab in ops if lab.startswith(prefix)]:
+            ops.pop(lab)
+            for _, _, p in kinds.pop(lab):
+                alts.pop(id(p), None)
+        release(device)
+
+    # -- (2) the full-width runs, and (5) sinc and precomputed receivers --
+    # one run's wavefields are held at a time: 18-33 GB a set at 532^3
+    nf = tuple(n + 2 * nbl for n in shape)
+    for k in list(full):
+        s = full.pop(k)
+        fop = s.op_fwd(None)
+        fk = kinds[f'{k} forward']
+        ex = extra(k, s.model.grid)
+        out, row = drive_solver(f'{k} forward', lambda: s.forward(**ex),
+                                fop, fk, device, record)
+        recs = records_of(out)
+        rec = out[0]
+        # a Function's tensor is freed with its class, which the cyclic
+        # collector frees (release)
+        del out, ex
+        release(device)
+        nbytes, flops, sbytes = tti_bound(fop, fk)
+        bound, bound_by = bound_ms(nbytes, flops)
+        host = time_host(fop)
+        warm = s.forward(**extra(k, s.model.grid))[-1].globals[
+            'fdlike'].time * 1e3 / row['steps']
+        release(device)
+        split = loop_split(lambda: s.forward(**extra(k, s.model.grid)),
+                           row['steps'], device)
+        release(device)
+        po, ex = {}, extra(k, s.model.grid)
+        prow = profiled(lambda: po.setdefault('out', s.forward(
+            time_M=sizes['sol_prof_steps'], **ex)), device)
+        busy = sum(m for _, m, _ in prow)
+        pout = po.pop('out')
+        ploop = pout[-1].globals['fdlike'].time * 1e3
+        # the profiled run's wavefields: the rows each launch is timed on
+        fields = dict(wavefields(pout), **wavefields(ex.values()))
+        del pout, ex
+        per_eq = launch_ms(fop, fk, fields, s.dt, device, gen, alts)
+        # the prologue's launches are in the profile, not in the loop
+        pro = sum(e['ms'] for e in per_eq
+                  if e['kind'] == 'hoisted prologue item')
+        # every buffer is allocated with its last two axes rounded up to
+        # 8 and 128 (types/dense.py _allocated_space)
+        f = s.model.damp if getattr(s.model.damp, 'is_Function', False) \
+            else s.model.b
+        row.update(
+            shape=nf, so=SOLVERS[k], nt=s.geometry.nt,
+            nrec=s.geometry.nrec, warm_loop_ms_per_step=warm,
+            warm_host_ms_per_step=host['s'] * 1e3 / row['steps'],
+            bound_ms=bound, bound_by=bound_by, bound_bytes=nbytes,
+            bound_flops=flops, schedule_bytes=sbytes,
+            schedule_bound_ms=bound_ms(sbytes, flops)[0],
+            share_of_bound=bound / warm,
+            rec_norms={nm: float(np.linalg.norm(r))
+                       for nm, r in recs.items()},
+            launches_per_step=sum(kd != 'hoisted prologue item'
+                                  for kd, _, _ in fk),
+            per_equation=per_eq, split=split,
+            unrounded_share=float(np.prod(f.shape_with_halo) /
+                                  np.prod(f._allocated_space())),
+            profile=dict(steps=sizes['sol_prof_steps'], busy_ms=busy,
+                         loop_ms=ploop, prologue_ms=pro,
+                         idle_share=1 - (busy - pro) / ploop,
+                         kernels=[dict(name=nm[:120], ms=m, calls=c)
+                                  for nm, m, c in prow[:10]]))
+        res[f'{k} forward'] = row
+        log_full(f'{k} forward', row)
+        log_split(f'{k} forward', split, warm)
+        if k == 'elastic':
+            rows, first = sparse_ms(fop, fields, s.dt, device)
+            res['receivers'] = dict(linear=dict(sparse=rows,
+                                                first_call_ms=first))
+            log_sparse('linear', rows, first)
+        del fields
+        release(device)
+        if hasattr(s, 'op_adj'):
+            aop = s.op_adj()
+            aout, arow = drive_solver(f'{k} adjoint', lambda: s.adjoint(rec),
+                                      aop, kinds[f'{k} adjoint'], device,
+                                      record)
+            arecs = records_of(aout)
+            fields = wavefields(aout)
+            del aout
+            release(device)
+            host = time_host(aop)
+            asum = s.adjoint(rec)[-1]
+            awarm = asum.globals['fdlike'].time * 1e3 / arow['steps']
+            release(device)
+            asplit = loop_split(lambda: s.adjoint(rec), arow['steps'],
+                                device)
+            release(device)
+            arow.update(warm_loop_ms_per_step=awarm,
+                        warm_host_ms_per_step=host['s'] * 1e3 / arow['steps'],
+                        rec_norms={nm: float(np.linalg.norm(r))
+                                   for nm, r in arecs.items()},
+                        per_equation=launch_ms(aop, kinds[f'{k} adjoint'],
+                                               fields, s.dt, device, gen),
+                        split=asplit)
+            res[f'{k} adjoint'] = arow
+            log_full(f'{k} adjoint', arow)
+            log_split(f'{k} adjoint', asplit, awarm)
+            del aop, fields
+        del rec, f
+        release(device)
+        if k == 'elastic':
+            # on the same model, the linear run's wavefields dropped
+            res['receivers'].update(receivers_phase(interp, kinds, device,
+                                                    record))
+            interp.clear()
+            del emodel
+        del s, fop, fk
+        drop(k)
+
+    # -- (3) at cn^3 against the plain versions on the CPU -----------------
+    cmp = res['compare'] = {}
+    lin = None
+    for k in list(small):
+        s = small.pop(k)
+        out = s.forward()
+        got = records_of(out)
+        kind, _, how = k.partition(' ')
+        if k.startswith('viscoacoustic'):
+            kind, how = k, ''
+        with switchconfig(device='cpu'):
+            plain = solver_for(kind, cshape, so_of(kind), nbl, csteps, h,
+                               interpolation=how or 'linear')
+            pout = plain.forward()
+            want = records_of(pout)
+            if hasattr(s, 'op_adj'):
+                # both adjoints from the same record: the card's
+                pout[0].data[:] = out[0].data
+                want.update(records_of(plain.adjoint(pout[0])))
+        if hasattr(s, 'op_adj'):
+            got.update(records_of(s.adjoint(out[0])))
+        errs = {}
+        for nm, w in want.items():
+            err = float(np.abs(got[nm] - w).max())
+            tol = RUN_TOL[np.float32] * float(np.abs(w).max())
+            if not err <= tol:
+                raise AssertionError(f"{k} at {cn}^3: {nm} through the "
+                                     f"kernels and the plain version differ "
+                                     f"by {err:.3e} > {tol:.3e}")
+            errs[nm] = (err, tol)
+        if k == 'elastic':
+            lin = got
+        elif k == 'elastic precomputed':
+            # linear weights as precomputed tables: linear's records
+            for nm, w in lin.items():
+                err = float(np.abs(got[nm] - w).max())
+                if not err <= RUN_TOL[np.float32] * float(np.abs(w).max()):
+                    raise AssertionError(f"precomputed linear receivers "
+                                         f"differ from linear's by {err:.3e}")
+        cmp[k] = {nm: dict(max_abs_diff=e, tol=t) for nm, (e, t)
+                  in errs.items()}
+        log(f"[sol-cmp] {k}, {cn}^3 (+nbl {nbl}), {csteps} steps: through "
+            f"the kernels vs the plain version (CPU): " + '; '.join(
+                f"{nm} max|diff| {e:.3e} (tolerance {t:.3e})"
+                for nm, (e, t) in errs.items()))
+        del s, plain, out, pout
+    release(device)
+
+    # -- (4) the fp64 dot tests through the kernels -----------------------
+    dres = res['dot'] = {}
+    for k in list(dots):
+        s = dots.pop(k)
+        l0 = K.launches
+        rec = s.forward()[0]
+        srca = s.adjoint(rec)[0]
+        t1, t2 = inner(srca, s.geometry.src), norm(rec) ** 2
+        dot = float((t1 - t2) / t1)
+        launches = K.launches - l0
+        dres[k] = dict(shape=s.model.shape, dot=dot, launches=launches)
+        log(f"[sol-fp64] {k} {s.model.shape} (+nbl {nbl}) fp64, through "
+            f"the kernels ({launches} K1 launches): dot test {dot:.3e} "
+            f"(atol 1e-11)")
+        if not (abs(dot) <= 1e-11 and launches >= on_card):
+            raise AssertionError(f"{k}: fp64 dot test {dot:.3e}")
+        del s, rec, srca
+    release(device)
+    return res
+
+
+def receivers_phase(interp, kinds, device, record):
+    """(5): the elastic forward at full width with sinc (r=4) and with
+    precomputed receivers (the solvers of ``interp``), each driven as the
+    linear one (counts at 0 just before, read just after) and each sparse
+    operation then timed alone."""
+    out = {}
+    for i, si in interp.items():
+        lab = f'elastic forward, {i} receivers'
+        o, row = drive_solver(lab, lambda: si.forward(), si.op_fwd(None),
+                              kinds[lab], device, record)
+        recs = records_of(o)
+        rows, first = sparse_ms(si.op_fwd(None), wavefields(o), si.dt,
+                                device)
+        del o
+        release(device)
+        split = loop_split(si.forward, row['steps'], device)
+        row.update(sparse=rows, first_call_ms=first, split=split,
+                   rec_norms={nm: float(np.linalg.norm(r))
+                              for nm, r in recs.items()})
+        out[i] = row
+        log(f"[sol-rec] {lab}: loop {row['loop_ms_per_step']:.3f} ms/step "
+            f"over {row['steps']} steps (host {row['host_ms_per_step']:.3f}),"
+            f" K1 launches {row['launches_by_kind']}, peak device memory "
+            + (f"{row['max_memory_allocated'] / 1e9:.2f} GB (held before "
+               f"{row['held_bytes'] / 1e9:.2f})"
+               if row['max_memory_allocated'] else "not measured"))
+        log_sparse(i, rows, first)
+        log_split(lab, split, row['loop_ms_per_step'], 'the first run')
+        release(device)
+    return out
+
+
+def log_sparse(label, rows, first):
+    log(f"[sol-rec] {label} receivers: each sparse operation alone, CUDA "
+        f"events (device time under torch.profiler): " + '; '.join(
+            f"{nm} ({p} points) {ms:.4f} ({dev:.4f}) ms"
+            for nm, p, ms, dev in rows)
+        + f"; sum {sum(r[2] for r in rows):.4f} "
+        f"({sum(r[3] for r in rows):.4f}) ms a step; the first call, the "
+        f"geometry built, {first:.1f} ms")
+
+
+def log_full(label, row):
+    mem = row['max_memory_allocated']
+    log(f"[sol] {label} {row.get('shape', '')} SO={row.get('so', '')}, "
+        f"{row['steps']} steps: first run (the main path) loop "
+        f"{row['loop_ms_per_step']:.3f} ms/step, host time in the loop "
+        f"{row['host_ms_per_step']:.3f} ms/step, wall {row['wall_s']:.2f} s;"
+        f" warm loop {row['warm_loop_ms_per_step']:.3f} ms/step, host "
+        f"{row['warm_host_ms_per_step']:.3f}; K1 launches by kind "
+        f"{row['launches_by_kind']}, by design {row['launches_by_design']};"
+        f" peak device memory " + (f"{mem / 1e9:.2f} GB (held before "
+                                   f"{row['held_bytes'] / 1e9:.2f})"
+                                   if mem else "not measured")
+        + (f", {row['unrounded_share']:.4f} of it without the (8, 128) "
+           f"rounding" if 'unrounded_share' in row else "")
+        + f"; records {row['rec_norms']}")
+    if 'bound_ms' in row:
+        log(f"[sol] {label}: bound {row['bound_ms']:.3f} ms/step by "
+            f"{row['bound_by']} ({row['bound_bytes'] / 1e9:.2f} GB, "
+            f"{row['bound_flops'] / 1e9:.1f} GFlop) = "
+            f"{100 * row['share_of_bound']:.1f} % of the warm step; this "
+            f"schedule's floor {row['schedule_bound_ms']:.3f} ms/step "
+            f"({row['schedule_bytes'] / 1e9:.2f} GB); {row['nrec']} "
+            f"receivers, nt {row['nt']}")
+    if 'per_equation' in row:
+        log(f"[sol] {label}: each launch by equation on seeded rows at the "
+            f"loop's shapes, held against its plain version (max|kernel - "
+            f"plain|, TOL x max|plain|) and timed alone (CUDA events): "
+            + '; '.join(
+                f"{e['kind']} {e['target']} {e['design']} {e['groups']}g "
+                f"{e['ms']:.3f} ms, err {e['max_abs_err']:.2e} "
+                f"({e['tol']:.2e})"
+                + (f" (point design {e['point_ms']:.3f} ms, err "
+                   f"{e['point_max_abs_err']:.2e})" if 'point_ms' in e
+                   else "") for e in row['per_equation']))
+    if 'profile' in row:
+        p = row['profile']
+        log(f"[sol-profile] {label}: {p['steps']} warm steps, loop "
+            f"{p['loop_ms']:.3f} ms, device busy {p['busy_ms']:.3f} ms of "
+            f"which the prologue's launches {p['prologue_ms']:.3f} ms, idle "
+            f"share of the loop {100 * (p['idle_share'] or 0):.1f} % "
+            f"(negative: the device events sum past the loop's CUDA-event "
+            f"time); by kernel: " + '; '.join(
+                f"{m['ms']:.3f} ms x{m['calls']}: {m['name'][:60]}"
+                for m in p['kernels'][:8]))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
@@ -3166,7 +3896,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     tic = time.perf_counter()
     kind, records = smoke(torch.device('cuda', 0), FULL)
-    log(f"[smoke] phases 2-10 in {time.perf_counter() - tic:.1f} s")
+    log(f"[smoke] phases 2-11 in {time.perf_counter() - tic:.1f} s")
     print(json.dumps({'kernels': records}))
     print(smi())
     print(json.dumps({'ok': True, 'device': {

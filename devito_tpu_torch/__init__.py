@@ -2,8 +2,8 @@
 loop in hand-written CUDA kernels for NVIDIA Hopper.
 
 The same sympy DSL as devito_tpu (Grid, Function, TimeFunction,
-SparseTimeFunction, Eq, Inc, solve, Operator.apply) and the acoustic
-forward model. Every Function holds one torch.Tensor on
+SparseTimeFunction, Eq, Inc, solve, Operator.apply) and the seismic
+solvers of models/seismic. Every Function holds one torch.Tensor on
 ``configuration['device']`` ('cuda' by default, 'cpu' on request) and
 computes in its declared dtype: fp32 in fp32, fp64 in fp64. Each dense
 stencil update of an operator runs in a CUDA kernel generated from the
@@ -23,7 +23,12 @@ from .types import (Grid, SubDomain, SubDomainSet, Border,  # noqa
                     dimensions, NODE, CELL)
 from .types.relational import (Le, Lt, Ge, Gt, Ne,  # noqa
                                relational_min, relational_max)
-from .types.sparse import SparseFunction, SparseTimeFunction  # noqa
+from .types.sparse import (SparseFunction, SparseTimeFunction,  # noqa
+                           PrecomputedSparseFunction,
+                           PrecomputedSparseTimeFunction,
+                           MatrixSparseTimeFunction)
+from .types.tensor import (TensorFunction, VectorFunction,  # noqa
+                           TensorTimeFunction, VectorTimeFunction)
 from .finite_differences import (Derivative, Differentiable)  # noqa
 from .finite_differences.coefficients import (Coefficient,  # noqa
                                               Substitutions)

@@ -260,22 +260,34 @@ def _sparse_geometry(sf, bufs, params):
     """Corner indices {dim: (C, P) int64 tensor, domain coords, clipped}
     and weights (C, P) of a sparse function's interpolation stencil, from
     the runtime coordinates tensor (reference: WeightedInterpolator,
-    operations/interpolators.py:210). A point outside ``[0, n-1]`` in any
-    axis gets zero weight; clipped duplicate corners accumulate."""
+    operations/interpolators.py:210) or, for precomputed and matrix
+    functions, from their gridpoints and coefficient tables (reference:
+    PrecomputedInterpolator:555, MatrixSparseTimeFunction: the gridpoint
+    is the minimum index, the points ``gridpoint + i`` for i in [0,
+    ncoeffs)). A point outside ``[0, n-1]`` in any axis gets zero weight;
+    clipped duplicate corners accumulate."""
     grid = sf.grid
     interp = sf.interpolator
-    coords = bufs[f"{sf.name}_coords"]
     per_dim = []
     valid = None
-    for j, d in enumerate(grid.dimensions):
-        h = float(params.get(d.spacing.name, grid.spacing[j]))
-        o = float(grid.origin[j])
-        n = grid.shape[j]
-        px = (coords[:, j] - o) / h  # position in grid points (P,)
-        offsets, wlist, base = interp.dim_weights(px)
-        v = (px >= 0) & (px <= n - 1)
-        valid = v if valid is None else (valid & v)
-        per_dim.append((d, offsets, wlist, base, n))
+    if getattr(interp, 'name', '') in ('precomputed', 'matrix'):
+        for j, d in enumerate(grid.dimensions):
+            n = grid.shape[j]
+            offsets, coeffs, gp = interp.dim_weights_precomputed(j)
+            v = (gp >= 0) & (gp <= n - 1)
+            valid = v if valid is None else (valid & v)
+            per_dim.append((d, offsets, coeffs.unbind(1), gp, n))
+    else:
+        coords = bufs[f"{sf.name}_coords"]
+        for j, d in enumerate(grid.dimensions):
+            h = float(params.get(d.spacing.name, grid.spacing[j]))
+            o = float(grid.origin[j])
+            n = grid.shape[j]
+            px = (coords[:, j] - o) / h  # position in grid points (P,)
+            offsets, wlist, base = interp.dim_weights(px)
+            v = (px >= 0) & (px <= n - 1)
+            valid = v if valid is None else (valid & v)
+            per_dim.append((d, offsets, wlist, base, n))
 
     corner_idx = {d.name: [] for d, *_ in per_dim}
     weights = []
@@ -290,9 +302,21 @@ def _sparse_geometry(sf, bufs, params):
     return {k: torch.stack(v) for k, v in corner_idx.items()}, W
 
 
-def _write_interp(item, sf, res, bufs, t):
-    """Store the (P,) interpolated values into the sparse rows."""
+def _matmul(m, v):
+    """``m @ v``, ``v`` a tensor or scalar broadcast to m's columns, in the
+    promoted dtype of the two (a matrix function's coupling: its matrix,
+    on the device, against the values)."""
+    v = torch.as_tensor(v, device=m.device)
+    dt = torch.promote_types(m.dtype, v.dtype)
+    return m.to(dt) @ v.to(dt).expand(m.shape[1:])
+
+
+def _write_interp(item, sf, res, bufs, t, matrix):
+    """Store the (P,) interpolated values into the sparse rows; a matrix
+    function's channels are ``matrix^T @`` its locations' values."""
     buf = bufs[sf.name]
+    if matrix is not None:
+        res = _matmul(matrix.T, res)
     res = _as_tensor(res, buf).expand(buf.shape[-1:])
     if sf.is_SparseTimeFunction:
         td = sf.dimensions[0]
@@ -315,14 +339,19 @@ def _exec_sparse(item, bufs, params, t, geom_cache):
 
     sf = item.sparse
     if sf.name not in geom_cache:
-        geom_cache[sf.name] = _sparse_geometry(sf, bufs, params)
-    corner_idx, W = geom_cache[sf.name]
+        # a matrix function's matrix goes to the device once an apply,
+        # with its geometry
+        matrix = getattr(type(sf), '_matrix', None)
+        geom_cache[sf.name] = _sparse_geometry(sf, bufs, params) + (
+            None if matrix is None else
+            torch.as_tensor(matrix, device=bufs[sf.name].device),)
+    corner_idx, W, matrix = geom_cache[sf.name]
     ctx = SparseCtx(bufs, params, corner_idx, W, sf, t=t)
     val = translate(item.expr, ctx)  # (C, P), (P,) or scalar
 
     if item.kind == 'interp':
         res = torch.sum(W * val, dim=0)
-        return _write_interp(item, sf, res, bufs, t)
+        return _write_interp(item, sf, res, bufs, t, matrix)
     field = item.field
     buf = bufs[field.name]
     if item.field_time_kind == 'stepping':
@@ -331,6 +360,9 @@ def _exec_sparse(item, bufs, params, t, geom_cache):
         buf = buf[t + item.field_time_off]
     sidx = tuple(corner_idx[d.name] + hl
                  for d, (hl, hr) in zip(field.space_dimensions, field.halo))
+    if matrix is not None:
+        # a location's values: matrix @ the channels' values
+        val = _matmul(matrix, val)
     # accumulate: clipped duplicate corners must add up
     buf.index_put_(sidx, (W * val).to(buf.dtype), accumulate=True)
 

@@ -2,10 +2,10 @@
 synthesis used by the executor.
 
 Reference parity: devito/operations/interpolators.py (Interpolation:124,
-Injection:157, LinearInterpolator:513). Weight math matches the
-reference; the lowering is a vectorized gather/scatter on torch tensors
-(compiler/executor.py). Sinc, precomputed and matrix interpolation are not
-ported yet (ROADMAP.md)."""
+Injection:157, LinearInterpolator:513, PrecomputedInterpolator:555,
+SincInterpolator:590 -- Hicks Kaiser-windowed sinc, b-values from Table 1 of
+Hicks 2002). Weight math matches the reference; the lowering is a
+vectorized gather/scatter on torch tensors (compiler/executor.py)."""
 
 import numpy as np
 import sympy
@@ -15,7 +15,9 @@ from ..ir.lowering import LoweredEq, LoweredSparse, time_access_of
 from ..types.basic import AbstractFunction
 from ..exceptions import InvalidOperator
 
-__all__ = ['Interpolation', 'Injection', 'LinearInterpolator']
+__all__ = ['Interpolation', 'Injection', 'LinearInterpolator',
+           'SincInterpolator', 'PrecomputedInterpolator',
+           'MatrixInterpolator']
 
 
 def _u_t_delta(u_t):
@@ -214,3 +216,112 @@ class LinearInterpolator:
 
     def ncorners(self, ndim):
         return 2 ** ndim
+
+
+class SincInterpolator:
+    """Hicks (2002) Kaiser-windowed sinc interpolation, radius r in [2, 10]
+    (reference: SincInterpolator:590, b-values from its Table 1)."""
+
+    name = 'sinc'
+
+    _b_table = {2: 2.94, 3: 4.53, 4: 4.14, 5: 5.26, 6: 6.40,
+                7: 7.51, 8: 8.56, 9: 9.56, 10: 10.64}
+
+    def __init__(self, r=2):
+        if r not in self._b_table:
+            raise ValueError(f"sinc radius must be in [2, 10], got {r}")
+        self.r = r
+
+    @property
+    def max_radius(self):
+        return self.r
+
+    def dim_weights(self, px):
+        """(offsets -r+1..r, the Kaiser-windowed sinc weight of each, base
+        indices) of positions ``px`` (grid-point units, a tensor)."""
+        import torch
+        r, b = self.r, self._b_table[self.r]
+        b0 = float(np.i0(b))
+        fl = torch.floor(px)
+        frac = px - fl
+        offsets = list(range(-r + 1, r + 1))
+        ws = []
+        for off in offsets:
+            rpos = off - frac
+            arg = torch.clamp(1.0 - (rpos / r) ** 2, min=0.0)
+            ws.append(torch.special.i0(b * torch.sqrt(arg)) / b0 *
+                      torch.sinc(rpos))
+        return offsets, ws, fl.to(torch.int64)
+
+    def ncorners(self, ndim):
+        return (2 * self.r) ** ndim
+
+
+def _table(a, device, dtype=None):
+    import torch
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device=device)
+
+
+class MatrixInterpolator:
+    """Geometry from explicit gridpoints + per-dim coefficient tables of a
+    MatrixSparseTimeFunction (reference: types/sparse.py:1399)."""
+
+    name = 'matrix'
+
+    def __init__(self, sfunction):
+        self.sf = sfunction
+        self.r = type(sfunction)._r_points
+
+    @property
+    def max_radius(self):
+        return self.r
+
+    def dim_weights_precomputed(self, j):
+        """(offsets 0..r-1, coefficient table (nloc, r), gridpoints (nloc,))
+        of axis j, on the function's device."""
+        import torch
+        dev = type(self.sf)._device
+        d = self.sf.grid.dimensions[j]
+        gp = _table(self.sf.gridpoints[:, j], dev, torch.int64)
+        coeffs = _table(self.sf.interpolation_coefficients[d], dev)
+        return list(range(coeffs.shape[1])), coeffs, gp
+
+    def ncorners(self, ndim):
+        return self.r ** ndim
+
+
+class PrecomputedInterpolator:
+    """User-supplied gridpoints + per-dim coefficient tables (reference:
+    PrecomputedInterpolator:555)."""
+
+    name = 'precomputed'
+
+    def __init__(self, sfunction):
+        self.sf = sfunction
+        self.r = type(sfunction)._r
+
+    @property
+    def max_radius(self):
+        return self.r
+
+    def dim_weights_precomputed(self, j):
+        """(offsets 0..ncoeffs-1, coefficient table (P, ncoeffs), gridpoints
+        (P,)) of axis j, on the function's device; consumed by the
+        executor's precomputed geometry."""
+        import torch
+        dev = type(self.sf)._device
+        gp = _table(self.sf.gridpoints[:, j], dev, torch.int64)
+        coeffs = _table(self.sf.interpolation_coeffs[:, j, :], dev)
+        return list(range(coeffs.shape[-1])), coeffs, gp
+
+    def dim_weights(self, px):
+        # positions come from the stored gridpoints: the executor takes
+        # ``dim_weights_precomputed`` for this interpolator
+        raise NotImplementedError(
+            "PrecomputedInterpolator requires the precomputed geometry path")
+
+    def ncorners(self, ndim):
+        # devito_tpu's count, kept so that both packages report the same
+        # flops: it holds when the coefficient tables are 2r wide
+        return (2 * self.r) ** ndim

@@ -2,12 +2,15 @@
 
 Reference parity: devito/types/sparse.py (AbstractSparseFunction:49,
 SparseFunction:862 linear interpolation, SparseTimeFunction:1006 with
-``.interpolate``/``.inject``).
+``.interpolate``/``.inject``, PrecomputedSparseFunction:1153,
+MatrixSparseTimeFunction:1399, SincInterpolator via
+``interpolation='sinc'``).
 
 Interpolation lowers to a gather and injection to a scatter-add over
 (corner x point) index tensors (compiler/executor.py _sparse_geometry).
-The point coordinates live on the device next to the data. Sinc,
-precomputed and matrix interpolation are not ported yet (ROADMAP.md).
+The point coordinates live on the device next to the data; precomputed
+and matrix functions carry their gridpoints and coefficient tables on the
+host and move them to the device with the geometry.
 """
 
 import numpy as np
@@ -15,7 +18,9 @@ import numpy as np
 from .dense import DiscreteFunction
 from .dimension import DefaultDimension, Dimension
 
-__all__ = ['SparseFunction', 'SparseTimeFunction']
+__all__ = ['SparseFunction', 'SparseTimeFunction',
+           'PrecomputedSparseFunction', 'PrecomputedSparseTimeFunction',
+           'MatrixSparseTimeFunction']
 
 
 class _Coordinates:
@@ -46,10 +51,6 @@ class AbstractSparseFunction(DiscreteFunction):
                                         else np.float32))
         cls._space_order = space_order
         cls._staggered = None
-        if interpolation != 'linear':
-            raise NotImplementedError(
-                f"interpolation={interpolation!r} is not ported to "
-                f"devito_tpu_torch yet (ROADMAP.md); use 'linear'")
         cls._interpolation = interpolation
         cls._r = r
         cls._halo = ()
@@ -146,8 +147,14 @@ class AbstractSparseFunction(DiscreteFunction):
 
     @property
     def interpolator(self):
-        from ..operations.interpolators import LinearInterpolator
-        return LinearInterpolator()
+        from ..operations.interpolators import (LinearInterpolator,
+                                                SincInterpolator)
+        mode = type(self)._interpolation
+        if mode == 'linear':
+            return LinearInterpolator()
+        if mode == 'sinc':
+            return SincInterpolator(type(self)._r)
+        raise ValueError(f"Unknown interpolation {mode!r}")
 
     # -- the user-facing symbolic API -------------------------------------
 
@@ -223,3 +230,127 @@ class SparseTimeFunction(AbstractSparseFunction):
 
     def _leading_slices(self):
         return (slice(None),)
+
+
+class PrecomputedSparseFunction(AbstractSparseFunction):
+    """Points with user-precomputed gridpoints + interpolation coefficients
+    (reference: types/sparse.py:1153). ``gridpoints``: (P, ndim) ints, the
+    minimum index of each point's stencil; ``interpolation_coeffs``: (P,
+    ndim, r) weights of the points ``gridpoint + i``, i in [0, r)."""
+
+    @classmethod
+    def __init_metadata__(cls, gridpoints=None, interpolation_coeffs=None,
+                          r=2, **kwargs):
+        # 'interpolation' is implied by the type; drop an incoming value
+        # (pickle reconstructs from _constructor_kwargs, which carries it)
+        kwargs.pop('interpolation', None)
+        super().__init_metadata__(r=r, interpolation='precomputed', **kwargs)
+        cls._gridpoints = None if gridpoints is None else \
+            np.asarray(gridpoints, dtype=np.int32)
+        cls._interp_coeffs = None if interpolation_coeffs is None else \
+            np.asarray(interpolation_coeffs)
+        cls._constructor_kwargs.update(
+            gridpoints=cls._gridpoints,
+            interpolation_coeffs=cls._interp_coeffs)
+
+    @property
+    def gridpoints(self):
+        return type(self)._gridpoints
+
+    @property
+    def interpolation_coeffs(self):
+        return type(self)._interp_coeffs
+
+    @property
+    def interpolator(self):
+        from ..operations.interpolators import PrecomputedInterpolator
+        return PrecomputedInterpolator(self)
+
+
+class PrecomputedSparseTimeFunction(PrecomputedSparseFunction,
+                                    SparseTimeFunction):
+    pass
+
+
+class _NamedArray(np.ndarray):
+    """ndarray view exposing itself as ``.data`` -- reference API shape
+    (``msf.gridpoints.data[:] = ...``, ``coeffs[d].data[:] = ...``) while
+    staying a plain array for internal consumers."""
+
+    @property
+    def data(self):
+        return self
+
+
+class MatrixSparseTimeFunction(SparseTimeFunction):
+    """Externally-defined interpolation with matrix-coupled data channels
+    (reference: types/sparse.py:1399 -- nloc locations with explicit
+    gridpoints + per-dim coefficients; a (nloc x npoint) matrix couples the
+    npoint data channels to the physical locations, supporting dipole-like
+    multi-location sources without duplicating sample data).
+
+    ``matrix``: scipy.sparse or ndarray, shape (nloc, npoint);
+    ``gridpoints``: (nloc, ndim) minimum indices; per-dim coefficients via
+    ``interpolation_coefficients[dim]`` arrays of shape (nloc, r).
+    """
+
+    @classmethod
+    def __init_metadata__(cls, matrix=None, r=2, gridpoints=None,
+                          interpolation_coeffs=None, **kwargs):
+        if hasattr(matrix, 'toarray'):
+            matrix = matrix.toarray()
+        cls._matrix = np.asarray(matrix) if matrix is not None else None
+        cls._r_points = r
+        cls._gridpoints = None if gridpoints is None else \
+            np.asarray(gridpoints, dtype=np.int32)
+        cls._interp_coeffs = interpolation_coeffs
+        # reference semantics: the data channels are the matrix columns
+        kwargs.setdefault('npoint', cls._matrix.shape[1]
+                          if cls._matrix is not None else 0)
+        super().__init_metadata__(r=r, **kwargs)
+        cls._constructor_kwargs.update(
+            matrix=cls._matrix, gridpoints=cls._gridpoints,
+            interpolation_coeffs=cls._interp_coeffs)
+
+    @property
+    def matrix(self):
+        return type(self)._matrix
+
+    @property
+    def nloc(self):
+        return type(self)._matrix.shape[0]
+
+    @property
+    def gridpoints(self):
+        cls = type(self)
+        if cls._gridpoints is None:
+            cls._gridpoints = np.zeros((self.nloc, self.grid.dim),
+                                       dtype=np.int32)
+        return cls._gridpoints.view(_NamedArray)
+
+    @gridpoints.setter
+    def gridpoints(self, value):
+        type(self)._gridpoints = np.asarray(value, dtype=np.int32)
+
+    @property
+    def interpolation_coefficients(self):
+        cls = type(self)
+        if cls._interp_coeffs is None:
+            cls._interp_coeffs = {
+                d: np.zeros((self.nloc, cls._r_points),
+                            dtype=self.dtype)
+                for d in self.grid.dimensions}
+        return {d: v.view(_NamedArray) if isinstance(v, np.ndarray) else v
+                for d, v in cls._interp_coeffs.items()}
+
+    @property
+    def interpolator(self):
+        from ..operations.interpolators import MatrixInterpolator
+        return MatrixInterpolator(self)
+
+    def manual_scatter(self, *args, **kwargs):
+        """API parity no-op, as devito_tpu's: the data lives whole on one
+        device."""
+
+    def manual_gather(self, *args, **kwargs):
+        """API parity no-op."""

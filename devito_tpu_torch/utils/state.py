@@ -5,7 +5,8 @@ object with the reference API (``data_with_halo``, ``coordinates.data``),
 so it also reads the JAX package's functions without importing it, and
 never sees a device-only layout. ``load_numpy_state`` writes such arrays
 into this package's functions, so both packages compute from identical
-state.
+state. Precomputed and matrix sparse functions also carry their
+gridpoints, coefficient tables and coupling matrix.
 """
 
 import numpy as np
@@ -19,14 +20,32 @@ def _by_name(functions):
     return {f.name: f for f in functions}
 
 
+def _tables(f):
+    """{suffix: array} of a precomputed or matrix sparse function's
+    gridpoints, coefficient tables (a matrix function's per dimension)
+    and coupling matrix, as the function holds them; {} otherwise."""
+    if hasattr(f, 'interpolation_coeffs'):
+        out = dict(gridpoints=f.gridpoints, coeffs=f.interpolation_coeffs)
+    elif hasattr(f, 'interpolation_coefficients'):
+        out = dict(gridpoints=f.gridpoints, matrix=f.matrix)
+        out.update({f'coeffs_{d.name}': c for d, c
+                    in f.interpolation_coefficients.items()})
+    else:
+        return {}
+    return {k: v for k, v in out.items() if v is not None}
+
+
 def numpy_state(functions):
     """{name: copy of ``data_with_halo``} per function, plus
-    ``<name>_coords`` for sparse functions."""
+    ``<name>_coords`` for sparse functions and ``<name>_<table>`` for the
+    tables of precomputed and matrix ones (``_tables``)."""
     out = {}
     for name, f in _by_name(functions).items():
         if getattr(f, 'is_SparseFunction', False):
             out[name] = np.array(f.data)
             out[f'{name}_coords'] = np.array(f.coordinates.data)
+            for k, v in _tables(f).items():
+                out[f'{name}_{k}'] = np.array(v)
         else:
             out[name] = np.array(f.data_with_halo)
     return out
@@ -35,8 +54,9 @@ def numpy_state(functions):
 def load_numpy_state(functions, arrays):
     """Write ``arrays`` (as from ``numpy_state``) into ``functions``, a
     list or {name: function} of this package's functions. Each array must
-    match the function's ``data_with_halo`` (sparse: ``data`` and
-    ``coordinates.data``) in shape; values are cast to its dtype."""
+    match the function's ``data_with_halo`` (sparse: ``data``,
+    ``coordinates.data`` and the tables of ``_tables``) in shape; values
+    are cast to its dtype."""
     for name, f in _by_name(functions).items():
         if name not in arrays:
             raise KeyError(f"no state for {name}")
@@ -44,6 +64,8 @@ def load_numpy_state(functions, arrays):
                   arrays[name])]
         if f.is_SparseFunction:
             pairs.append((f.coordinates.data, arrays[f'{name}_coords']))
+            pairs += [(v, arrays[f'{name}_{k}'])
+                      for k, v in _tables(f).items()]
         for dst, src in pairs:
             src = np.asarray(src)
             if src.shape != dst.shape:

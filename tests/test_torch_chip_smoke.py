@@ -349,3 +349,156 @@ def test_tti_receiver_gather_both_ways_agree():
         small = C.tti_solver((10, 11, 12), 4, 4, 3, 8)
         assert C.tti_gather_ms(small, C.tti_kinds(small.op_fwd(None)),
                                u, v, torch.device('cpu')) is None
+
+
+SOL_TINY = dict(C.FULL, sol_n=8, sol_nbl=4, sol_steps=4, sol_prof_steps=1,
+                sol_cmp_n=8, sol_cmp_steps=4, sol_dot_tn=60., sa_dot_tn=60.)
+
+
+@pytest.mark.parametrize('kind', ['elastic', 'viscoelastic',
+                                  'viscoacoustic sls-2', 'self-adjoint',
+                                  'viscoacoustic kv-1'])
+def test_solver_for_runs_the_steps_asked_for(kind):
+    from devito_tpu_torch import switchconfig
+    with switchconfig(device='cpu'):
+        s = C.solver_for(kind, (8, 9, 10), 4, 4, 5, 10.)
+        op = s.op_fwd(None)
+        # a first-order system's loop runs from t = 0: one step more
+        first = kind in ('elastic', 'viscoelastic') or kind.endswith('-1')
+        assert C.loop_steps(op) == 5 + first
+        assert s.geometry.nt == 7 and s.geometry.rec.npoint == 8 * 9
+        kinds = C.tti_kinds(op)
+        assert kinds and all(p is not None for _, _, p in kinds)
+
+
+def test_precomputed_receivers_are_linear_ones():
+    """The phase's precomputed receivers hold each point's minimum corner
+    and linear weights: they record what linear receivers record."""
+    from devito_tpu_torch import switchconfig
+    with switchconfig(device='cpu'):
+        recs = []
+        for how in ('linear', 'precomputed'):
+            s = C.solver_for('elastic', (8, 9, 10), 4, 4, 4, 10.,
+                             interpolation=how)
+            rec = s.geometry.new_rec(name='rec1')
+            assert (rec.interpolation == how) and rec.npoint == 72
+            recs.append(C.records_of(s.forward()))
+        for nm, want in recs[0].items():
+            assert np.abs(recs[1][nm] - want).max() <= \
+                1e-6 * np.abs(want).max()
+
+
+def test_launch_ms_raises_on_a_kernel_that_disagrees(monkeypatch):
+    """launch_ms holds each launch against its plain version: a kernel
+    that writes a wrong value over its region makes it raise."""
+    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch.kernels import stencil as K
+    gen = torch.Generator().manual_seed(2)
+    with switchconfig(device='cpu'):
+        s = C.solver_for('self-adjoint', (8, 9, 10), 8, 4, 3, 10.)
+        op = s.op_fwd(None)
+        kinds = C.tti_kinds(op)
+        rows = C.launch_ms(op, kinds, {}, s.dt, torch.device('cpu'), gen)
+        assert len(rows) == len(kinds)
+        assert all(r['max_abs_err'] <= r['tol'] for r in rows)
+        right = K.stencil_update
+
+        def off(plan, rows, params):
+            right(plan, rows, params)
+            rows[0].view(-1)[rows[0].numel() // 2] += 1.
+        monkeypatch.setattr(K, 'stencil_update', off)
+        with pytest.raises(AssertionError, match='max.kernel - plain'):
+            C.launch_ms(op, kinds, {}, s.dt, torch.device('cpu'), gen)
+        # a launch whose plain version overflows is no agreement
+        plain = K.stencil_update_reference
+
+        def overflows(plan, rows, params):
+            plain(plan, rows, params)
+            rows[0].view(-1)[rows[0].numel() // 2] = float('inf')
+        monkeypatch.setattr(K, 'stencil_update', overflows)
+        monkeypatch.setattr(K, 'stencil_update_reference', overflows)
+        with pytest.raises(AssertionError, match='max.kernel - plain'):
+            C.launch_ms(op, kinds, {}, s.dt, torch.device('cpu'), gen)
+
+
+def test_loop_split_covers_every_call_of_the_loop():
+    """loop_split puts a span around every K1 launch and every sparse
+    operation of a run's loop, and restores the executor after it."""
+    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch.compiler import executor as E
+    wrapped = E.stencil_update, E._exec_sparse
+    with switchconfig(device='cpu'):
+        s = C.solver_for('viscoacoustic sls-2', (8, 9, 10), 4, 4, 3, 10.)
+        op = s.op_fwd(None)
+        steps = C.loop_steps(op)
+        sp = C.loop_split(s.forward, steps, torch.device('cpu'))
+    assert (E.stencil_update, E._exec_sparse) == wrapped
+    targets = {f'K1 {eq.target.name}' for _, eq, _ in C.tti_kinds(op)}
+    assert targets | {'inject src', 'interp rec'} == set(sp['ms'])
+    assert set(sp['first_ms']) == {'inject src', 'interp rec'}
+    assert sp['rest_ms'] >= 0 and sp['loop_ms'] >= sum(sp['ms'].values())
+
+
+def test_solvers_phase_runs_on_the_cpu():
+    """Phase 11 at a tiny size on the CPU, where no kernel launches: every
+    dense equation planned for K1, every path's counts at 0, the
+    comparisons with the plain versions and the fp64 dot tests holding,
+    and the bound counting the step's user fields, less the rows the step
+    itself writes and reads back (v.forward in elastic's stress
+    update)."""
+    import json
+    from devito_tpu_torch import switchconfig
+    record = {'launches': 0, 'launches_by_design': {'stream': 0, 'point': 0}}
+    with switchconfig(device='cpu'):
+        res = C.solvers(torch.device('cpu'), SOL_TINY, record,
+                        torch.Generator().manual_seed(1))
+        neqs = {k: len(C.tti_kinds(C.solver_for(k, (8,) * 3, so, 4, 4, 10.)
+                                   .op_fwd(None)))
+                for k, so in C.SOLVERS.items()}
+    json.dumps(res)      # the kernels line carries it
+    assert record['launches'] == 0 and res is record['solvers']
+    assert set(record['launches_by_path']) == {
+        'elastic forward', 'elastic forward, sinc receivers',
+        'elastic forward, precomputed receivers', 'viscoelastic forward',
+        'viscoacoustic sls-2 forward', 'viscoacoustic sls-2 adjoint',
+        'self-adjoint forward', 'self-adjoint adjoint'}
+    assert res['n_units'] > 0 and res['n_equations'] >= res['n_units'] / 2
+    npts = (8 + 2 * 4) ** 3 * 4
+    # elastic: v (3) and tau (6) read at t, lam, mu, b, damp read, v and
+    # tau written; self-adjoint: u at t and t-1, vp, b, wOverQ, u written
+    assert res['elastic forward']['bound_bytes'] == 22 * npts
+    assert res['self-adjoint forward']['bound_bytes'] == 6 * npts
+    for k in ('elastic', 'viscoelastic', 'viscoacoustic sls-2',
+              'self-adjoint'):
+        row = res[f'{k} forward']
+        assert row['schedule_bytes'] > row['bound_bytes'] > 0
+        assert len(row['per_equation']) == neqs[k] and row['rec_norms']
+    assert len(res['compare']) == 11 and all(
+        c['max_abs_diff'] <= c['tol'] for r in res['compare'].values()
+        for c in r.values())
+    assert len(res['dot']) == 7 and all(abs(d['dot']) < 1e-11
+                                        for d in res['dot'].values())
+    assert [r[0] for r in res['receivers']['sinc']['sparse']][-2:] == [
+        'interp rec1', 'interp rec2']
+    # a streaming equation is held and timed beside its point design
+    assert any(e['design'] == 'stream' and 'point_ms' in e and
+               e['point_max_abs_err'] <= e['tol']
+               for e in res['elastic forward']['per_equation'])
+    # every launch at full width, forwards and adjoints, held against its
+    # plain version; each loop split into its calls
+    for lab in ('elastic forward', 'viscoelastic forward',
+                'viscoacoustic sls-2 forward', 'viscoacoustic sls-2 adjoint',
+                'self-adjoint forward', 'self-adjoint adjoint',
+                'receivers'):
+        rows = [res[lab]] if lab != 'receivers' else [
+            res[lab]['sinc'], res[lab]['precomputed']]
+        for row in rows:
+            sp = row['split']
+            assert sp['loop_ms'] > 0 and sp['rest_ms'] >= 0
+            assert any(k.startswith('K1') for k in sp['ms'])
+            for e in row.get('per_equation', []):
+                assert e['max_abs_err'] <= e['tol'] and e['tol'] > 0
+    assert 'interp rec1' in res['receivers']['sinc']['split']['first_ms']
+    # the adjoints at the small size, from the card's record
+    for k in ('self-adjoint', 'viscoacoustic sls-2', 'viscoacoustic kv-1'):
+        assert set(res['compare'][k]) == {'rec', 'srca'}

@@ -36,6 +36,15 @@ def test_import_pulls_in_no_jax():
             "import devito_tpu_torch.experiments.stencil_probe4\n"
             "import devito_tpu_torch.experiments.stencil_probe5\n"
             "import devito_tpu_torch.experiments.stencil_probe7\n"
+            "from devito_tpu_torch.models.seismic import (elastic_setup, "
+            "viscoelastic_setup, viscoacoustic_setup, sa_setup)\n"
+            "import devito_tpu_torch.models.seismic.elastic\n"
+            "import devito_tpu_torch.models.seismic.viscoelastic\n"
+            "import devito_tpu_torch.models.seismic.viscoacoustic\n"
+            "import devito_tpu_torch.models.seismic.self_adjoint\n"
+            "from devito_tpu_torch.operations.interpolators import (\n"
+            "    SincInterpolator, PrecomputedInterpolator, "
+            "MatrixInterpolator)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'devito_tpu'))\n"
             "print(bad)\n"
@@ -43,6 +52,34 @@ def test_import_pulls_in_no_jax():
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_exports_of_the_solver_slice():
+    """The tensor types and the precomputed and matrix sparse types are
+    exported as devito_tpu exports them, and each solver module names
+    devito_tpu's entry points."""
+    from devito_tpu_torch.models.seismic import (elastic, viscoelastic,
+                                                 viscoacoustic, self_adjoint)
+    for name in ('TensorFunction', 'VectorFunction', 'TensorTimeFunction',
+                 'VectorTimeFunction', 'PrecomputedSparseFunction',
+                 'PrecomputedSparseTimeFunction',
+                 'MatrixSparseTimeFunction'):
+        assert getattr(devito_tpu_torch, name).__module__.startswith(
+            'devito_tpu_torch.types.')
+    assert elastic.__all__ == ['ForwardElasticOperator',
+                               'ElasticWaveSolver', 'elastic_setup']
+    assert viscoelastic.__all__ == ['ViscoelasticForwardOperator',
+                                    'ViscoelasticWaveSolver',
+                                    'viscoelastic_setup']
+    assert viscoacoustic.__all__ == ['ViscoForwardOperator',
+                                     'ViscoAdjointOperator',
+                                     'ViscoacousticWaveSolver',
+                                     'viscoacoustic_setup']
+    assert set(viscoacoustic.stencils) == {
+        (k, o) for k in ('sls', 'kv', 'maxwell') for o in (1, 2)}
+    assert self_adjoint.__all__ == ['setup_w_over_q', 'sa_iso_stencil',
+                                    'IsoFwdOperator', 'IsoAdjOperator',
+                                    'SaIsoWaveSolver', 'sa_setup']
 
 
 @pytest.mark.parametrize('build', ['grid', 'function', 'timefunction'])
