@@ -143,6 +143,29 @@
    with sinc (r=4) and with precomputed receivers, driven as (2), each
    sparse operation timed alone beside linear's, and its loop split as
    (2) splits it.
+12. Narrow storage, separable interpolation and the Operator's options:
+   (1) the phase's new K1 units built at once, each with its nvcc
+   seconds, registers and spills; (2) K1 on narrow rows, bench.py's
+   headline equation at 512^3 SO=8 with bf16 rows under scope 'fields'
+   and 'all' and fp16 under 'fields', on the point design, each against
+   its plain version (every value within one narrow ulp, or 1e-5 x max)
+   and timed beside the fp32 point and streaming designs and its bound;
+   (3) bench.py's second row through Operator.apply: 4 steps against the
+   plain version, 100 with one narrow launch a step, its peak memory and
+   its drift from the fp32 operator; (4) the elastic forward at 512^3 +
+   nbl 10 with 262,144 surface receivers, linear and sinc (r=4), with the
+   separable path and with it off: the records within 1e-5 x max, each
+   way's sparse, loop and _prepare ms; (5) the superstep wave equation at
+   512^3 SO=4, k = 2 and 4, against k single steps (RUN_TOL); (6) spatial
+   bounds on the headline operator (an interior box as x_m/x_M, y_m/y_M,
+   z_m/z_M and as the bare x=) against the plain version, the outside
+   untouched, then the whole domain; (7) the errctl scan on the 412-step
+   forward shot beside the same shot without it, and a run with a zero
+   velocity raising ExecutionError at the first check after the blow-up;
+   (8) the headline operator pickled and rerun here and in a new process,
+   bit-equal, with no nvcc build; (9) autotune='basic' launching what the
+   untuned run launches. Every part is driven with K1's counts at 0 just
+   before and read just after, and its launches add to K1's main path.
 
 Every failure raises, and the script exits non-zero. The next-to-last
 lines are the kernel records (one JSON line, a record per kernel, each with
@@ -151,7 +174,8 @@ result needs (each input point it reads once, each output point written
 once) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s, the H100
 SXM's data-sheet peaks -- the one PyTorch call that computes the same
 function, where there is one, and its launches on its own path and on the
-main path, phases 4, 5, 9, 10 and 11, every kernel's count read there) and
+main path, phases 4, 5 and 9-12, every kernel's count read there; K1's
+narrow-storage variant has a record of its own) and
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}.
 """
@@ -219,7 +243,15 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
             sol_n=512, sol_nbl=10, sol_spacing=10., sol_steps=100,
             sol_prof_steps=5, sol_cmp_n=48, sol_cmp_steps=40,
             sol_dot_shape=(21, 25), sol_dot_tn=250., sa_dot_shape=(41, 41),
-            sa_dot_tn=250.)
+            sa_dot_tn=250.,
+            # phase 12: the headline size, bench.py's second row's steps;
+            # the superstep's size, space order and k; the interior box
+            # (x, y, z inclusive: 434 x-planes, not a multiple of the
+            # streaming design's x-chunk of 32) and its steps; the pickled
+            # operator's steps; the steps of the run that blows up
+            p12_n=512, p12_steps=100, p12_ss_n=512, p12_ss_so=4,
+            p12_ss_ks=(2, 4), p12_box=((37, 470), (20, 491), (9, 500)),
+            p12_bound_steps=2, p12_pickle_steps=2, p12_err_steps=150)
 #: (name, source, TPU kernel replaced, the part of the kernel's mangled name
 #: that picks its ptxas report out of its unit's) of every kernel, in record
 #: order.
@@ -319,7 +351,7 @@ def smi():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def operator_for(kind, shape, so, dtype):
+def operator_for(kind, shape, so, dtype, opt=None):
     from devito_tpu_torch import (Grid, TimeFunction, Function, Eq,
                                   Operator, solve)
     grid = Grid(shape=shape, extent=tuple(10. * (s - 1) for s in shape),
@@ -333,8 +365,9 @@ def operator_for(kind, shape, so, dtype):
         damp = Function(name='damp', grid=grid, space_order=so)
         pde = (1 / (vp * vp)) * u.dt2 - u.laplace + damp * u.dt
         fns = {'u': u, 'vp': vp, 'damp': damp}
-    op = Operator(Eq(u.forward, solve(pde, u.forward)),
-                  subs=grid.spacing_map, name=f'{kind}{len(shape)}d')
+    fns['eq'] = Eq(u.forward, solve(pde, u.forward))
+    op = Operator(fns['eq'], subs=grid.spacing_map,
+                  name=f'{kind}{len(shape)}d', opt=opt)
     return op, fns
 
 
@@ -413,9 +446,10 @@ def time_host(op):
 
     def timed(*args):
         tic = time.perf_counter()
-        runner(*args)
+        halted = runner(*args)
         out['s'] = time.perf_counter() - tic
         op._runner = runner
+        return halted
 
     timed.plans = runner.plans
     op._runner = timed
@@ -527,10 +561,11 @@ def time_ms(fn, reps, device):
     return (time.perf_counter() - tic) * 1e3 / reps
 
 
-def headline_operator(n, device):
+def headline_operator(n, device, opt=None):
     """bench.py's operator at n^3 SO=8 fp32 with a seeded state: velocity
-    in [1.5, 2), small damping, a Gaussian pulse in both time slots."""
-    op, fns = operator_for('acoustic', (n, n, n), 8, np.float32)
+    in [1.5, 2), small damping, a Gaussian pulse in both time slots; built
+    with ``opt`` (bench.py's second row: bf16 storage of the fields)."""
+    op, fns = operator_for('acoustic', (n, n, n), 8, np.float32, opt)
     rng = np.random.default_rng(SEED)
     fns['vp'].data[:] = 1.5 + 0.5 * rng.random((n,) * 3, dtype=np.float32)
     fns['damp'].data[:] = 0.01 * rng.random((n,) * 3, dtype=np.float32)
@@ -992,6 +1027,9 @@ def _smoke(device, sizes):
     solvers(device, sizes, record, gen)
     if (K.selftests, K.selftest_launches) != (on_card, on_card):
         raise AssertionError("the other solvers ran the self-test again")
+    narrow_phase(device, sizes, records, gen)
+    if (K.selftests, K.selftest_launches) != (on_card, on_card):
+        raise AssertionError("phase 12 ran the self-test again")
     for rec in records:
         rec.setdefault('library_ms', None)
         rec.setdefault('point_ms', None)
@@ -2294,8 +2332,9 @@ def call_stats(op):
 
     def _run(*args):
         tic = time.perf_counter()
-        runner(*args)
+        halted = runner(*args)
         st['loop_host'] += time.perf_counter() - tic
+        return halted
 
     _run.plans = runner.plans
     op.apply, op._prepare, op._runner = _apply, _prepare, _run
@@ -3884,6 +3923,710 @@ def log_full(label, row):
                 for m in p['kernels'][:8]))
 
 
+# -- phase 12: narrow storage, separable interpolation and the options ------
+
+#: The narrow-storage variants of the headline equation phase 12 runs on K1:
+#: (label, opt options).
+NARROW = [('bf16 fields', {'storage-dtype': 'bfloat16'}),
+          ('bf16 all', {'storage-dtype': 'bfloat16',
+                        'storage-dtype-scope': 'all'}),
+          ('fp16 fields', {'storage-dtype': 'float16'})]
+#: Mantissa bits of each narrow dtype (one ulp at |v| in [2^e, 2^(e+1)) is
+#: 2^(e - bits)).
+MANTISSA = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def narrow_rows(plan, device, gen):
+    """``random_rows`` in each row's storage dtype: the values drawn in
+    the compute dtype, then rounded to the row's."""
+    _, _, ins = random_rows(plan, device, gen)
+    ins = [r.to(st) for r, st in zip(ins, plan.storage[1:])]
+    out = torch.zeros(plan.eq.target._allocated_space(), device=device,
+                      dtype=plan.storage[0])
+    return out, ins
+
+
+def narrow_close(label, got, want):
+    """Raise unless every value of ``got`` is within one ulp of the
+    narrow storage dtype of ``want``'s, or within TOL[fp32] x max|want|
+    (values near zero): the kernel's fp32 sums may contract to FMAs where
+    the plain version's do not, and a last-bit difference can move the
+    rounded value by one narrow ulp. Returns (max |got - want|, the share
+    of values off by an ulp)."""
+    w = want.float()
+    diff = (got.float() - w).abs()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - 1 - MANTISSA[want.dtype])
+    top = w.abs().max().item()
+    ok = diff <= torch.maximum(ulp, torch.full_like(
+        ulp, TOL[np.float32] * top))
+    if not (bool(ok.all()) and 0 < top < float('inf')):
+        raise AssertionError(f"{label}: {int((~ok).sum())} values beyond a "
+                             f"{want.dtype} ulp of the plain version (max "
+                             f"|diff| {diff.max().item():.3e})")
+    return diff.max().item(), float((diff > 0).float().mean().item())
+
+
+def plan_bytes(plan):
+    """Bytes one update of ``plan`` needs: each row read once, the target
+    written once, over the region, at each row's storage size."""
+    npts = int(np.prod(plan.extents))
+    return npts * sum(torch.empty(0, dtype=s).element_size()
+                      for s in plan.storage)
+
+
+def narrow_phase(device, sizes, records, gen):
+    """Phase 12: (1) the phase's new K1 units built at once; (2) K1 on
+    narrow rows (bench.py's headline equation at n^3 SO=8 with bf16 rows
+    under scope 'fields' and 'all', fp16 under 'fields') against its plain
+    version and timed beside the fp32 point and streaming designs; (3)
+    bench.py's second row through Operator.apply: 4 steps against the
+    plain version, then 100 with one narrow launch a step, its peak memory
+    and its drift from the fp32 operator; (4) the elastic forward at full
+    width with separable and with gathered receivers, linear and sinc;
+    (5) the superstep wave equation at k = 2 and 4 against k steps; (6)
+    spatial bounds on the headline operator against the plain version;
+    (7) the errctl scan on the forward shot and on a run that blows up;
+    (8) the headline operator pickled and rerun, here and in a new
+    process; (9) autotune. Every part is driven with K1's counts at 0 just
+    before it and read just after; its launches add to K1's main path.
+    Appends the narrow-storage record to ``records``."""
+    from devito_tpu_torch.kernels import stencil as K
+    from concurrent.futures import ThreadPoolExecutor
+    on_card = device.type == 'cuda'
+    k1 = records[0]
+    res = k1['phase12'] = {}
+    narrow = dict(name='stencil_update_narrow', route='cuda',
+                  source='devito_tpu_torch/csrc/stencil.cuh',
+                  replaces='experiments/pallas_backend.py:303', launches=0,
+                  point_ms=None, library_ms=None)
+    records.append(narrow)
+    release(device)
+    n = sizes['p12_n']
+    tic = time.perf_counter()
+
+    # -- (1) the phase's operators, and their new K1 units built at once ---
+    eq32 = operator_for('acoustic', (n,) * 3, 8, np.float32)[0]
+    (_, p32), = eq32.kernel_plans
+    variants = {}
+    for lab, o in NARROW:
+        op = operator_for('acoustic', (n,) * 3, 8, np.float32,
+                          ('advanced', o))[0]
+        (_, p), = op.kernel_plans
+        if p.design != 'point' or not p.narrow:
+            raise AssertionError(f"{lab}: the narrow headline equation took "
+                                 f"{p.design} ({p.design_reason})")
+        variants[lab] = p
+        del op
+    ss = superstep_ops(sizes)
+    all_on_k1([op for _, _, op in ss])
+    lower_s = time.perf_counter() - tic
+    point32 = K.plan_for(p32.eq, _design='point')
+    plans = [p32, point32] + list(variants.values()) + [
+        p for _, _, op in ss for _, p in op.kernel_plans]
+    uniq = list({p.key: p for p in plans}.values())
+    wall = 0.
+    if on_card:
+        tic = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(K.build, uniq))
+        wall = time.perf_counter() - tic
+    res['build'] = dict(lower_s=lower_s, wall_s=wall, units=[
+        dict(target=p.eq.target.name, design=p.design,
+             storage=[str(s) for s in p.storage],
+             nvcc_s=K.build_seconds.get(p.key),
+             ptxas=ptxas(K.build_log.get(p.key, ''))) for p in uniq])
+    log(f"[p12-build] {len(uniq)} K1 units in {wall:.2f} s wall (lowering "
+        f"{lower_s:.2f} s, the superstep's sympy included)")
+    for u in res['build']['units']:
+        log(f"[p12-unit] {u['target']} {u['design']} rows "
+            f"{'/'.join(s.replace('torch.', '') for s in u['storage'])}: "
+            f"nvcc {u['nvcc_s'] or 0:.2f} s; {u['ptxas'] or 'no ptxas'}")
+
+    # -- (2) K1 on narrow rows, alone ---------------------------------------
+    reps = sizes['reps']
+    params = {nm: 0.7 for nm in p32.param_names}
+    out, _, ins = random_rows(p32, device, gen)
+    times = dict(stream=time_ms(lambda: K.stencil_update(p32, (out, ins),
+                                                         params), reps,
+                                device),
+                 point=time_ms(lambda: K.stencil_update(point32, (out, ins),
+                                                        params), reps,
+                               device))
+    del out, ins
+    alone = res['narrow_k1'] = {}
+    for lab, p in variants.items():
+        out, ins = narrow_rows(p, device, gen)
+        ref = out.clone()
+        K.stencil_update_reference(p, (ref, ins), params)
+        K.stencil_update(p, (out, ins), params)
+        sync(device)
+        err, off = narrow_close(f"K1 {lab}", out, ref)
+        ms = time_ms(lambda: K.stencil_update(p, (out, ins), params), reps,
+                     device)
+        plain = time_ms(lambda: K.stencil_update_reference(
+            p, (ref, ins), params), sizes['plain_reps'], device)
+        row = dict(ms=ms, plain_ms=plain, max_abs_err=err, ulp_share=off,
+                   fp32_stream_ms=times['stream'],
+                   fp32_point_ms=times['point'],
+                   ptxas=ptxas(K.build_log.get(p.key, '')))
+        set_bound(row, plan_bytes(p), K.point_flops(p) *
+                  int(np.prod(p.extents)))
+        alone[lab] = row
+        log(f"[p12-k1] {lab} at {n}^3 SO=8 (point design, {p.design_reason}"
+            f"): {ms:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']} ({row['bound_bytes'] / 1e9:.3f} GB) = "
+            f"{100 * row['share_of_bound']:.1f} %; fp32 streaming "
+            f"{times['stream']:.4f}, fp32 point {times['point']:.4f}; plain "
+            f"{plain:.3f} ms; against the plain version max|diff| {err:.3e},"
+            f" {100 * off:.4f} % of the values one ulp off; {row['ptxas']}")
+        del out, ins, ref
+    release(device)
+    first = alone['bf16 fields']
+    narrow.update(ms=first['ms'], plain_ms=first['plain_ms'],
+                  max_abs_err=max(r['max_abs_err'] for r in alone.values()),
+                  bound_ms=first['bound_ms'], bound_by=first['bound_by'],
+                  point_ms=first['ms'], variants=alone,
+                  ptxas=first['ptxas'])
+
+    def count(fn):
+        """fn() with K1's counts at 0 just before it; (its result,
+        launches by design), read just after; the launches add to K1's
+        main path."""
+        K.launches = 0
+        K.launches_by_design.update(point=0, stream=0)
+        probe_launches(zero=True)
+        out = fn()
+        sync(device)
+        by = dict(K.launches_by_design)
+        if any(probe_launches().values()):
+            raise AssertionError("phase 12 launched a probe kernel")
+        k1['launches'] += K.launches
+        k1['launches_main_path'] = k1['launches']
+        return out, by
+
+    # -- (3) bench.py's second row through Operator.apply ------------------
+    res['second_row'] = second_row(device, sizes, narrow, count)
+    release(device)
+    # -- (4) separable interpolation at full width -----------------------
+    res['separable'] = separable_phase(device, sizes, count)
+    release(device)
+    # -- (5) superstepping ----------------------------------------------
+    res['superstep'] = superstep_phase(device, sizes, ss, count)
+    del ss
+    release(device)
+    # -- (6)-(9) the options on the headline operator ---------------------
+    res.update(options_phase(device, sizes, count))
+    release(device)
+    return res
+
+
+def second_row(device, sizes, narrow, count):
+    """bench.py's second row, ('advanced', {'storage-dtype': 'bfloat16',
+    'storage-dtype-scope': 'fields'}), on the headline state: 4 steps
+    against the plain version on the same rows, then ``p12_steps`` steps
+    through Operator.apply with one narrow K1 launch a step, their peak
+    device memory and loop time, and the drift of u from the fp32
+    operator's after as many steps from the same state."""
+    from devito_tpu_torch.compiler.executor import plan_rows
+    from devito_tpu_torch.kernels import stencil as K
+    n, steps, ntc = sizes['p12_n'], sizes['p12_steps'], sizes['head_compare']
+    on_card = device.type == 'cuda'
+    dt_ = 0.6 * 10.0 / 1.5 / (3 ** 0.5) / 4   # bench.py's dt
+    op, fns = headline_operator(n, device, ('advanced', {
+        'storage-dtype': 'bfloat16', 'storage-dtype-scope': 'fields'}))
+    (_, plan), = op.kernel_plans
+    u = fns['u']
+    bufs, hp = op.arguments(time_m=1, time_M=ntc, dt=dt_)
+    snap = bufs['u'].clone()
+    if snap.dtype != torch.bfloat16 or bufs['vp'].dtype != torch.float32:
+        raise AssertionError(f"second row: u stored {snap.dtype}, vp "
+                             f"{bufs['vp'].dtype}")
+    op.apply(time_m=1, time_M=ntc, dt=dt_)
+    got = u._device_array().clone()
+    bufs, hp = op.arguments(time_m=1, time_M=ntc, dt=dt_)
+    bufs['u'].copy_(snap)
+    for t in range(1, ntc + 1):
+        K.stencil_update_reference(plan, plan_rows(plan, bufs, t, hp), hp)
+    sync(device)
+    # a step's rounding may differ by a bf16 ulp where the fp32 sums differ
+    # in their last bit, and the next steps carry it: 4 steps are held to
+    # 8 bf16 ulps at max |plain|
+    top = bufs['u'].float().abs().max().item()
+    err = (got.float() - bufs['u'].float()).abs().max().item()
+    tol = 8 * 2. ** (np.floor(np.log2(top)) - 7)
+    if not err <= tol:
+        raise AssertionError(f"second row: kernel and plain runs differ by "
+                             f"{err:.3e} > {tol:.3e}")
+    u._device_array().copy_(snap)
+    del got, bufs
+    plan.launches = 0
+    held = torch.cuda.memory_allocated(device) if on_card else None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    summary, by = count(lambda: op.apply(time_m=1, time_M=steps, dt=dt_))
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    if by != {'point': on_card * steps, 'stream': 0} or \
+            plan.launches != on_card * steps:
+        raise AssertionError(f"second row launched K1 {by}, its narrow plan "
+                             f"{plan.launches} times, for {steps} steps")
+    narrow['launches'] += plan.launches
+    narrow['launches_main_path'] = narrow['launches']
+    bf = u._device_array().float()
+    if not bool(torch.isfinite(bf).all()):
+        raise AssertionError("second row: non-finite wavefield")
+    loop = summary.globals['fdlike'].time * 1e3 / steps
+    del op, fns, u
+    release(device)
+    op32, f32 = headline_operator(n, device)
+    op32.apply(time_m=1, time_M=steps, dt=dt_)
+    w = f32['u']._device_array()
+    drift = ((bf - w).abs().max() / w.abs().max()).item()
+    del op32, f32, w, bf
+    row = dict(steps=steps, loop_ms_per_step=loop, compare_steps=ntc,
+               compare_err=err, compare_tol=tol, launches=by,
+               max_memory_allocated=peak, held_bytes=held,
+               drift_from_fp32=drift,
+               gpoints_s=n ** 3 / (loop * 1e-3) / 1e9)
+    log(f"[p12-row2] bench.py's second row (bf16 fields) at {n}^3: {ntc} "
+        f"steps against the plain version max|diff| {err:.3e} (tolerance "
+        f"{tol:.3e}); {steps} steps through Operator.apply "
+        f"{loop:.4f} ms/step ({row['gpoints_s']:.2f} GPts/s), K1 {by} "
+        f"(one narrow launch a step), peak device memory "
+        + (f"{peak / 1e9:.2f} GB (held before {held / 1e9:.2f})" if peak
+           else "not measured")
+        + f"; drift of u from the fp32 operator after {steps} steps "
+        f"{drift:.3e} x max")
+    return row
+
+
+def all_on_k1(ops):
+    """Raise when a dense equation of ``ops`` runs in the torch
+    translator (K1 declined it)."""
+    from devito_tpu_torch.kernels import stencil as K
+    bad = [(op.name, eq.target.name, K.decline_reason(eq))
+           for op in ops for eq, p in op.kernel_plans if p is None]
+    if bad:
+        raise AssertionError(f"phase 12: equations in the torch translator: "
+                             f"{bad}")
+
+
+def build_units(ops, device):
+    """Build every K1 unit of ``ops`` at once (8 nvcc at a time), so that
+    no run of the phase compiles inside its loop; the seconds it took.
+    Raises when a dense equation of ``ops`` runs in the torch
+    translator."""
+    from devito_tpu_torch.kernels import stencil as K
+    from concurrent.futures import ThreadPoolExecutor
+    all_on_k1(ops)
+    if device.type != 'cuda':
+        return 0.
+    uniq = {p.key: p for op in ops for _, p in op.kernel_plans}
+    tic = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(K.build, uniq.values()))
+    return time.perf_counter() - tic
+
+
+def separable_phase(device, sizes, count):
+    """The elastic forward at full width (``sol_n``^3 + nbl, a receiver at
+    every surface node) with linear and with sinc (r=4) receivers, each
+    with the separable path (the default) and with it off: the records
+    agree within 1e-5 x max (fp32: the sums run in other orders); each
+    way's first loop ms a step, and in a warm run its sparse and loop ms a
+    step (``loop_split``), ``_prepare``'s host ms and the separable
+    set-up's share of it."""
+    from devito_tpu_torch import switchconfig
+    n, nbl, h, steps = (sizes['sol_n'], sizes['sol_nbl'],
+                        sizes['sol_spacing'], sizes['sol_steps'])
+    shape = (n,) * 3
+    out = {}
+    model = None
+    for interp in ('linear', 'sinc'):
+        s = solver_for('elastic', shape, 4, nbl, steps, h,
+                       interpolation=interp, model=model)
+        model = s.model
+        op = s.op_fwd(None)
+        build_units([op], device)
+        nsteps = loop_steps(op)
+        rows = {}
+        for way, on in (('separable', True), ('gather', False)):
+            with switchconfig(separable=on):
+                fo, by = count(lambda: s.forward())
+                recs = records_of(fo)
+                first = fo[-1].globals['fdlike'].time * 1e3 / nsteps
+                del fo
+                release(device)
+                # warm: the model's tensors are on the device already, so
+                # _prepare's host ms are the same work both ways but the
+                # separable set-up
+                st, undo = call_stats(op)
+                try:
+                    split = loop_split(lambda: s.forward(), nsteps, device)
+                finally:
+                    undo()
+            sparse = sum(v for k, v in split['ms'].items()
+                         if not k.startswith('K1'))
+            rows[way] = dict(recs=recs, launches=by, split=split,
+                             sparse_ms_per_step=sparse,
+                             loop_ms_per_step=split['loop_ms'],
+                             first_loop_ms_per_step=first,
+                             prepare_ms=per_call_ms(st)['prepare'],
+                             setup_ms=op.separable_seconds * 1e3)
+            release(device)
+        errs = {}
+        for nm, w in rows['gather']['recs'].items():
+            got = rows['separable']['recs'][nm]
+            err = float(np.abs(got - w).max())
+            tol = 1e-5 * float(np.abs(w).max())
+            if not err <= tol:
+                raise AssertionError(f"{interp} receivers: {nm} separable "
+                                     f"and gathered differ by {err:.3e} > "
+                                     f"{tol:.3e}")
+            errs[nm] = (err, tol)
+        for r in rows.values():
+            r.pop('recs')
+        out[interp] = dict(rows, max_abs_diff=errs, nrec=s.geometry.nrec)
+        log(f"[p12-sep] elastic {interp} receivers ({s.geometry.nrec}), "
+            f"{n}^3 + nbl {nbl}, {nsteps} steps: " + '; '.join(
+                f"{way}: loop {r['loop_ms_per_step']:.3f} ms/step (first run "
+                f"{r['first_loop_ms_per_step']:.3f}), sparse "
+                f"{r['sparse_ms_per_step']:.4f} ms/step, _prepare "
+                f"{r['prepare_ms']:.2f} ms of which the separable set-up "
+                f"{r['setup_ms']:.2f}, K1 {r['launches']}"
+                for way, r in rows.items())
+            + "; records separable - gathered: " + '; '.join(
+                f"{nm} {e:.3e} (tolerance {t:.3e})"
+                for nm, (e, t) in errs.items()))
+        del s, op
+        release(device)
+    return out
+
+
+def superstep_ops(sizes):
+    """[(k, state, operator)] of the superstep wave equation (a fp32 SO
+    ``p12_ss_so`` wave equation at ``p12_ss_n``^3, velocity 1.5, half the
+    CFL dt) for each k of ``p12_ss_ks``, built by superstep_generator from
+    a Gaussian pulse at the centre; k = 0 is the one-step operator."""
+    from devito_tpu_torch import (Grid, TimeFunction, Eq, Operator, solve,
+                                  clear_cache)
+    from devito_tpu_torch.timestepping import superstep_generator
+    n, so = sizes['p12_ss_n'], sizes['p12_ss_so']
+    grid = Grid(shape=(n,) * 3, extent=(10. * (n - 1),) * 3)
+    # a pulse of width n / 12, so that it is zero to fp32 at the edges: the
+    # composed stencil reads the halo where k single steps would have
+    # written zeros
+    x = (np.arange(n, dtype=np.float32) - n / 2) ** 2
+    pulse = np.exp(-(x[:, None, None] + x[None, :, None] + x[None, None, :])
+                   / (2 * (n / 12.) ** 2))
+    dtv = 0.5 * 10. / 1.5 / np.sqrt(3) / 2
+    out = []
+    for k in (0,) + tuple(sizes['p12_ss_ks']):
+        clear_cache()
+        u = TimeFunction(name='u', grid=grid, time_order=2, space_order=so)
+        u.data[0] = pulse
+        u.data[1] = pulse
+        st = solve(u.dt2 - 1.5 ** 2 * u.laplace, u.forward).subs(
+            grid.spacing_map).subs({grid.time_dim.spacing: dtv})
+        if k == 0:
+            out.append((0, dict(u=u, dt=dtv), Operator(Eq(u.forward, st))))
+            continue
+        uss, ussp, eq1, eq2 = superstep_generator(u, st, k, nt=1)
+        out.append((k, dict(u=uss, dt=dtv), Operator([eq1, eq2])))
+    return out
+
+
+def superstep_phase(device, sizes, ss, count):
+    """Each superstep operator of ``ss`` (k >= 1) one apply from the pulse
+    against k steps of the one-step operator from it, over the domain:
+    within RUN_TOL x max (fp32); its launches per superstep and ms per
+    advanced step (warm) beside the one-step operator's ms a step."""
+    from devito_tpu_torch.kernels import stencil as K
+
+    def domain(fn, row):
+        return fn._device_array()[row][tuple(
+            slice(h, h + m) for (h, _), m in zip(fn.halo, fn.shape[1:]))]
+    (_, s0, op0), *rest = ss
+    u0 = s0['u']
+    snap = u0._device_array().clone()
+    res = {}
+    for k, st, op in rest:
+        u0._device_array().copy_(snap)
+        op0.apply(time_m=1, time_M=k, dt=s0['dt'])
+        ref = domain(u0, (k + 1) % 3).clone()
+        uss = st['u']
+        ssnap = uss._device_array().clone()
+        _, by = count(lambda: op.apply(time_m=1, time_M=1, dt=st['dt']))
+        got = domain(uss, 2)
+        err = (got - ref).abs().max().item()
+        tol = RUN_TOL[np.float32] * ref.abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"superstep k={k}: {err:.3e} > {tol:.3e} "
+                                 f"against {k} steps")
+        uss._device_array().copy_(ssnap)
+        ms = op.apply(time_m=1, time_M=1, dt=st['dt']).globals[
+            'fdlike'].time * 1e3
+        plans = [p for _, p in op.kernel_plans]
+        res[k] = dict(err=err, tol=tol, launches=by, ms_per_superstep=ms,
+                      ms_per_step=ms / k,
+                      designs=[p.design for p in plans],
+                      taps=[p.source.count('DTPU_LD') for p in plans],
+                      flops_per_point=[K.point_flops(p) for p in plans])
+        del got, ref, ssnap
+    u0._device_array().copy_(snap)
+    one = op0.apply(time_m=1, time_M=4, dt=s0['dt']).globals[
+        'fdlike'].time * 1e3 / 4
+    for k, r in res.items():
+        r['single_step_ms'] = one
+        log(f"[p12-ss] superstep k={k} at {sizes['p12_ss_n']}^3 SO="
+            f"{sizes['p12_ss_so']} fp32: against {k} single steps max|diff| "
+            f"{r['err']:.3e} (tolerance {r['tol']:.3e}); K1 {r['launches']} "
+            f"a superstep ({'/'.join(r['designs'])}, taps {r['taps']}, "
+            f"flops a point {r['flops_per_point']}); {r['ms_per_superstep']:.3f}"
+            f" ms a superstep = {r['ms_per_step']:.3f} ms an advanced step, "
+            f"against {one:.3f} ms a single step")
+    return res
+
+
+#: The new process of phase 12's pickling check: it loads the pickled
+#: operator, applies it and prints the sha256 of u's rows, the nvcc builds
+#: it made and its K1 launches.
+PICKLED_RUN = """
+import hashlib, json, pickle, sys, torch
+from devito_tpu_torch import switchconfig
+from devito_tpu_torch.kernels import stencil as K
+with switchconfig(device=sys.argv[2]):
+    op = pickle.load(open(sys.argv[1], 'rb'))
+    op.apply(time_m=1, time_M=int(sys.argv[3]), dt=float(sys.argv[4]))
+    u = op._reads['u']._device_array()
+    print(json.dumps({'sha': hashlib.sha256(
+        u.cpu().contiguous().numpy().tobytes()).hexdigest(),
+        'builds': len(K.build_seconds), 'launches': K.launches}))
+"""
+
+
+def sha(t):
+    import hashlib
+    return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def options_phase(device, sizes, count):
+    """(6) spatial bounds on the headline operator: an interior box given
+    as x_m/x_M, y_m/y_M, z_m/z_M and again as the bare x= (x_m at 0), each
+    over ``p12_bound_steps`` steps against the same bounded runner on the
+    plain version, the points outside the box untouched; then the whole
+    domain; (7) the errctl scan on the forward shot (``fwd_n``, 412 steps)
+    beside the same shot without it, and on the headline operator with a
+    zero velocity, which raises ExecutionError at the first check after
+    the blow-up; (8) the headline operator pickled, then rerun here and in
+    a new process, bit-equal to the original, with no nvcc build; (9)
+    autotune='basic' launching what the untuned run launches."""
+    import pickle
+    import tempfile
+    from devito_tpu_torch import Operator, ExecutionError
+    from devito_tpu_torch.compiler.executor import plan_rows
+    from devito_tpu_torch.kernels import stencil as K
+    on_card = device.type == 'cuda'
+    n = sizes['p12_n']
+    dt_ = 0.6 * 10.0 / 1.5 / (3 ** 0.5) / 4
+    res = {}
+    op, fns = headline_operator(n, device)
+    u = fns['u']
+    snap = u._device_array().clone()
+    (_, whole), = op.kernel_plans
+
+    # -- (6) spatial bounds -------------------------------------------------
+    nb = sizes['p12_bound_steps']
+    (xa, xb), (ya, yb), (za, zb) = sizes['p12_box']
+    boxes = {'x_m/x_M': dict(x_m=xa, x_M=xb, y_m=ya, y_M=yb, z_m=za, z_M=zb),
+             'bare x=': dict(x=xb, y_m=ya, y_M=yb, z_m=za, z_M=zb)}
+    bres = res['bounds'] = {}
+    for lab, kw in boxes.items():
+        u._device_array().copy_(snap)
+        _, by = count(lambda: op.apply(time_m=1, time_M=nb, dt=dt_, **kw))
+        got = u._device_array().clone()
+        sb = {d: (kw.get(f'{d}_m'), kw.get(f'{d}_M', kw.get(d)))
+              for d in 'xyz'}
+        runner = op._bounded_runner(sb)
+        (eq, plan), = runner.plans
+        bufs, hp = op.arguments(time_m=1, time_M=nb, dt=dt_)
+        bufs['u'].copy_(snap)
+        for t in range(1, nb + 1):
+            K.stencil_update_reference(plan, plan_rows(plan, bufs, t, hp),
+                                       hp)
+        sync(device)
+        box = (slice(None),) + tuple(slice(8 + a, 8 + b) for a, b in
+                                     eq.region)
+        err = (got[box] - bufs['u'][box]).abs().max().item()
+        tol = RUN_TOL[np.float32] * bufs['u'][box].abs().max().item()
+        changed = got != snap
+        changed[box] = False
+        untouched = not bool(changed.any())
+        del changed
+        if not (err <= tol and untouched and
+                by == {plan.design: on_card * nb, 'stream' if
+                       plan.design == 'point' else 'point': 0}):
+            raise AssertionError(f"bounds {lab}: max|kernel - plain| "
+                                 f"{err:.3e} (tolerance {tol:.3e}), the "
+                                 f"outside untouched: {untouched}, K1 {by}")
+        bres[lab] = dict(region=eq.region, design=plan.design,
+                         reason=plan.design_reason, err=err, tol=tol,
+                         launches=by, same_unit=plan.key == whole.key,
+                         tx=(plan.tile or {}).get('tx'))
+        log(f"[p12-bounds] {lab} {kw}: region {eq.region} on the "
+            f"{plan.design} design (x-chunk {bres[lab]['tx']}: "
+            f"{(eq.region[0][1] - eq.region[0][0])} x-planes), the same unit "
+            f"as the whole domain's: {plan.key == whole.key}; {nb} steps "
+            f"against the plain version max|diff| {err:.3e} (tolerance "
+            f"{tol:.3e}), outside the box untouched; K1 {by}")
+        del got, bufs
+    u._device_array().copy_(snap)
+    _, by = count(lambda: op.apply(time_m=1, time_M=nb, dt=dt_))
+    if by != {whole.design: on_card * nb,
+              'stream' if whole.design == 'point' else 'point': 0}:
+        raise AssertionError(f"the whole domain after the boxes: K1 {by}")
+    bres['whole'] = dict(launches=by)
+    log(f"[p12-bounds] then the whole domain: K1 {by}")
+
+    # -- (8) pickling ------------------------------------------------------
+    u._device_array().copy_(snap)
+    nps = sizes['p12_pickle_steps']
+    builds = len(K.build_seconds)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / 'headline.pkl'
+        tic = time.perf_counter()
+        with open(path, 'wb') as f:
+            pickle.dump(op, f, protocol=pickle.HIGHEST_PROTOCOL)
+        dump_s = time.perf_counter() - tic
+        op.apply(time_m=1, time_M=nps, dt=dt_)
+        want = sha(u._device_array())
+        tic = time.perf_counter()
+        with open(path, 'rb') as f:
+            op2 = pickle.load(f)
+        load_s = time.perf_counter() - tic
+        _, by = count(lambda: op2.apply(time_m=1, time_M=nps, dt=dt_))
+        here = sha(op2._reads['u']._device_array())
+        del op2
+        release(device)
+        proc = subprocess.run(
+            [sys.executable, '-c', PICKLED_RUN, str(path), device.type,
+             str(nps), repr(dt_)], capture_output=True, text=True,
+            timeout=600, cwd=str(Path(__file__).resolve().parent))
+        if proc.returncode != 0:
+            raise AssertionError(f"the pickled operator in a new process: "
+                                 f"{proc.stderr[-2000:]}")
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        size = path.stat().st_size
+    if not (here == want == fresh['sha'] and fresh['builds'] == 0 and
+            len(K.build_seconds) == builds and
+            fresh['launches'] == on_card * nps):
+        raise AssertionError(f"pickling: rerun here {here == want}, in a new "
+                             f"process {fresh['sha'] == want}, nvcc builds "
+                             f"there {fresh['builds']}, here "
+                             f"{len(K.build_seconds) - builds}")
+    res['pickle'] = dict(bytes=size, dump_s=dump_s, load_s=load_s,
+                         launches=by, fresh=fresh, bit_equal=True)
+    log(f"[p12-pickle] the headline operator pickled ({size / 1e9:.2f} GB, "
+        f"its functions' data in; dump {dump_s:.1f} s, load {load_s:.1f} s):"
+        f" {nps} steps here and in a new process bit-equal to the original "
+        f"(sha256 {want[:16]}), no nvcc build in either, K1 {by} here, "
+        f"{fresh['launches']} there")
+
+    # -- (9) autotune -------------------------------------------------------
+    _, untuned = count(lambda: op.apply(time_m=1, time_M=nps, dt=dt_))
+    _, tuned = count(lambda: op.apply(time_m=1, time_M=nps, dt=dt_,
+                                      autotune='basic'))
+    if tuned != untuned:
+        raise AssertionError(f"autotune='basic' launched {tuned}, untuned "
+                             f"{untuned}")
+    res['autotune'] = dict(untuned=untuned, tuned=tuned)
+    log(f"[p12-autotune] autotune='basic' accepted (no tuner: runs "
+        f"untuned): K1 {tuned}, as untuned {untuned}")
+
+    # -- (7) errctl ----------------------------------------------------------
+    bad = Operator(fns['eq'], subs=op._grid.spacing_map,
+                   opt=('advanced', {'errctl': 'max'}))
+    u._device_array().copy_(snap)
+    vp = fns['vp']._device_array()
+    keep = vp[8 + n // 2, 8 + n // 2, 8 + n // 2].item()
+    vp[8 + n // 2, 8 + n // 2, 8 + n // 2] = 0.
+
+    def attempt():
+        try:
+            bad.apply(time_m=1, time_M=sizes['p12_err_steps'], dt=dt_)
+        except ExecutionError as e:
+            return str(e)
+    raised, _ = count(attempt)
+    blow = K.launches
+    vp[8 + n // 2, 8 + n // 2, 8 + n // 2] = keep
+    if raised is None or 'at step 100' not in raised or \
+            blow != on_card * 100:
+        raise AssertionError(f"errctl: a zero velocity raised {raised!r} "
+                             f"after {blow} K1 launches")
+    del bad, op, fns, u, snap, vp
+    release(device)
+    res['errctl'] = dict(raised=raised, launches_before_halt=blow,
+                         shot=errctl_shot(device, sizes, count))
+    log(f"[p12-errctl] a zero velocity at the centre: {raised!r} after "
+        f"{blow} K1 launches (u is non-finite from step 1; slot 0 holds it "
+        f"at the check of step 100)")
+    return res
+
+
+def errctl_shot(device, sizes, count):
+    """The forward shot (phase 5's, 412 steps) with errctl='max' and
+    without, each run twice (the second warm): their warm loop ms a step,
+    the scan's checks, and records equal to the bit."""
+    from devito_tpu_torch.compiler import executor as E
+    from devito_tpu_torch.models.seismic import AcousticWaveSolver
+    base = forward_solver(sizes['fwd_n'], sizes['fwd_nbl'], sizes['fwd_tn'],
+                          sizes['fwd_nrec'])
+    checks = []
+    orig = E._unstable
+
+    def spy(b, names):
+        checks.append(names)
+        return orig(b, names)
+    out = {}
+    E._unstable = spy
+    try:
+        for lab, opt in (('errctl', ('advanced', {'errctl': 'max'})),
+                         ('plain', None)):
+            s = AcousticWaveSolver(base.model, base.geometry, space_order=8,
+                                   opt=opt)
+            build_units([s.op_fwd(None)], device)
+            checks.clear()
+            (rec, _, summ), by = count(lambda: s.forward())
+            nsteps = s.geometry.nt - 2
+            first = summ.globals['fdlike'].time * 1e3 / nsteps
+            ncheck = len(checks)
+            host = time_host(s.op_fwd(None))
+            warm = s.forward()[2].globals['fdlike'].time * 1e3 / nsteps
+            out[lab] = dict(rec=np.array(rec.data), first_ms=first,
+                            warm_ms=warm, host_ms=host['s'] * 1e3 / nsteps,
+                            checks=ncheck, launches=by, steps=nsteps)
+            del s, rec, summ
+            release(device)
+    finally:
+        E._unstable = orig
+    same = np.array_equal(out['errctl'].pop('rec'), out['plain'].pop('rec'))
+    want = out['errctl']['steps'] // 100      # t = 100, 200, ... of 1..
+    if not same or out['errctl']['checks'] != want or out['plain']['checks']:
+        raise AssertionError(f"errctl shot: records equal {same}, checks "
+                             f"{out['errctl']['checks']} (want {want})")
+    e, p = out['errctl'], out['plain']
+    log(f"[p12-errctl] forward shot {sizes['fwd_n']}^3 + nbl "
+        f"{sizes['fwd_nbl']}, {e['steps']} steps: with errctl='max' warm "
+        f"{e['warm_ms']:.4f} ms/step (first {e['first_ms']:.4f}, host "
+        f"{e['host_ms']:.4f}), {e['checks']} checks; without "
+        f"{p['warm_ms']:.4f} ms/step (first {p['first_ms']:.4f}, host "
+        f"{p['host_ms']:.4f}); the scan's cost "
+        f"{e['warm_ms'] - p['warm_ms']:.4f} ms/step; records equal to the "
+        f"bit")
+    del base
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
@@ -3896,7 +4639,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     tic = time.perf_counter()
     kind, records = smoke(torch.device('cuda', 0), FULL)
-    log(f"[smoke] phases 2-11 in {time.perf_counter() - tic:.1f} s")
+    log(f"[smoke] phases 2-12 in {time.perf_counter() - tic:.1f} s")
     print(json.dumps({'kernels': records}))
     print(smi())
     print(json.dumps({'ok': True, 'device': {

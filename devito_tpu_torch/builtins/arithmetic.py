@@ -2,7 +2,8 @@
 
 Reference parity: devito/builtins/arithmetic.py:11-209 (norm, sumall,
 inner, mmin, mmax). Computed with torch on the device tensor's domain
-region, in the function's own dtype."""
+region, in the function's own dtype (a narrow-stored tensor is widened
+to it)."""
 
 import torch
 
@@ -10,14 +11,16 @@ __all__ = ['norm', 'inner', 'mmin', 'mmax', 'mmax_abs', 'sumall', 'sum_all']
 
 
 def _domain_dev(f):
-    """Device view of the domain region (drop halo)."""
+    """Device view of the domain region (drop halo), in the compute
+    dtype."""
+    from ..types.dense import widen
     arr = f._device_array()
     if f.is_SparseFunction:
         return arr
     slices = f._leading_slices() + tuple(
         slice(l, l + n) for n, (l, r) in zip(
             f.shape if not f.is_TimeFunction else f.shape[1:], f.halo))
-    return arr[slices]
+    return widen(arr[slices], f)
 
 
 def norm(f, order=2):

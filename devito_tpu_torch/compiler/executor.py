@@ -17,7 +17,21 @@ own (nslots, ...) tensors; ``u[t + k]`` is row ``(t + k) % nslots``
   (compiler/translate.py) into a fresh tensor, then copied into the
   target row;
 - injection scatter-adds into its row, interpolation writes one row of
-  the sparse function.
+  the sparse function: by a gather of each point's corners, or, when
+  ``Operator._prepare`` factorised the coordinates into a tensor product
+  (``<name>_sep`` in ``bufs``, operations/separable.py), by per-axis
+  contractions of the band of the field its weights touch.
+
+A function may be stored narrower than it computes (``storage-dtype``,
+``types/dense.py`` ``set_storage_dtype``): every read widens its slice to
+the compute dtype, the arithmetic runs there, and the write rounds to the
+storage dtype.
+
+With ``errctl`` (written stepping functions by name) the loop runs the
+reference's stability scan: after each step t with t mod 100 == 0 the sum
+of slot 0 of each is tested for finiteness (one host read); after the
+first bad check the remaining steps are skipped and ``run`` returns that
+step.
 """
 
 from collections import OrderedDict
@@ -28,6 +42,7 @@ import torch
 from ..ir.lowering import LoweredEq, LoweredSparse
 from ..exceptions import CompilationError
 from ..kernels.stencil import plan_for, stencil_update
+from ..types.dense import widen
 
 __all__ = ['build_runner', 'step_row', 'plan_rows']
 
@@ -248,7 +263,7 @@ def _exec_dense(eq, plan, bufs, params, t):
         else:
             val = torch.sum(val, dim=ax)
     dst = target[_write_region_slices(eq)]
-    val = _finalize_val(eq, val, dst, ctx)
+    val = _finalize_val(eq, val, widen(dst, eq.target), ctx)
     if val.untyped_storage().data_ptr() == \
             target.untyped_storage().data_ptr():
         # a bare read of the target's own buffer: copy before writing
@@ -334,10 +349,70 @@ def _write_interp(item, sf, res, bufs, t, matrix):
         dst.copy_(res)
 
 
+def _separable_terms(item, sf, bufs):
+    """``[(coeff, fn, time kind, time offset, band slices), ...]``: the
+    terms of ``item``'s sampled expression and the band of each one's row
+    the separable contraction reads; or None when the path cannot take the
+    expression -- not a linear combination of dense accesses, a function
+    not on the whole grid, or a tap whose domain window leaves the
+    allocation -- and the gather serves it (the reference's rule)."""
+    from ..operations.separable import linear_terms
+    from ..ir.lowering import time_access_of, space_offsets_of
+    from ..exceptions import InvalidOperator
+    sep = bufs[f'{sf.name}_sep']
+    terms = linear_terms(item.expr)
+    if terms is None:
+        return None
+    shape = tuple(sf.grid.shape)
+    out = []
+    for coeff, a in terms:
+        fn = a.function
+        try:
+            offs = space_offsets_of(a)
+        except InvalidOperator:
+            return None
+        if len(offs) != len(shape) or tuple(fn.shape[-len(shape):]) != \
+                shape or any(fn.origin_offset):
+            return None
+        ext = fn._allocated_space()
+        slices = []
+        for (hl, _), off, n, e, lo, M in zip(fn.halo, offs, shape, ext,
+                                             sep.lo, sep.M):
+            s = hl + int(off)
+            if s < 0 or s + n > e:
+                return None    # an offset tap outside the allocation
+            slices.append(slice(s + lo, s + lo + M.shape[0]))
+        tk, toff = time_access_of(a)
+        out.append((coeff, fn, tk, toff, tuple(slices)))
+    return out
+
+
+def _interp_separable(terms, sep, bufs, params, t):
+    """The (P,) interpolated values of ``terms`` (``_separable_terms``):
+    their bands, widened to the weights' dtype, summed with their
+    coefficients, then contracted once (``separable.contract``)."""
+    from ..operations.separable import contract
+    acc = None
+    for coeff, fn, tk, toff, slices in terms:
+        row = _resolve_time_indexed(bufs, fn, tk, toff, t, params)
+        band = row[slices].to(sep.M[0].dtype)
+        acc = coeff * band if acc is None else acc + coeff * band
+    return contract(acc, sep)
+
+
 def _exec_sparse(item, bufs, params, t, geom_cache):
     from .translate import translate, SparseCtx
 
     sf = item.sparse
+    if item.kind == 'interp' and f'{sf.name}_sep' in bufs:
+        key = ('sep', id(item))
+        if key not in geom_cache:
+            geom_cache[key] = _separable_terms(item, sf, bufs)
+        terms = geom_cache[key]
+        if terms is not None:
+            res = _interp_separable(terms, bufs[f'{sf.name}_sep'], bufs,
+                                    params, t)
+            return _write_interp(item, sf, res, bufs, t, None)
     if sf.name not in geom_cache:
         # a matrix function's matrix goes to the device once an apply,
         # with its geometry
@@ -363,20 +438,41 @@ def _exec_sparse(item, bufs, params, t, geom_cache):
     if matrix is not None:
         # a location's values: matrix @ the channels' values
         val = _matmul(matrix, val)
-    # accumulate: clipped duplicate corners must add up
+    # accumulate: clipped duplicate corners must add up; into a narrow
+    # buffer the contributions round to its dtype first, as the
+    # reference's scatter-add does
     buf.index_put_(sidx, (W * val).to(buf.dtype), accumulate=True)
 
 
-def build_runner(schedule):
+#: The stability scan's period in steps (reference: errctl='max').
+ERRCTL_PERIOD = 100
+
+
+def _unstable(bufs, names):
+    """True when slot 0 of a buffer of ``names`` sums to a non-finite
+    value (a narrow buffer sums in fp32): one device reduction each and
+    one host read."""
+    ok = [torch.isfinite(bufs[n][0].sum(
+        dtype=torch.float32 if bufs[n].dtype in (torch.bfloat16,
+                                                  torch.float16) else None))
+          for n in names]
+    return not bool(torch.stack(ok).all())
+
+
+def build_runner(schedule, storage=None, errctl=None):
     """Build ``run(bufs, params, time_m, time_M)``, which updates the
     tensors of ``bufs`` (by function name; ``<name>_coords`` for sparse
-    coordinates) in place. The stencil-kernel decision is taken here,
-    once per dense equation; ``run.plans`` lists ``(eq, plan or None)``.
+    coordinates, ``<name>_sep`` for a factorised geometry) in place. The
+    stencil-kernel decision is taken here, once per dense equation, with
+    ``storage`` ({function name: torch dtype} of the narrow ones);
+    ``run.plans`` lists ``(eq, plan or None)``. With ``errctl`` (names of
+    written stepping functions) ``run`` returns the step whose stability
+    check failed, else None.
     """
     plans = OrderedDict()
     for it in schedule.all_items:
         if isinstance(it, LoweredEq):
-            plans[id(it)] = (it, plan_for(it))
+            plans[id(it)] = (it, plan_for(it, storage=storage))
     direction = schedule.direction
 
     def _exec_items(items, bufs, params, t, geom_cache):
@@ -390,13 +486,19 @@ def build_runner(schedule):
 
     def run(bufs, params, time_m, time_M):
         geom_cache = {}
+        halted = None
         _exec_items(schedule.prologue, bufs, params, None, geom_cache)
         if schedule.body:
             anchor = time_m if direction >= 0 else time_M
             for i in range(max(time_M - time_m + 1, 0)):
-                _exec_items(schedule.body, bufs, params,
-                            anchor + direction * i, geom_cache)
+                t = anchor + direction * i
+                _exec_items(schedule.body, bufs, params, t, geom_cache)
+                if errctl and t % ERRCTL_PERIOD == 0 and \
+                        _unstable(bufs, errctl):
+                    halted = t
+                    break
         _exec_items(schedule.epilogue, bufs, params, None, geom_cache)
+        return halted
 
     run.plans = list(plans.values())
     return run

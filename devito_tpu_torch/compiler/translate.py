@@ -23,6 +23,7 @@ import sympy
 import torch
 
 from ..types.basic import AbstractFunction
+from ..types.dense import widen
 from ..types.dimension import Dimension, ConditionalDimension
 from ..ir.lowering import (time_access_of, space_offsets_of,
                            space_index_specs)
@@ -436,7 +437,9 @@ class DenseCtx(BaseCtx):
                 raise CompilationError(
                     f"{e} over the region {dict(self.region)} reads outside "
                     f"its allocation {tuple(arr.shape)}")
-        arr = arr[tuple(slices)]
+        # a narrow-stored row widens after the slice: the arithmetic runs
+        # in the compute dtype
+        arr = widen(arr[tuple(slices)], fn)
         # Align axes to the region's dimension order: free-dimension
         # contractions, transposed indexing and reduced-rank functions
         # need an explicit permute + broadcast.
@@ -486,4 +489,4 @@ class SparseCtx(BaseCtx):
         idxs = tuple(self.corner_idx[d.name] + (hl + off)
                      for d, off, (hl, hr) in zip(fn.space_dimensions, offs,
                                                  fn.halo))
-        return arr[idxs]  # (C, P)
+        return widen(arr[idxs], fn)  # (C, P)

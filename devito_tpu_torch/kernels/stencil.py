@@ -23,10 +23,14 @@ equation's shape alone, records it on the plan (``plan.design`` and
 - ``'point'`` (``csrc/stencil.cuh``): one thread per point, every tap
   through the read-only cache. Every other equation: 2-D regions, taps
   off the axes (cross derivatives), wider stars, windows the tile does
-  not fit, and halo-extended regions -- CIRE's temporaries and the
-  hoisted prologue items, computed into the halo -- whose first point the
-  launch's row pointers move back by the overhang (``_origin``). Every
-  tap, and the write, must stay inside its function's allocation.
+  not fit, halo-extended regions -- CIRE's temporaries and the hoisted
+  prologue items, computed into the halo -- whose first point the
+  launch's row pointers move back by the overhang (``_origin``), and
+  narrow storage: rows stored as bfloat16 or float16 (the
+  ``storage-dtype`` option), widened at each load and rounded at the
+  store, whose 2-byte elements the streaming design's TMA boxes do not
+  take. Every tap, and the write, must stay inside its function's
+  allocation.
 
 On a CUDA tensor the chosen design launches or raises; nothing falls back
 to the other design or to the plain version. At its first CUDA launch the
@@ -59,7 +63,7 @@ from ..exceptions import CompilationError, InvalidOperator
 from ..ir.lowering import time_access_of, space_offsets_of
 from ..logger import debug
 from ..types.basic import AbstractFunction, retrieve_functions
-from ..types.dense import torch_dtype
+from ..types.dense import torch_dtype, widen
 from ..types.dimension import Dimension
 
 __all__ = ['StencilPlan', 'plan_for', 'decline_reason', 'build',
@@ -84,6 +88,9 @@ selftests = 0
 validated = set()
 
 _CTYPE = {np.dtype(np.float32): 'float', np.dtype(np.float64): 'double'}
+#: The C++ type of each storage dtype a row may have.
+_STYPE = {torch.float32: 'float', torch.float64: 'double',
+          torch.bfloat16: '__nv_bfloat16', torch.float16: '__half'}
 
 
 class StencilPlan:
@@ -98,11 +105,16 @@ class StencilPlan:
     (stream design only). ``source``: the generated CUDA translation unit;
     ``key`` hashes it with every ``csrc/`` header it includes.
     ``launches``: this plan's kernel launches (``stencil_update``).
+    ``storage``: the torch dtype of each row, the target's first, then
+    each group's: the compute dtype, or a narrow one (``narrow``).
     """
 
     def __init__(self, eq, groups, param_names, design, reason, staged,
-                 centre, radii, tile):
+                 centre, radii, tile, storage):
         self.eq = eq
+        self.storage = storage
+        self.narrow = any(s in (torch.bfloat16, torch.float16)
+                          for s in storage)
         self.groups = groups
         self.param_names = param_names
         self.design = design
@@ -120,7 +132,7 @@ class StencilPlan:
         self.origins = [_origin(eq, eq.target)] + [
             _origin(eq, g['fn']) for g in groups]
         self.source = (_generate_stream(self) if design == 'stream'
-                       else _generate(eq, groups, param_names))
+                       else _generate(eq, groups, param_names, storage))
         self.key = _nvcc.unit_key(self.source)
         n = len(groups) + 1
         self._ptrs = (ctypes.c_void_p * n)()
@@ -149,16 +161,18 @@ def _origin(eq, fn):
                  in zip(eq.region, fn.halo, fn.origin_offset))
 
 
-def plan_for(eq, _design=None, _tile=None):
+def plan_for(eq, storage=None, _design=None, _tile=None):
     """A StencilPlan for a lowered dense equation, or None (logged and
     counted in ``declines``) when the kernel cannot take it. The decision,
-    and the choice of design, rest on the equation's shape only, as the
-    TPU backend's did. ``_design`` ('point') and ``_tile`` (a (TY, TZ,
-    PY, STAGES, TX) tuple for ``stream_tile``) override the choice:
-    chip_smoke.py's comparisons and tile sweep use them; nothing else
-    does."""
+    and the choice of design, rest on the equation's shape and on
+    ``storage`` ({function name: torch dtype} of the functions stored
+    narrow; the rest are stored in their compute dtype), as the TPU
+    backend's rested on the shape and dtypes. ``_design`` ('point') and
+    ``_tile`` (a (TY, TZ, PY, STAGES, TX) tuple for ``stream_tile``)
+    override the choice: chip_smoke.py's comparisons and tile sweep use
+    them; nothing else does."""
     global declines
-    plan, reason = _plan_or_reason(eq, _design, _tile)
+    plan, reason = _plan_or_reason(eq, storage, _design, _tile)
     if plan is None:
         declines += 1
         debug(f"stencil kernel: {eq} runs in the torch translator ({reason})")
@@ -176,7 +190,7 @@ def decline_reason(eq):
     return None if plan is not None else reason
 
 
-def _plan_or_reason(eq, _design=None, _tile=None):
+def _plan_or_reason(eq, storage=None, _design=None, _tile=None):
     """``(plan, design_reason)``, or ``(None, why the kernel declines
     eq)``."""
     fn = eq.target
@@ -250,11 +264,15 @@ def _plan_or_reason(eq, _design=None, _tile=None):
         return None, "coordinate-dependent right-hand side"
     groups = list(groups.values())
     param_names = sorted(set(params))
+    storage = storage or {}
+    rows = [storage.get(f.name) or torch_dtype(f.dtype)
+            for f in [fn] + [g['fn'] for g in groups]]
     design, reason, staged, centre, radii, tile = _choose_design(
-        eq, groups, [offsets[g['key']] for g in groups], _design, _tile)
+        eq, groups, [offsets[g['key']] for g in groups], _design, _tile,
+        rows)
     try:
         plan = StencilPlan(eq, groups, param_names, design, reason, staged,
-                           centre, radii, tile)
+                           centre, radii, tile, rows)
     except CompilationError as e:
         return None, str(e)
     return plan, reason
@@ -316,9 +334,10 @@ def stream_tile(dtype, radii, nstaged=1, ncentre=0, tile=None):
                 smem_bytes=smem, ctas_per_sm=ctas, queue_regs=qregs)
 
 
-def _choose_design(eq, groups, offsets, force=None, tile=None):
+def _choose_design(eq, groups, offsets, force=None, tile=None, rows=()):
     """(design, reason, staged, centre, radii, tile) for ``eq``, whose
-    groups are read at the sets of space offsets ``offsets``."""
+    groups are read at the sets of space offsets ``offsets`` and whose
+    rows (target first) are stored as ``rows``."""
     centred = {(0,) * len(eq.region)}
     staged = [k for k, o in enumerate(offsets) if o != centred]
     centre = [k for k, o in enumerate(offsets) if o == centred]
@@ -330,6 +349,12 @@ def _choose_design(eq, groups, offsets, force=None, tile=None):
         return point("asked for")
     if len(eq.region) != 3:
         return point(f"{len(eq.region)}-D region")
+    narrow = sorted({str(r).replace('torch.', '') for r in rows
+                     if r in (torch.bfloat16, torch.float16)})
+    if narrow:
+        return point(f"narrow storage ({', '.join(narrow)} rows): the "
+                     f"streaming design's TMA boxes take 4- and 8-byte "
+                     f"elements")
     if _halo_extended(eq):
         return point(f"halo-extended region {eq.region}: the streaming "
                      f"design takes regions inside the domain only")
@@ -378,8 +403,9 @@ def _distinct_rows(eq, tk, toff):
 
 
 class _CudaCtx:
-    """cuda_expr context: accesses -> loads off the group's row pointer
-    ``g[k]``; symbols -> kernel parameters ``a.p[i]``."""
+    """cuda_expr context: accesses -> loads off group k's pointer at the
+    point, ``g<k>``, typed by the row's storage (``DTPU_LD``); symbols ->
+    kernel parameters ``a.p[i]``."""
 
     def __init__(self, groups, param_names, ctype):
         self.index = {g['key']: k for k, g in enumerate(groups)}
@@ -400,34 +426,51 @@ class _CudaCtx:
                  for j, o in enumerate(offs[:-1]) if o]
         if offs[-1] or not terms:
             terms.append(f'{offs[-1]}')
-        return f'DTPU_LD(g[{k}], {" + ".join(terms)})'
+        return f'DTPU_LD(g{k}, {" + ".join(terms)})'
 
 
-def _generate(eq, groups, param_names):
+def _unit_label(eq):
+    """The equation a unit is generated for, without its region: the
+    region reaches the kernel as launch arguments, so one unit serves every
+    region of the same equation (spatial apply bounds)."""
+    tk = '' if eq.time_off is None else f"[{eq.time_kind}{eq.time_off:+d}]"
+    return f"{eq.target.name}{tk} = ..."
+
+
+def _generate(eq, groups, param_names, storage):
     """The CUDA translation unit of one equation: the template plus its
-    point expression and a C entry point for ctypes."""
+    point expression and a C entry point for ctypes. ``storage``: the
+    torch dtype of each row, the target's first."""
     ctype = _CTYPE[np.dtype(eq.target.dtype)]
+    stypes = [_STYPE[s] for s in storage]
     expr = cuda_expr(eq.rhs, _CudaCtx(groups, param_names, ctype))
-    return f"""// Generated from: {eq!r}
+    ptrs = '\n'.join(f'    const auto* g{k} = dtpu::at<{st}>(a, o, {k});'
+                     for k, st in enumerate(stypes[1:]))
+    return f"""// Generated for: {_unit_label(eq)}
 #include "stencil.cuh"
 
 using T = {ctype};
+using SO = {stypes[0]};  // the target row's storage type
 constexpr int NDIM = {len(eq.region)};
 constexpr int NG = {len(groups)};
 constexpr int NP = {len(param_names)};
 using Args = dtpu::StencilArgs<T, NG, NP>;
 
+namespace {{
 struct Point {{
-  static __device__ __forceinline__ T eval(const T* const* g, const Args& a) {{
+  static __device__ __forceinline__ T eval(const long long* o,
+                                           const Args& a) {{
+{ptrs}
     return {expr};
   }}
 }};
+}}  // namespace
 
 extern "C" int dtpu_stencil_launch(void* const* ptrs, const long long* strides,
                                    const int* n, const double* params,
                                    void* stream) {{
-  return dtpu::launch<T, NDIM, NG, NP, Point>(ptrs, strides, n, params,
-                                              stream);
+  return dtpu::launch<T, SO, NDIM, NG, NP, Point>(ptrs, strides, n, params,
+                                                  stream);
 }}
 """
 
@@ -467,7 +510,7 @@ def _generate_stream(plan):
     names = [', '.join(plan.groups[k]['fn'].name for k in ks) or '-'
              for ks in (plan.staged, plan.centre)]
     rx, ry, rz = plan.radii
-    return f"""// Generated from: {eq!r}
+    return f"""// Generated for: {_unit_label(eq)}
 #include "stencil_stream.cuh"
 
 using T = {ctype};
@@ -551,9 +594,8 @@ def _check_rows(plan, rows):
     if len(ins) != len(plan.groups):
         raise ValueError(f"{len(ins)} input rows for {len(plan.groups)} "
                          f"access groups")
-    want = torch_dtype(plan.dtype)
     fns = [plan.eq.target] + [g['fn'] for g in plan.groups]
-    for r, f in zip([out] + list(ins), fns):
+    for r, f, want in zip([out] + list(ins), fns, plan.storage):
         if not isinstance(r, torch.Tensor):
             raise TypeError(f"row of {f.name} is a {type(r).__name__}")
         if r.dtype != want:
@@ -646,20 +688,23 @@ class _RowsCtx:
 
     def access(self, e):
         row, org = self.rows[_access_key(e)]
-        return row[tuple(slice(s + o, s + o + n) for s, o, n in zip(
-            org, space_offsets_of(e), self.plan.extents))]
+        return widen(row[tuple(slice(s + o, s + o + n) for s, o, n in zip(
+            org, space_offsets_of(e), self.plan.extents))], e.function)
 
 
 def stencil_update_reference(plan, rows, params):
     """The plain PyTorch version of ``stencil_update``: the same
     right-hand side through the torch translator, over the same region,
-    written into the same row."""
+    written into the same row. A narrow row is widened to the compute
+    dtype where it is read, and the value rounds to the target row's
+    dtype (to nearest even) where it is written."""
     out, ins = rows
     val = translate(plan.eq.rhs, _RowsCtx(plan, ins, params))
     dst = out[tuple(slice(s, s + n)
                     for s, n in zip(plan.origins[0], plan.extents))]
-    dst.copy_(torch.as_tensor(val, dtype=out.dtype,
-                              device=out.device).expand(dst.shape))
+    val = torch.as_tensor(val, dtype=torch_dtype(plan.dtype),
+                          device=out.device)
+    dst.copy_(val.to(out.dtype).expand(dst.shape))
 
 
 # -- K2: the self-test ------------------------------------------------------

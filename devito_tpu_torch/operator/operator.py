@@ -8,9 +8,21 @@ schedule (ir/lowering.py) -> a runner (compiler/executor.py) whose time
 loop updates the functions' tensors in place. Building the runner decides,
 per dense equation, whether it runs in the stencil kernel. ``apply`` binds
 tensors, parameters and time bounds; nothing in it rebuilds the runner or
-a kernel.
+a kernel, but for spatial bounds (``x_m``/``x_M``, ``x=``): a runner over
+the clamped regions, built once a set of bounds, whose kernels are the
+same units with other launch arguments.
+
+What ``apply`` does besides (reference: devito_tpu/operator/operator.py):
+narrow wavefield storage (``storage-dtype``, ``_storage_map``), the
+separable interpolation's set-up (``configuration['separable']``), the
+errctl stability scan (``ExecutionError``) and the ``autotune`` argument,
+which has no tuner here and runs untuned, as devito_tpu's Pallas backend
+does. An Operator pickles: the runner, its kernel plans and the bounded
+runners are left out and built again when it is unpickled, from the same
+units (kernels/_nvcc.py keys).
 """
 
+import copy as _copy
 import time as _time
 from collections import OrderedDict
 
@@ -18,8 +30,8 @@ import numpy as np
 import sympy
 import torch
 
-from ..ir.lowering import (LoweredEq, LoweredSparse, lower_expressions,
-                           estimate_cost, time_access_of)
+from ..ir.lowering import (LoweredEq, LoweredSparse, Schedule,
+                           lower_expressions, estimate_cost, time_access_of)
 from ..compiler.executor import build_runner
 from ..types.basic import AbstractFunction, retrieve_functions
 from ..types.constant import Constant
@@ -27,21 +39,25 @@ from ..types.dimension import Dimension
 from ..exceptions import InvalidArgument, ExecutionError
 from ..logger import perf as log_perf
 from ..parameters import configuration
+from ..types.dense import storage_torch_dtype, torch_dtype
 from .profiling import PerformanceSummary
 
 __all__ = ['Operator']
 
 #: ``opt`` options that steer the CIRE and invariant-hoisting passes.
 LOWERING_OPTIONS = ('cire', 'hoist-invariants', 'hoist-trig-taps')
-#: ``opt`` options devito_tpu honours that this package does not implement
-#: yet (ROADMAP.md Queue 1, item 7).
-UNPORTED_OPTIONS = ('storage-dtype', 'storage-dtype-scope', 'errctl')
+#: ``opt`` options of the run: narrow storage and its scope, the errctl
+#: stability scan, with the values each takes.
+RUN_OPTIONS = {'storage-dtype': None,
+               'storage-dtype-scope': ('fields', 'all'),
+               'errctl': (None, 'max')}
 
 
 def _parse_opt(opt):
     """``(mode, options)`` of an ``opt`` argument: a mode string, or a
     tuple of a mode and option dicts. Raises InvalidArgument on an unknown
-    mode and on any option outside ``LOWERING_OPTIONS``."""
+    mode, on any option outside ``LOWERING_OPTIONS`` and ``RUN_OPTIONS``,
+    and on a value a run option does not take."""
     mode, options = opt, {}
     if isinstance(opt, (tuple, list)):
         mode = opt[0] if opt else None
@@ -52,13 +68,27 @@ def _parse_opt(opt):
     mode = mode or configuration['opt']
     if mode not in ('noop', 'advanced'):
         raise InvalidArgument(f"Unknown opt mode {mode!r}")
-    for k in options:
-        if k in UNPORTED_OPTIONS:
-            raise InvalidArgument(f"opt option {k!r} is not implemented in "
-                                  f"devito_tpu_torch yet")
-        if k not in LOWERING_OPTIONS:
+    for k, v in options.items():
+        if k not in LOWERING_OPTIONS and k not in RUN_OPTIONS:
             raise InvalidArgument(f"Unknown opt option {k!r}")
+        accepted = RUN_OPTIONS.get(k)
+        if accepted is not None and v not in accepted:
+            raise InvalidArgument(f"opt option {k!r} takes one of "
+                                  f"{accepted}, got {v!r}")
+    if options.get('storage-dtype') is not None:
+        try:
+            storage_torch_dtype(options['storage-dtype'])
+        except TypeError:
+            raise InvalidArgument(f"Unknown storage-dtype "
+                                  f"{options['storage-dtype']!r}")
     return mode, options
+
+
+def _stepping(fn):
+    """True for a TimeFunction on a rolling buffer (a SteppingDimension)."""
+    dims = getattr(fn, 'dimensions', ())
+    return bool(getattr(fn, 'is_TimeFunction', False) and dims and
+                dims[0].is_Stepping)
 
 
 def _scalar(sym, v):
@@ -85,10 +115,12 @@ class Operator:
     time-invariant subexpressions into prologue temporaries
     (ir/optimize.py; ``'hoist-invariants'``, on by default, with
     ``'hoist-trig-taps'`` True, False or 'auto', the default); 'noop'
-    runs neither. Every other option raises InvalidArgument: those
-    devito_tpu honours and this package does not yet
-    (``UNPORTED_OPTIONS``: narrow storage, the errctl stability scan), and
-    unknown ones.
+    runs neither. ``'storage-dtype'`` ('bfloat16' or 'float16') stores
+    the written TimeFunctions and compiler temporaries narrow, every
+    function under ``'storage-dtype-scope': 'all'`` (``_storage_map``);
+    ``'errctl': 'max'`` scans the written stepping functions for
+    non-finite values every 100 steps and raises ExecutionError. Unknown
+    options raise InvalidArgument.
     """
 
     def __init__(self, expressions, subs=None, name='Kernel', opt=None,
@@ -108,9 +140,34 @@ class Operator:
             hoist_invariants(self._schedule, trig_taps=options.get(
                 'hoist-trig-taps', 'auto'))
         self._collect()
-        self._runner = build_runner(self._schedule)
+        self._storage = self._storage_map(options)
+        # the errctl scan's functions: the written stepping ones
+        self._errctl = tuple(sorted(
+            n for n, fn in self._writes.items() if _stepping(fn))) or None \
+            if options.get('errctl') == 'max' else None
+        self._runner = build_runner(self._schedule, self._storage,
+                                    self._errctl)
+        self._bounded_cache = {}
+        self._autotuned = False
         self._estimate_flops()
         self._build_time = _time.perf_counter() - tic
+
+    # -- pickling -----------------------------------------------------------
+    # (reference: operator.py:121-143; the runner, its kernel plans with
+    # their ctypes argument blocks, and the bounded runners are built again
+    # from the pickled schedule, on the units already built)
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        for k in ('_runner', '_bounded_cache'):
+            state.pop(k, None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._bounded_cache = {}
+        self._runner = build_runner(self._schedule, self._storage,
+                                    self._errctl)
 
     # -- lowering metadata -------------------------------------------------
 
@@ -182,6 +239,31 @@ class Operator:
             if fn.grid is not None:
                 self._grid = fn.grid
                 break
+
+    def _storage_map(self, options):
+        """{function name: narrow torch dtype} under ``'storage-dtype'``
+        (reference: operator.py:360-382, the storage part of
+        ``_decide_layouts``): the TimeFunctions and compiler temporaries
+        the operator writes or steps through, and under
+        ``'storage-dtype-scope': 'all'`` every dense function it reads;
+        sparse functions never. Empty without the option, or when it names
+        a function's own dtype."""
+        sdt = options.get('storage-dtype')
+        if sdt is None:
+            return {}
+        want = storage_torch_dtype(sdt)
+        scope = options.get('storage-dtype-scope', 'fields')
+        out = {}
+        for name, fn in self._reads.items():
+            if fn.is_SparseFunction or not hasattr(fn, 'set_storage_dtype') \
+                    or not np.issubdtype(fn.dtype, np.floating) or \
+                    want == torch_dtype(fn.dtype):
+                continue
+            if scope == 'all' or (
+                    (fn.is_TimeFunction or fn._compiler_temp) and
+                    (name in self._writes or _stepping(fn))):
+                out[name] = want
+        return out
 
     def _estimate_flops(self):
         """Exact flops, points and bytes a step, in all and by section:
@@ -353,7 +435,8 @@ class Operator:
 
     def arguments(self, **kwargs):
         """Assemble runtime arguments (dry-run of apply's preparation):
-        ``(tensors by name, scalar params)``."""
+        ``(tensors by name, scalar params)``; a factorised sparse geometry
+        rides the tensors as ``<name>_sep``."""
         return self._prepare(kwargs)[0:2]
 
     def _known_arguments(self):
@@ -368,7 +451,7 @@ class Operator:
                     r = d.parent
                     known.update((r.name, f'{r.name}_m', f'{r.name}_M'))
         known.update(self._symbols)
-        known.update(('dt', 'time', 'time_m', 'time_M'))
+        known.update(('dt', 'time', 'time_m', 'time_M', 'autotune'))
         return known
 
     def _prepare(self, kwargs):
@@ -398,10 +481,31 @@ class Operator:
                     f"Override `{name}` has dtype {np.dtype(ofn.dtype)}; "
                     f"the Operator was built for {np.dtype(orig.dtype)}")
 
+        # spatial bounds (reference: operator.py:632-669): x_m/x_M, and the
+        # bare-dimension shorthand x=3 for x_M, which an explicit x_M wins
+        # over
+        sbounds = {}
+        for d in (self._grid.dimensions if self._grid is not None else ()):
+            lo = kwargs.pop(f'{d.name}_m', None)
+            hi = kwargs.pop(f'{d.name}_M', None)
+            bare = kwargs.pop(d.name, None)
+            if hi is None:
+                hi = bare
+            if lo is not None or hi is not None:
+                try:
+                    sbounds[d.name] = (None if lo is None else int(lo),
+                                       None if hi is None else int(hi))
+                except (TypeError, ValueError):
+                    raise InvalidArgument(
+                        f"Bounds for dimension `{d.name}` must be integer "
+                        f"scalars; got {d.name}_m={lo!r}, {d.name}_M={hi!r}")
+
         bound = {name: overrides.get(name, fn)
                  for name, fn in self._reads.items()}
         bufs = {}
         for name, fn in bound.items():
+            if hasattr(fn, 'set_storage_dtype') and not fn.is_SparseFunction:
+                fn.set_storage_dtype(self._storage.get(name, fn.dtype))
             bufs[name] = fn._device_array()
             if fn.is_SparseFunction:
                 bufs[f"{name}_coords"] = fn._coords_device()
@@ -436,6 +540,7 @@ class Operator:
             if name in known_scalars and isinstance(
                     kwargs[name], (int, float, np.floating, np.integer)):
                 params[name] = float(kwargs.pop(name))
+        self._separable_setup(bound, bufs, params)
 
         # time bounds
         tm_d, tM_d = self._default_time_bounds()
@@ -459,17 +564,91 @@ class Operator:
                     f"time_M={time_M} out of bounds: the smallest "
                     f"time-sized array allows at most {tM_d}")
 
-        unknown = list(kwargs)
+        unknown = [k for k in kwargs if k != 'autotune']
         if unknown and not configuration['ignore-unknowns']:
             raise InvalidArgument(f"Unknown arguments {unknown}")
-        return bufs, params, int(time_m or 0), int(time_M or 0), bound
+        return (bufs, params, int(time_m or 0), int(time_M or 0), bound,
+                sbounds)
+
+    def _separable_setup(self, bound, bufs, params):
+        """Factorise the coordinates of every interpolated sparse function
+        that allows it (operations/separable.py; reference:
+        operator.py:744-770) and put its geometry on the device as
+        ``bufs['<name>_sep']``: linear or sinc, at least 1024 points, a
+        tensor product; under ``configuration['separable']``. Its host
+        seconds land in ``separable_seconds``."""
+        tic = _time.perf_counter()
+        if self._sparse and configuration['separable']:
+            from ..operations.separable import separable_geometry, to_device
+            interp = {it.sparse.name for it in self._schedule.all_items
+                      if isinstance(it, LoweredSparse) and
+                      it.kind == 'interp'}
+            for name in interp:
+                fn = bound[name]
+                if fn.is_SparseFunction:
+                    sep = separable_geometry(fn, params)
+                    if sep is not None:
+                        bufs[f'{name}_sep'] = to_device(sep,
+                                                        bufs[name].device)
+        self.separable_seconds = _time.perf_counter() - tic
+
+    def _bounded_runner(self, sbounds):
+        """The runner over every dense item's region clamped to
+        ``sbounds`` ({dim name: (lo or None, hi or None)}, inclusive), built
+        once a set of bounds (reference: operator.py:1140-1181). A
+        halo-extended region (CIRE's temporaries) keeps its extension
+        around the clamp, so that its consumers' taps stay covered; an
+        item clamped to nothing is dropped. Its kernel plans are new plans
+        of the same units: the region reaches K1 as launch arguments."""
+        key = tuple(sorted(sbounds.items()))
+        if key in self._bounded_cache:
+            return self._bounded_cache[key]
+
+        def clamp(it):
+            if not isinstance(it, LoweredEq) or it.target.grid is None:
+                return it
+            region = []
+            for d, (a, b) in zip(it.target.space_dimensions, it.region):
+                dn = d.root.name if d.is_Derived else d.name
+                lo, hi = sbounds.get(dn, (None, None))
+                ext = max(0, -a)
+                na = a if lo is None else max(a, lo - ext)
+                nb = b if hi is None else min(b, hi + 1 + ext)
+                if nb <= na:
+                    return None
+                region.append((na, nb))
+            new = _copy.copy(it)
+            new.region = tuple(region)
+            return new
+
+        parts = [[c for c in map(clamp, items) if c is not None]
+                 for items in (self._schedule.prologue, self._schedule.body,
+                               self._schedule.epilogue)]
+        runner = build_runner(Schedule(*parts, self._schedule.direction),
+                              self._storage, self._errctl)
+        self._bounded_cache[key] = runner
+        return runner
 
     # -- execution -----------------------------------------------------------
 
     def apply(self, **kwargs):
         """Run the time loop; returns a PerformanceSummary. On CUDA the
-        time is measured with CUDA events around the loop."""
-        bufs, params, time_m, time_M, bound = self._prepare(kwargs)
+        time is measured with CUDA events around the loop.
+
+        ``autotune`` (or ``configuration['autotuning']``) is accepted; this
+        package has no tuner, so it logs that once and runs untuned, as
+        devito_tpu's Pallas backend does (operator.py:970-989). Under
+        errctl='max' a failed stability check raises ExecutionError once
+        the tensors are adopted."""
+        autotune = kwargs.pop('autotune', None)
+        if autotune is None and configuration['autotuning'] != 'off':
+            autotune = configuration['autotuning']
+        if autotune and not self._autotuned:
+            log_perf(f"Operator `{self._name}`: autotune={autotune!r} asked "
+                     f"for; devito_tpu_torch has no tuner, running untuned")
+            self._autotuned = True
+        bufs, params, time_m, time_M, bound, sbounds = self._prepare(kwargs)
+        runner = self._bounded_runner(sbounds) if sbounds else self._runner
         device = next(iter(bufs.values())).device if bufs else \
             torch.device('cpu')
         on_cuda = device.type == 'cuda'
@@ -478,7 +657,7 @@ class Operator:
             end = torch.cuda.Event(enable_timing=True)
             start.record()
         tic = _time.perf_counter()
-        self._runner(bufs, params, time_m, time_M)
+        halted = runner(bufs, params, time_m, time_M)
         if on_cuda:
             end.record()
             end.synchronize()
@@ -490,6 +669,10 @@ class Operator:
         # authoritative one
         for name in self._writes:
             bound[name]._set_device_array(bufs[name])
+        if halted is not None:
+            raise ExecutionError(
+                f"Stability check failed at step {halted}: non-finite "
+                f"values in {list(self._errctl)} (errctl='max')")
         if configuration['develop-mode']:
             for name in self._writes:
                 if not bool(torch.isfinite(bufs[name]).all()):

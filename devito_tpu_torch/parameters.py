@@ -62,6 +62,13 @@ configuration.add('develop-mode', False, accepted=[True, False])
 configuration.add('ignore-unknowns', False, accepted=[True, False])
 # Default floating dtype name used when a Grid does not specify one.
 configuration.add('dtype', 'float32', accepted=['float32', 'float64'])
+# Separable interpolation (operations/separable.py): a linear or sinc
+# interpolation of 1024 points or more whose coordinates form a tensor
+# product contracts per axis instead of gathering; False always gathers.
+configuration.add('separable', True, accepted=[True, False])
+# Operator.apply's autotune default. Accepted as devito_tpu's values; this
+# package has no tuner and runs untuned (logged once an operator).
+configuration.add('autotuning', 'off', accepted=['off', 'basic', 'aggressive'])
 
 _ENV_MAP = {
     'DEVITO_TPU_TORCH_LOG_LEVEL': 'log-level',
@@ -70,6 +77,8 @@ _ENV_MAP = {
     'DEVITO_TPU_TORCH_DEVICE': 'device',
     'DEVITO_TPU_TORCH_DEVELOP': 'develop-mode',
     'DEVITO_TPU_TORCH_DTYPE': 'dtype',
+    'DEVITO_TPU_TORCH_SEPARABLE': 'separable',
+    'DEVITO_TPU_TORCH_AUTOTUNING': 'autotuning',
 }
 
 

@@ -244,20 +244,22 @@ class AbstractFunction(Differentiable, sympy.Function):
 
     # Pickling support for dynamically created classes
     def __reduce_ex__(self, protocol):
-        import numpy as np
         meta = dict(type(self)._constructor_kwargs)
         cls = type(self)
         state = {}
         # carry the data with the pickle (reference semantics: pickled
-        # Functions/Operators ship their buffers, tests/test_pickle.py)
+        # Functions/Operators ship their buffers, tests/test_pickle.py).
+        # The class's own arrays, not copies: every access of a function
+        # (u, u.forward, a shifted u, ...) reduces to the same objects,
+        # which pickle then writes once
         if getattr(cls, '_coh', None) == 'dev' and \
                 getattr(cls, '_dev_buf', None) is not None:
             self._ensure_host()
         if getattr(cls, '_host_buf', None) is not None:
-            state['host_buf'] = np.array(cls._host_buf)
+            state['host_buf'] = cls._host_buf
             state['halo_state'] = getattr(cls, '_halo_state', 'zero')
         if getattr(cls, '_coords_host', None) is not None:
-            state['coords'] = np.array(cls._coords_host)
+            state['coords'] = cls._coords_host
         return (_reconstruct_function,
                 (type(self).__bases__[0], meta, tuple(self.args)),
                 state or None)
@@ -268,10 +270,16 @@ class AbstractFunction(Differentiable, sympy.Function):
             return
         cls = type(self)
         buf = state.get('host_buf')
-        if buf is not None and hasattr(self, '_allocate'):
-            self._allocate()
+        if buf is not None and hasattr(self, '_allocate') and \
+                cls._host_buf is not buf:
+            if cls._host_buf is None and buf.flags.writeable and \
+                    buf.shape == tuple(self.shape_allocated):
+                cls._host_buf = buf    # the unpickled array, adopted
+            else:
+                self._allocate()
+                if cls._host_buf.shape == buf.shape:
+                    np.copyto(cls._host_buf, buf)
             if cls._host_buf.shape == buf.shape:
-                np.copyto(cls._host_buf, buf)
                 cls._coh = 'host'
                 cls._dev_buf = None
                 # the pickled payload is real data: without this, the

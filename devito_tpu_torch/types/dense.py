@@ -11,6 +11,15 @@ out a writable numpy *domain view* (host becomes authoritative);
 Operators take the device tensor before running, update it in place and
 mark the device authoritative. The device is fixed when the function is
 built, from ``configuration['device']``.
+
+The device tensor may be stored narrower than the function computes
+(reference: devito_tpu/types/dense.py ``_storage_registry``,
+``set_storage_dtype``): an Operator built with the ``storage-dtype`` opt
+option sets it (bfloat16 or float16) before each apply and every other
+Operator sets it back. The host buffer, and so ``.data``, stays in the
+compute dtype; the narrow tensor holds the values rounded to nearest even.
+Here the storage dtype is the function's own, not a registry's by name,
+so that a later function of the same name starts in its compute dtype.
 """
 
 import numpy as np
@@ -39,6 +48,31 @@ class Buffer:
 def torch_dtype(dtype):
     """The torch dtype of a numpy dtype (fp32 stays fp32, fp64 fp64)."""
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+#: The narrow storage dtypes, by the names ``storage-dtype`` takes.
+NARROW = {'bfloat16': torch.bfloat16, 'float16': torch.float16}
+
+
+def storage_torch_dtype(dt):
+    """The torch dtype of a storage dtype given as a name ('bfloat16',
+    'float16', 'float32', ...), a numpy dtype or a torch dtype."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    if isinstance(dt, str) and dt in NARROW:
+        return NARROW[dt]
+    return torch_dtype(dt)
+
+
+def widen(arr, fn):
+    """``arr``, a slice of ``fn``'s device tensor, in ``fn``'s compute
+    dtype: a narrow-stored slice is converted, any other returned as it
+    is."""
+    if arr.dtype in (torch.bfloat16, torch.float16):
+        want = torch_dtype(fn.dtype)
+        if arr.dtype != want:
+            return arr.to(want)
+    return arr
 
 
 class DiscreteFunction(AbstractFunction):
@@ -122,6 +156,8 @@ class DiscreteFunction(AbstractFunction):
         cls._host_buf = None
         cls._dev_buf = None
         cls._coh = cls._HOST
+        # the device tensor's dtype when narrower than the compute dtype
+        cls._storage = None
 
     @staticmethod
     def _normalize_staggered(staggered, dims):
@@ -204,6 +240,33 @@ class DiscreteFunction(AbstractFunction):
         return type(self)._is_parameter
 
     @property
+    def storage_dtype(self):
+        """The device tensor's dtype: the compute dtype (a numpy dtype)
+        unless an Operator's ``storage-dtype`` narrowed it, then
+        ``np.float16`` or ``torch.bfloat16`` (numpy has no bfloat16)."""
+        st = getattr(type(self), '_storage', None)
+        if st is None:
+            return self.dtype
+        return np.dtype(np.float16) if st == torch.float16 else st
+
+    def set_storage_dtype(self, dt):
+        """Store the device tensor as ``dt`` (see ``storage_torch_dtype``;
+        the compute dtype restores it). Device-authoritative data goes
+        through the host first, so values survive a switch, rounded to the
+        narrower of the two dtypes."""
+        cls = type(self)
+        want = storage_torch_dtype(dt)
+        want = None if want == torch_dtype(self.dtype) else want
+        if want == getattr(cls, '_storage', None):
+            return
+        if cls._coh == self._DEV and cls._dev_buf is not None:
+            self._ensure_host()
+        cls._dev_buf = None
+        if cls._coh == self._BOTH:
+            cls._coh = self._HOST
+        cls._storage = want
+
+    @property
     def symbolic_shape(self):
         return self.shape
 
@@ -234,28 +297,29 @@ class DiscreteFunction(AbstractFunction):
         cls = type(self)
         self._allocate()
         if cls._coh == self._DEV:
-            np.copyto(cls._host_buf, cls._dev_buf.cpu().numpy())
+            np.copyto(cls._host_buf, widen(cls._dev_buf, self).cpu().numpy())
         cls._coh = self._HOST  # user may write through the view
         cls._pristine_zero = False
         cls._dev_buf = None
         return cls._host_buf
 
     def _device_array(self):
-        """The device ``torch.Tensor`` (layout ``shape_allocated``),
-        pushing host data if needed. Operators update it in place."""
+        """The device ``torch.Tensor`` (layout ``shape_allocated``, in the
+        storage dtype), pushing host data if needed. Operators update it in
+        place."""
         cls = type(self)
         self._allocate()
         if cls._coh == self._HOST or cls._dev_buf is None:
             buf = cls._host_buf
+            dt = getattr(cls, '_storage', None) or torch_dtype(buf.dtype)
             if getattr(cls, '_pristine_zero', False):
-                cls._dev_buf = torch.zeros(buf.shape,
-                                           dtype=torch_dtype(buf.dtype),
+                cls._dev_buf = torch.zeros(buf.shape, dtype=dt,
                                            device=cls._device)
             else:
                 # a copy even on the CPU: the host buffer must not alias
                 # the tensor that operators update in place
                 cls._dev_buf = torch.from_numpy(buf).to(
-                    device=cls._device, copy=True)
+                    device=cls._device, dtype=dt, copy=True)
             cls._coh = self._BOTH
         return cls._dev_buf
 

@@ -502,3 +502,54 @@ def test_solvers_phase_runs_on_the_cpu():
     # the adjoints at the small size, from the card's record
     for k in ('self-adjoint', 'viscoacoustic sls-2', 'viscoacoustic kv-1'):
         assert set(res['compare'][k]) == {'rec', 'srca'}
+
+
+#: Phase 12 at a size the CPU runs in seconds: the headline at 16^3, the
+#: elastic forward at 32^3 (1024 surface receivers: the least the separable
+#: path takes), the superstep at k = 2, a 100-step forward shot.
+P12_SMALL = dict(C.FULL, p12_n=16, p12_steps=3, head_compare=2,
+                 sol_n=32, sol_nbl=4, sol_steps=4, p12_ss_n=16,
+                 p12_ss_ks=(2,), p12_box=((3, 12), (2, 13), (1, 14)),
+                 fwd_n=16, fwd_nbl=4, fwd_tn=150., fwd_nrec=8, reps=1,
+                 plain_reps=1)
+
+
+def test_narrow_phase_runs_on_the_cpu():
+    """Phase 12's driver on the CPU at a small size: every part runs and
+    checks (the plain versions stand in for the kernels, so K1's counts
+    stay 0), and the narrow-storage record has every key."""
+    from devito_tpu_torch import switchconfig
+    records = [{'launches': 0}]
+    dev = torch.device('cpu')
+    with switchconfig(device='cpu'):
+        res = C.narrow_phase(dev, P12_SMALL,
+                             records, torch.Generator().manual_seed(1))
+    narrow = records[-1]
+    assert narrow['name'] == 'stencil_update_narrow'
+    assert not [k for k in C.RECORD_KEYS if k not in narrow]
+    assert narrow['launches'] == 0 and records[0]['launches'] == 0
+    assert set(res['narrow_k1']) == {'bf16 fields', 'bf16 all',
+                                     'fp16 fields'}
+    bytes_ = {k: r['bound_bytes'] for k, r in res['narrow_k1'].items()}
+    assert bytes_['bf16 fields'] == 14 * 16 ** 3
+    assert bytes_['bf16 all'] == 10 * 16 ** 3
+    assert res['second_row']['drift_from_fp32'] > 0
+    for interp in ('linear', 'sinc'):
+        assert res['separable'][interp]['nrec'] == 1024
+    assert res['superstep'][2]['designs'] == ['point', 'stream']
+    assert res['bounds']['x_m/x_M']['region'] == ((3, 13), (2, 14), (1, 15))
+    assert res['bounds']['bare x=']['region'] == ((0, 13), (2, 14), (1, 15))
+    assert res['pickle']['bit_equal'] and res['pickle']['fresh']['builds'] == 0
+    assert 'at step 100' in res['errctl']['raised']
+    assert res['errctl']['shot']['errctl']['checks'] == 1
+
+
+def test_narrow_close_allows_one_ulp():
+    want = torch.tensor([1.0, 2.0, 3.0, 1e-6]).to(torch.bfloat16)
+    got = want.clone()
+    got[1] = torch.tensor(2.015625).to(torch.bfloat16)   # one ulp at 2
+    err, off = C.narrow_close('x', got, want)
+    assert err == pytest.approx(0.015625) and off == 0.25
+    got[2] = torch.tensor(3.0625).to(torch.bfloat16)     # two ulps at 3
+    with pytest.raises(AssertionError):
+        C.narrow_close('x', got, want)

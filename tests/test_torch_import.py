@@ -45,8 +45,11 @@ def test_import_pulls_in_no_jax():
             "from devito_tpu_torch.operations.interpolators import (\n"
             "    SincInterpolator, PrecomputedInterpolator, "
             "MatrixInterpolator)\n"
+            "import devito_tpu_torch.operations.separable\n"
+            "import devito_tpu_torch.timestepping\n"
+            "import devito_tpu_torch.checkpointing\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'devito_tpu'))\n"
+            "('jax', 'jaxlib', 'devito_tpu', 'ml_dtypes'))\n"
             "print(bad)\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO,

@@ -1,12 +1,14 @@
-"""The ``opt`` argument of devito_tpu_torch's Operator: every option the
-port does not implement raises InvalidArgument (narrow storage, the errctl
-scan, unknown keys), and the lowering options steer CIRE and the hoisting
-pass as devito_tpu's do."""
+"""The ``opt`` argument of devito_tpu_torch's Operator: the run options
+(narrow storage, its scope, the errctl scan) build operators that write
+what devito_tpu's write under the same options, unknown keys and values
+raise InvalidArgument, and the lowering options steer CIRE and the
+hoisting pass as devito_tpu's do."""
 
 import numpy as np
 import pytest
 import torch
 
+import devito_tpu as dj
 import devito_tpu_torch as dt
 from devito_tpu_torch import InvalidArgument
 
@@ -20,17 +22,17 @@ def clear_port_cache():
     dt.clear_cache()
 
 
-def _bench_eq(n=10):
-    """bench.py's damped acoustic update at n^3 SO=4, seeded."""
-    grid = dt.Grid(shape=(n,) * 3, extent=(10. * (n - 1),) * 3)
-    u = dt.TimeFunction(name='u', grid=grid, time_order=2, space_order=4)
-    vp = dt.Function(name='vp', grid=grid, space_order=4)
-    damp = dt.Function(name='damp', grid=grid, space_order=4)
+def _bench_eq(n=10, pkg=dt):
+    """bench.py's damped acoustic update at n^3 SO=4, seeded, in ``pkg``."""
+    grid = pkg.Grid(shape=(n,) * 3, extent=(10. * (n - 1),) * 3)
+    u = pkg.TimeFunction(name='u', grid=grid, time_order=2, space_order=4)
+    vp = pkg.Function(name='vp', grid=grid, space_order=4)
+    damp = pkg.Function(name='damp', grid=grid, space_order=4)
     rng = np.random.default_rng(5)
     vp.data[:] = 1.5 + rng.random(vp.shape)
     u.data[:2] = rng.standard_normal((2,) + grid.shape)
     pde = (1 / (vp * vp)) * u.dt2 - u.laplace + damp * u.dt
-    return grid, u, dt.Eq(u.forward, dt.solve(pde, u.forward))
+    return grid, u, pkg.Eq(u.forward, pkg.solve(pde, u.forward))
 
 
 @pytest.mark.parametrize('options', [
@@ -39,7 +41,30 @@ def _bench_eq(n=10):
     {'storage-dtype-scope': 'fields'},
     {'errctl': 'max'},
     {'cire': False, 'errctl': 'max'},
+])
+def test_run_options_build_and_match_devito_tpu(options):
+    """Each run option builds, and 3 steps of bench.py's update under it
+    write what devito_tpu's write under it: within one ulp of the storage
+    dtype at max |devito_tpu| (bf16 2^-7, fp16 2^-10; fp32 rows 1e-5, as
+    the packages' fp32 sums run in other orders)."""
+    out = []
+    for pkg in (dj, dt):
+        grid, u, eq = _bench_eq(pkg=pkg)
+        op = pkg.Operator(eq, subs=grid.spacing_map,
+                          opt=('advanced', options))
+        op.apply(time_m=1, time_M=3, dt=1.2)
+        out.append(np.array(u.data, dtype=np.float64))
+    eps = {'bfloat16': 2. ** -7, 'float16': 2. ** -10}.get(
+        options.get('storage-dtype'), 1e-5)
+    want, got = out
+    assert np.abs(got - want).max() <= eps * np.abs(want).max()
+
+
+@pytest.mark.parametrize('options', [
     {'no-such-option': True},
+    {'storage-dtype': 'int3'},
+    {'storage-dtype-scope': 'some'},
+    {'errctl': 'basic'},
 ])
 def test_options_the_port_does_not_honour_raise(options):
     grid, _, eq = _bench_eq()

@@ -181,7 +181,7 @@ def test_generated_source():
     assert 'using T = float;' in src and 'constexpr int NG = 4;' in src
     assert plan.param_names == ['dt']
     assert 'a.p[0]' in src and 'pow(' not in src
-    assert 'DTPU_LD(g[' in src and '-2LL * a.stride[' in src
+    assert 'DTPU_LD(g0, ' in src and '-2LL * a.stride[' in src
     import re
     lits = re.findall(r'(?<![\w.\[])(\d+\.\d*(?:e-?\d+)?f?)', src)
     assert lits and all(x.endswith('f') for x in lits)
