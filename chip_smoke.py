@@ -167,6 +167,27 @@
    untuned run launches. Every part is driven with K1's counts at 0 just
    before and read just after, and its launches add to K1's main path.
 
+13. Host streaming, measured profiling and the platform row on the
+   forward shot's model (512^3 + nbl 10, SO=8, fp32): (1) a 40-row save
+   (31 GB) resident and streamed (save-streaming 'on', K = 8): the rows,
+   the record and the full-save gradient bit-equal both ways, one K1
+   launch a step and no new unit, each run's loop ms a step and peak
+   device memory beside estimate_memory(layers=True), and each chunk's
+   host-to-staging, staging-to-device, compute, device-to-staging and
+   staging-to-host ms and GB/s beside the host link's data-sheet rate;
+   (2) the smallest save above 1.2 x the card's memory, or, where 60 % of
+   the host's MemAvailable holds less, the largest it holds (the reason
+   logged), forward and gradient under the default 'auto' and budget,
+   the record against the save=False forward's and the gradient against
+   the checkpointed one (TOL x max), host RSS; (3) 50 steps of the shot
+   under profiling='measured' with a profile-dir: the Chrome trace parsed,
+   every body section's device time > 0, the busy time within 1.02 x the
+   loop's CUDA-event time, the unattributed events, the loop split and
+   the tags' host cost; (4) get_platform's row for the card's name, the
+   apply's roofline line, and the bounds read from the nvidia-h100-sxm
+   row. Every drive has K1's counts at 0 just before it and read just
+   after, its launches added to K1's main path.
+
 Every failure raises, and the script exits non-zero. The next-to-last
 lines are the kernel records (one JSON line, a record per kernel, each with
 its time, its plain version's, its bound -- the larger of the bytes its
@@ -174,7 +195,7 @@ result needs (each input point it reads once, each output point written
 once) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s, the H100
 SXM's data-sheet peaks -- the one PyTorch call that computes the same
 function, where there is one, and its launches on its own path and on the
-main path, phases 4, 5 and 9-12, every kernel's count read there; K1's
+main path, phases 4, 5 and 9-13, every kernel's count read there; K1's
 narrow-storage variant has a record of its own) and
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}.
@@ -251,7 +272,14 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
             # operator's steps; the steps of the run that blows up
             p12_n=512, p12_steps=100, p12_ss_n=512, p12_ss_so=4,
             p12_ss_ks=(2, 4), p12_box=((37, 470), (20, 491), (9, 500)),
-            p12_bound_steps=2, p12_pickle_steps=2, p12_err_steps=150)
+            p12_bound_steps=2, p12_pickle_steps=2, p12_err_steps=150,
+            # phase 13: the forward shot's width (+fwd_nbl), the saved rows
+            # of (1) and its streamed K; the share of MemAvailable (2) may
+            # take; the steps profiled in (3). p13_card_bytes and
+            # p13_auto_budget stand in for the card's memory and the
+            # default budget where there is no card (the CPU tests)
+            p13_n=512, p13_rows=40, p13_K=8, p13_host_share=0.6,
+            p13_prof_steps=50, p13_card_bytes=None, p13_auto_budget=None)
 #: (name, source, TPU kernel replaced, the part of the kernel's mangled name
 #: that picks its ptxas report out of its unit's) of every kernel, in record
 #: order.
@@ -577,15 +605,17 @@ def headline_operator(n, device, opt=None):
     return op, fns
 
 
-def forward_solver(n, nbl, tn, nrec, dtype=np.float32):
+def forward_solver(n, nbl, tn, nrec, dtype=np.float32, model=None):
     """AcousticWaveSolver on demo_model('layers-isotropic') at n^3, 10 m
-    spacing, SO=8, in ``dtype``; a 10 Hz Ricker at the centre of the
-    surface at z=20 m; ``nrec`` receivers along x at y centre, z=20 m."""
+    spacing, SO=8, in ``dtype`` (or on ``model``, built so already); a
+    10 Hz Ricker at the centre of the surface at z=20 m; ``nrec``
+    receivers along x at y centre, z=20 m."""
     from devito_tpu_torch.models.seismic import (
         demo_model, AcquisitionGeometry, AcousticWaveSolver)
-    model = demo_model('layers-isotropic', shape=(n, n, n),
-                       spacing=(10., 10., 10.), nbl=nbl, space_order=8,
-                       dtype=dtype)
+    if model is None:
+        model = demo_model('layers-isotropic', shape=(n, n, n),
+                           spacing=(10., 10., 10.), nbl=nbl, space_order=8,
+                           dtype=dtype)
     ext = 10. * (n - 1)
     src = np.array([[ext / 2, ext / 2, 20.]])
     rec = np.stack([np.linspace(0, ext, nrec), np.full(nrec, ext / 2),
@@ -1030,6 +1060,9 @@ def _smoke(device, sizes):
     narrow_phase(device, sizes, records, gen)
     if (K.selftests, K.selftest_launches) != (on_card, on_card):
         raise AssertionError("phase 12 ran the self-test again")
+    streaming_phase(device, sizes, record)
+    if (K.selftests, K.selftest_launches) != (on_card, on_card):
+        raise AssertionError("phase 13 ran the self-test again")
     for rec in records:
         rec.setdefault('library_ms', None)
         rec.setdefault('point_ms', None)
@@ -4200,28 +4233,28 @@ def second_row(device, sizes, narrow, count):
     return row
 
 
-def all_on_k1(ops):
+def all_on_k1(ops, allow=()):
     """Raise when a dense equation of ``ops`` runs in the torch
-    translator (K1 declined it)."""
+    translator (K1 declined it) for a reason not in ``allow``."""
     from devito_tpu_torch.kernels import stencil as K
     bad = [(op.name, eq.target.name, K.decline_reason(eq))
-           for op in ops for eq, p in op.kernel_plans if p is None]
+           for op in ops for eq, p in op.kernel_plans
+           if p is None and K.decline_reason(eq) not in allow]
     if bad:
-        raise AssertionError(f"phase 12: equations in the torch translator: "
-                             f"{bad}")
+        raise AssertionError(f"equations in the torch translator: {bad}")
 
 
-def build_units(ops, device):
+def build_units(ops, device, allow=()):
     """Build every K1 unit of ``ops`` at once (8 nvcc at a time), so that
     no run of the phase compiles inside its loop; the seconds it took.
-    Raises when a dense equation of ``ops`` runs in the torch
-    translator."""
+    Raises when a dense equation of ``ops`` runs in the torch translator
+    for a reason not in ``allow``."""
     from devito_tpu_torch.kernels import stencil as K
     from concurrent.futures import ThreadPoolExecutor
-    all_on_k1(ops)
+    all_on_k1(ops, allow)
     if device.type != 'cuda':
         return 0.
-    uniq = {p.key: p for op in ops for _, p in op.kernel_plans}
+    uniq = {p.key: p for op in ops for _, p in op.kernel_plans if p}
     tic = time.perf_counter()
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(K.build, uniq.values()))
@@ -4627,6 +4660,480 @@ def errctl_shot(device, sizes, count):
     return out
 
 
+def mem_available():
+    """The host's MemAvailable in bytes (/proc/meminfo)."""
+    with open('/proc/meminfo') as f:
+        for ln in f:
+            if ln.startswith('MemAvailable:'):
+                return int(ln.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def rss():
+    """(the resident set of this process, its peak so far) in bytes:
+    /proc/self/status VmRSS and getrusage's ru_maxrss."""
+    import resource
+    with open('/proc/self/status') as f:
+        now = next(int(ln.split()[1]) * 1024 for ln in f
+                   if ln.startswith('VmRSS:'))
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def rows_solver(model, rows, sizes):
+    """The forward shot's solver on ``model`` with a time axis of
+    ``rows`` samples: a save=True wavefield of ``rows`` rows, rows - 2
+    steps."""
+    s = forward_solver(sizes['p13_n'], sizes['fwd_nbl'],
+                       (rows - 1.5) * float(model.critical_dt),
+                       sizes['fwd_nrec'], model=model)
+    if s.geometry.nt != rows:
+        raise AssertionError(f"a time axis of {s.geometry.nt} samples, "
+                             f"not {rows}")
+    return s
+
+
+def chunk_lines(label, op, link):
+    """Log and return ``op``'s last streamed apply, a chunk a line: the
+    ms and GB/s of its host-to-staging, staging-to-device, compute,
+    device-to-staging and staging-to-host parts, beside the host link's
+    data-sheet rate ``link`` (bytes/s)."""
+    rows = []
+    for r in op._stream_log:
+        row = {'steps': list(r['steps'])}
+        parts = []
+        for p in ('pin', 'h2s', 's2d', 'compute', 'd2s', 's2h'):
+            if p not in r:
+                continue
+            ms, nb = r[p]
+            row[p] = dict(ms=ms, bytes=nb,
+                          gbs=nb / ms / 1e6 if nb and ms > 0 else None)
+            parts.append(f"{p} {ms:.2f} ms" + (
+                f" ({nb / ms / 1e6:.2f} GB/s)" if nb and ms > 0 else ''))
+        rows.append(row)
+        log(f"[p13-chunk] {label} steps {r['steps'][0]}-{r['steps'][1]}: "
+            + ', '.join(parts) + f"; host link {link / 1e9:.0f} GB/s a "
+            f"direction (data sheet)")
+    return rows
+
+
+def streaming_phase(device, sizes, record):
+    """Phase 13: host streaming of save wavefields, measured profiling and
+    the platform row on the forward shot's model (``p13_n``^3 + nbl, SO=8,
+    fp32). (1) ``p13_rows`` saved rows, resident ('off') and streamed
+    ('on', a budget of ``p13_K`` + 2 rows; ``both_fit``); (2) the smallest
+    save above 1.2 x the card's memory, capped at ``p13_host_share`` of
+    the host's MemAvailable, under the default 'auto' and budget
+    (``larger``); (3) ``p13_prof_steps`` steps of the shot under
+    profiling='measured' with a profile-dir (``measured``); (4) the
+    platform row (``platform``). Every drive has K1's counts at 0 just
+    before it and read just after; its launches add to K1's main path.
+    Returns the phase's record (also ``record['phase13']``)."""
+    from devito_tpu_torch.arch import get_platform
+    from devito_tpu_torch.kernels import stencil as K
+    on_card = device.type == 'cuda'
+    tic0 = time.perf_counter()
+    res = record['phase13'] = {}
+    release(device)
+    avail = mem_available()
+    card = sizes.get('p13_card_bytes') or (
+        torch.cuda.get_device_properties(device).total_memory if on_card
+        else None)
+    plat = get_platform(device)
+    res['start'] = dict(mem_available=avail, card_bytes=card,
+                        platform=plat.name, rss=rss()[0])
+    log(f"[p13] host MemAvailable {avail / 1e9:.2f} GB, card memory "
+        + (f"{card / 1e9:.2f} GB" if card else 'none')
+        + f", process RSS {rss()[0] / 1e9:.2f} GB; "
+        + (smi() if on_card else 'cpu'))
+
+    def count(fn):
+        """fn() with K1's counts at 0 just before it; (its result, its
+        launches by design), read just after; they add to K1's main
+        path."""
+        K.launches = 0
+        K.launches_by_design.update(point=0, stream=0)
+        probe_launches(zero=True)
+        out = fn()
+        sync(device)
+        by = dict(K.launches_by_design)
+        if any(probe_launches().values()):
+            raise AssertionError("phase 13 launched a probe kernel")
+        record['launches'] += K.launches
+        record['launches_main_path'] = record['launches']
+        return out, by
+
+    model = forward_solver(sizes['p13_n'], sizes['fwd_nbl'], 10.,
+                           sizes['fwd_nrec']).model
+    res['both_fit'] = both_fit(device, sizes, model, count)
+    release(device)
+    empty_host_cache()
+    res['larger'] = larger_than_card(device, sizes, model, count, card)
+    release(device)
+    empty_host_cache()
+    res['measured'] = measured_profile(device, sizes, model, count, plat)
+    release(device)
+    res['platform'] = platform_row(device, record, plat)
+    res['seconds'] = time.perf_counter() - tic0
+    log(f"[p13] phase 13 in {res['seconds']:.1f} s")
+    return res
+
+
+def empty_host_cache():
+    """Give the pinned blocks torch's host allocator keeps cached back to
+    the host, where this torch has the call."""
+    if torch.cuda.is_available() and hasattr(torch._C, '_host_emptyCache'):
+        torch._C._host_emptyCache()
+
+
+def with_peak(fn, count, device):
+    """(fn()'s result, its launches, the peak device memory in it, the
+    memory held before it); the peaks are None off the card."""
+    on_card = device.type == 'cuda'
+    held = torch.cuda.memory_allocated(device) if on_card else None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    out, by = count(fn)
+    top = torch.cuda.max_memory_allocated(device) if on_card else None
+    return out, by, top, held
+
+
+def drive_row(op, summary, steps, by, wall, peak, held, est, link,
+              label):
+    """A streamed or resident run's record: loop ms a step (CUDA events),
+    wall seconds, K1 launches, peak and held device memory, the
+    operator's ``estimate_memory(layers=True)`` and, when it streamed,
+    its plan and each chunk (``chunk_lines``)."""
+    plan = op._stream_plan
+    row = dict(loop_ms_per_step=summary.globals['fdlike'].time * 1e3 /
+               steps, wall_s=wall, launches=by, peak=peak, held=held,
+               estimate=est, K=plan and plan['K'],
+               rows=plan and plan['rows'])
+    if plan is not None:
+        row['chunks'] = chunk_lines(label, op, link)
+    log(f"[p13] {label}: loop {row['loop_ms_per_step']:.4f} ms/step, wall "
+        f"{wall:.2f} s, K1 {by}"
+        + (f", K {row['K']} ({len(row['chunks'])} chunks, windows of "
+           f"{row['rows']} rows)" if plan is not None else '')
+        + "; peak device memory "
+        + (f"{peak / 1e9:.2f} GB, {(peak - held) / 1e9:.2f} above the "
+           f"{held / 1e9:.2f} held before" if peak is not None else
+           'not measured')
+        + (f"; estimate_memory(layers=True) device {est['device'] / 1e9:.2f}"
+           f" GB, host {est['host'] / 1e9:.2f} GB" if est else ''))
+    return row
+
+
+def both_fit(device, sizes, model, count):
+    """Phase 13 (1): ``p13_rows`` saved rows, resident ('off') then
+    streamed ('on', a budget of ``p13_K`` + 2 rows: K = ``p13_K`` for the
+    forward, + 2 for the gradient, which reads u at t alone), after a
+    first resident run that takes the units' first launches: the forward's
+    rows and record and the gradient bit-equal both ways, one K1 launch a
+    step, no new unit."""
+    from devito_tpu_torch import switchconfig, configuration
+    from devito_tpu_torch.arch import platform_registry
+    from devito_tpu_torch.kernels import stencil as K
+    on_card = device.type == 'cuda'
+    link = platform_registry['nvidia-h100-sxm'].host_bw
+    rows = sizes['p13_rows']
+    s = rows_solver(model, rows, sizes)
+    fop, gop = s.op_fwd(True), s.op_grad()
+    build_s = build_units([fop, gop, s.op_fwd(None), s.op_grad(save=False)],
+                          device, ('increment',))
+    u_fn = fop._reads['u']
+    row_bytes = int(np.prod(u_fn.shape_allocated[1:])) * 4
+    steps = rows - 2
+    out = dict(rows=rows, row_bytes=row_bytes, build_s=build_s)
+    log(f"[p13] (1) {sizes['p13_n']}^3 + nbl {sizes['fwd_nbl']}: a saved "
+        f"row {row_bytes / 1e9:.4f} GB ({u_fn.shape_allocated[1:]} fp32), "
+        f"{rows} rows = {rows * row_bytes / 1e9:.2f} GB; K1 units built in "
+        f"{build_s:.1f} s")
+    with switchconfig(**{'save-streaming': 'off'}):
+        (rec, u, fsum), _ = count(lambda: s.forward(save=True))
+        (g, gsum), _ = count(lambda: s.jacobian_adjoint(rec, u))
+    out['first'] = dict(
+        forward_ms_per_step=fsum.globals['fdlike'].time * 1e3 / steps,
+        gradient_ms_per_step=gsum.globals['fdlike'].time * 1e3 / steps)
+    del rec, u, g
+    release(device)
+    nbuilds = len(K.build_seconds)
+    keep = {}
+    budget = (sizes['p13_K'] + 2) * row_bytes
+    for way, mode, bud in (('resident', 'off', configuration['save-budget']),
+                           ('streamed', 'on', budget)):
+        with switchconfig(**{'save-streaming': mode, 'save-budget': bud}):
+            est = (fop.estimate_memory(layers=True),
+                   gop.estimate_memory(layers=True))
+            tic = time.perf_counter()
+            (rec, u, fsum), fby, fpeak, fheld = with_peak(
+                lambda: s.forward(save=True), count, device)
+            fwall = time.perf_counter() - tic
+            r = np.array(rec.data)
+            frow = drive_row(fop, fsum, steps, fby, fwall, fpeak, fheld,
+                             est[0], link, f"(1) {way} forward")
+            empty_host_cache()
+            tic = time.perf_counter()
+            (g, gsum), gby, gpeak, gheld = with_peak(
+                lambda: s.jacobian_adjoint(rec, u), count, device)
+            grow = drive_row(gop, gsum, steps, gby, time.perf_counter() - tic,
+                             gpeak, gheld, est[1], link, f"(1) {way} gradient")
+            empty_host_cache()
+        want = {'stream': on_card * steps, 'point': 0}
+        if fby != want or gby != want or \
+                (frow['K'] is None) != (mode == 'off') or \
+                (grow['K'] is None) != (mode == 'off'):
+            raise AssertionError(f"(1) {way}: K1 launched {fby} (forward), "
+                                 f"{gby} (gradient) for {steps} steps; K "
+                                 f"{frow['K']}, {grow['K']}")
+        out[way] = dict(forward=frow, gradient=grow)
+        keep[way] = (r, u, g)
+    if len(K.build_seconds) != nbuilds:
+        raise AssertionError("(1) a timed run built a K1 unit")
+    (r0, u0, g0), (r1, u1, g1) = keep.pop('resident'), keep.pop('streamed')
+    dev0, host1 = u0._device_array(), type(u1)._host_buf
+    same_rows = all(torch.equal(dev0[i], torch.from_numpy(host1[i]).to(
+        device)) for i in range(rows))
+    gdiff = (g0._device_array() - g1._device_array()).abs().max().item()
+    same = dict(rows=same_rows, rec=bool(np.array_equal(r0, r1)),
+                gradient=gdiff == 0)
+    out.update(bit_equal=same, gradient_max_abs_diff=gdiff)
+    first = out['first']
+    log(f"[p13] (1) streamed against resident: {rows} u rows bit-equal "
+        f"{same_rows}, record bit-equal {same['rec']}, gradient max|diff| "
+        f"{gdiff:.3e}; first resident run "
+        f"{first['forward_ms_per_step']:.4f} (forward), "
+        f"{first['gradient_ms_per_step']:.4f} (gradient) ms/step")
+    if not all(same.values()):
+        raise AssertionError(f"(1) streamed and resident differ: {same}")
+    return out
+
+
+def larger_than_card(device, sizes, model, count, card):
+    """Phase 13 (2): the smallest save above 1.2 x the card's memory,
+    capped at ``p13_host_share`` of the host's MemAvailable (read here),
+    forward and gradient under the default 'auto' and budget (or
+    ``p13_auto_budget`` where there is no card): the plan engages by
+    itself; the record bit-equal to the save=False forward's (within TOL x
+    max where the two take other K1 designs), the gradient within TOL x
+    max of the checkpointed one."""
+    from devito_tpu_torch import switchconfig, configuration
+    from devito_tpu_torch.arch import platform_registry
+    link = platform_registry['nvidia-h100-sxm'].host_bw
+    on_card = device.type == 'cuda'
+    tic0 = time.perf_counter()
+    avail = mem_available()
+    s = rows_solver(model, 8, sizes)
+    row_bytes = int(np.prod(s.op_fwd(True)._reads['u'].shape_allocated[1:])) \
+        * 4
+    want_rows = int(1.2 * card // row_bytes) + 1 if card else None
+    cap = int(sizes['p13_host_share'] * avail // row_bytes)
+    rows = min(want_rows, cap) if want_rows else cap
+    why = None
+    if want_rows is None or cap < want_rows:
+        why = (f"the host holds {cap} rows ({cap * row_bytes / 1e9:.1f} GB, "
+               f"{100 * sizes['p13_host_share']:.0f} % of MemAvailable "
+               f"{avail / 1e9:.1f} GB), fewer than the {want_rows} rows "
+               f"above 1.2 x the card"
+               + (f" ({1.2 * card / 1e9:.1f} GB)" if card else ''))
+        log(f"[p13] (2) {why}: the largest save it holds instead")
+    out = dict(rows=rows, wanted_rows=want_rows, cap_rows=cap,
+               mem_available=avail, save_bytes=rows * row_bytes, reason=why)
+    s = rows_solver(model, rows, sizes)
+    steps = rows - 2
+    fop, gop = s.op_fwd(True), s.op_grad()
+    build_units([fop, gop, s.op_fwd(None), s.op_grad(save=False)], device,
+                ('increment',))
+    cfg = {}
+    if sizes.get('p13_auto_budget'):
+        cfg['save-budget'] = sizes['p13_auto_budget']
+    elif configuration['save-budget'] != 4 << 30 or \
+            configuration['save-streaming'] != 'auto':
+        raise AssertionError("(2) runs under the default save-streaming "
+                             "'auto' and save-budget 4 GiB")
+    with switchconfig(**cfg):
+        tic = time.perf_counter()
+        (rec, u, fsum), fby, fpeak, fheld = with_peak(
+            lambda: s.forward(save=True), count, device)
+        out['forward'] = drive_row(fop, fsum, steps, fby,
+                                   time.perf_counter() - tic, fpeak, fheld,
+                                   None, link, f"(2) {rows} rows forward")
+        r_str = np.array(rec.data)
+        out['rss_after_forward'] = rss()[0]
+        empty_host_cache()
+        tic = time.perf_counter()
+        (g, gsum), gby, gpeak, gheld = with_peak(
+            lambda: s.jacobian_adjoint(rec, u), count, device)
+        out['gradient'] = drive_row(gop, gsum, steps, gby,
+                                    time.perf_counter() - tic, gpeak, gheld,
+                                    None, link, f"(2) {rows} rows gradient")
+        g_str = g._device_array().clone()
+        empty_host_cache()
+    out['rss_peak'] = rss()[1]
+    want = {'stream': on_card * steps, 'point': 0}
+    if fby != want or gby != want or out['forward']['K'] is None or \
+            out['gradient']['K'] is None or \
+            min(len(out[p]['chunks']) for p in ('forward', 'gradient')) < 3:
+        raise AssertionError(f"(2) K1 launched {fby}, {gby} for {steps} "
+                             f"steps; the plans engaged: "
+                             f"{out['forward']['K']}, {out['gradient']['K']}")
+    del g
+    release(device)
+    (rec0, _, _), _ = count(lambda: s.forward(save=False))
+    r_ref = np.array(rec0.data)
+    designs = {'save=True': [p.design for _, p in fop.kernel_plans],
+               'save=False': [p.design for _, p in
+                              s.op_fwd(None).kernel_plans]}
+    same_design = designs['save=True'] == designs['save=False']
+    rerr = float(np.abs(r_str - r_ref).max())
+    rtol = TOL[np.float32] * float(np.abs(r_ref).max())
+    if not (rerr == 0 or (not same_design and rerr <= rtol)):
+        raise AssertionError(f"(2) the streamed record differs from the "
+                             f"save=False forward's by {rerr:.3e} (designs "
+                             f"{designs})")
+    (gck, _), _ = count(lambda: s.jacobian_adjoint(rec0, None,
+                                                   checkpointing=True))
+    g_ck = gck._device_array()
+    gerr = (g_str - g_ck).abs().max().item()
+    gtol = TOL[np.float32] * g_ck.abs().max().item()
+    if not gerr <= gtol:
+        raise AssertionError(f"(2) streamed gradient against the "
+                             f"checkpointed one: {gerr:.3e} > {gtol:.3e}")
+    out.update(rec_max_abs_diff=rerr, rec_tol=rtol, same_design=same_design,
+               designs=designs, grad_max_abs_diff=gerr, grad_tol=gtol,
+               seconds=time.perf_counter() - tic0)
+    log(f"[p13] (2) {rows} rows ({rows * row_bytes / 1e9:.2f} GB): record "
+        f"against the save=False forward's max|diff| {rerr:.3e} (K1 designs "
+        f"{designs}); gradient against the checkpointed one max|diff| "
+        f"{gerr:.3e} (tolerance {gtol:.3e}); host RSS after the forward "
+        f"{out['rss_after_forward'] / 1e9:.2f} GB, the process's peak "
+        f"{out['rss_peak'] / 1e9:.2f} GB; {out['seconds']:.1f} s")
+    return out
+
+
+def measured_profile(device, sizes, model, count, plat):
+    """Phase 13 (3): ``p13_prof_steps`` steps of the forward shot
+    (save=False) under profiling='measured' with a profile-dir: the trace
+    file parses, every body section has device time (on the card), the
+    busy time is within 1.02 x the loop's CUDA-event time; beside it the
+    unattributed events, the loop split (``loop_split``), and the loop ms
+    a step without the tags, with them (no profiler: their host cost) and
+    under the profiler; apply's roofline line names ``plat``."""
+    import logging
+    import tempfile
+    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch.logger import logger
+    on_card = device.type == 'cuda'
+    steps = sizes['p13_prof_steps']
+    s = rows_solver(model, steps + 2, sizes)
+    op = s.op_fwd(None)
+    build_units([op], device)
+    s.forward()
+    basic = s.forward()[2].globals['fdlike'].time * 1e3 / steps
+    runner = op._runner
+
+    def tagged(*args):
+        return runner(*args, tags=True)
+    tagged.plans = runner.plans
+    op._runner = tagged
+    try:
+        tags_ms = s.forward()[2].globals['fdlike'].time * 1e3 / steps
+    finally:
+        op._runner = runner
+    msgs = []
+
+    class Keep(logging.Handler):
+        def emit(self, r):
+            msgs.append(r.getMessage())
+    keep = Keep()
+    logger.addHandler(keep)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            with switchconfig(**{'profiling': 'measured', 'profile-dir': tmp,
+                                 'log-level': 'PERF'}):
+                (_, _, summary), by = count(lambda: s.forward())
+            traces = sorted(Path(tmp).glob('*.pt.trace.json'))
+            if len(traces) != 1:
+                raise AssertionError(f"(3) {len(traces)} trace files")
+            with open(traces[0]) as f:
+                nev = len(json.load(f)['traceEvents'])
+            tbytes = traces[0].stat().st_size
+    finally:
+        logger.removeHandler(keep)
+    if by != {'stream': on_card * steps, 'point': 0}:
+        raise AssertionError(f"(3) K1 launched {by}")
+    secs = op._measured_secs
+    if on_card and secs is None:
+        raise AssertionError("(3) measured profiling on the card: no device "
+                             "event in the trace")
+    loop = summary.globals['fdlike'].time
+    per = {lab: (secs or {}).get(f'dtpu_sec{i}', 0.) * 1e3 / steps
+           for i, (lab, *_) in enumerate(op._sections)}
+    other = op._measured_other
+    busy = sum((secs or {}).values()) + other
+    lost = op._measured_unattributed
+    cats = {k: v * 1e3 / steps for k, v in
+            (op._measured_cats or {}).items()}
+    if on_card and (min(per.values()) <= 0 or busy > 1.02 * loop):
+        raise AssertionError(f"(3) sections {per} ms/step, busy {busy:.4f} "
+                             f"s against the loop's {loop:.4f} s")
+    split = loop_split(lambda: s.forward(), steps, device)
+    roof = [m for m in msgs if 'HBM roofline' in m]
+    if not roof or f"of {plat.name} HBM roofline" not in roof[0]:
+        raise AssertionError(f"(3) no roofline of {plat.name} in the log: "
+                             f"{roof}")
+    out = dict(
+        steps=steps, sections_ms_per_step=per,
+        other_ms_per_step=other * 1e3 / steps,
+        busy_ms_per_step=busy * 1e3 / steps,
+        loop_ms_per_step=loop * 1e3 / steps,
+        unattributed=lost, categories=cats,
+        basic_ms_per_step=basic, tags_ms_per_step=tags_ms,
+        trace_events=nev, trace_bytes=tbytes, split=split,
+        log_line=roof[0].replace('\x1b[32m', '').replace('\x1b[0m', ''))
+    log(f"[p13] (3) {steps} steps under profiling='measured': "
+        + ', '.join(f"{lab} {v:.4f}" for lab, v in per.items())
+        + f" ms/step of device time, outside the sections "
+        f"{out['other_ms_per_step']:.4f}; busy {out['busy_ms_per_step']:.4f} "
+        f"against the loop's {out['loop_ms_per_step']:.4f} ms/step (CUDA "
+        f"events); {out['unattributed']} device events unattributed; "
+        f"categories " + ', '.join(f"{k} {v:.4f}" for k, v in
+                                   out['categories'].items() if v)
+        + f"; the trace {nev} events, {tbytes / 1e6:.1f} MB")
+    log(f"[p13] (3) loop ms/step without the tags {basic:.4f}, with them "
+        f"(no profiler) {tags_ms:.4f}: their host cost "
+        f"{tags_ms - basic:.4f}; loop_split: " + ', '.join(
+            f"{k} {v:.4f}" for k, v in split['ms'].items())
+        + f", outside every call {split['rest_ms']:.4f} of "
+        f"{split['loop_ms']:.4f} ms/step")
+    log(f"[p13] (4) apply's line: {out['log_line']}")
+    return out
+
+
+def platform_row(device, record, plat):
+    """Phase 13 (4): ``plat`` (get_platform of the card) is the registry
+    row of the card's name, and the bounds (``set_bound``) read their
+    peaks from the nvidia-h100-sxm row: K1's bound unchanged."""
+    from devito_tpu_torch.arch import (_classify, platform_registry,
+                                       CPU_GENERIC)
+    from devito_tpu_torch.experiments import (bound_ms, HBM_BYTES_S,
+                                              FP32_FLOP_S)
+    on_card = device.type == 'cuda'
+    name = torch.cuda.get_device_name(device) if on_card else 'cpu'
+    sxm = platform_registry['nvidia-h100-sxm']
+    again = bound_ms(record['bound_bytes'], record['bound_flops'])
+    if plat is not _classify(name) or (on_card and plat is CPU_GENERIC) or \
+            (HBM_BYTES_S, FP32_FLOP_S) != (sxm.hbm_bw, sxm.fp32_flops) or \
+            again != (record['bound_ms'], record['bound_by']):
+        raise AssertionError(f"(4) platform {plat.name} for {name!r}; "
+                             f"bounds from {HBM_BYTES_S}, {FP32_FLOP_S}")
+    log(f"[p13] (4) get_platform: {plat.name} for {name!r}; set_bound reads "
+        f"{HBM_BYTES_S / 1e12:.2f} TB/s and {FP32_FLOP_S / 1e12:.0f} TFLOP/s "
+        f"from nvidia-h100-sxm: K1's bound {record['bound_ms']:.4f} ms "
+        f"({record['bound_by']}), as before")
+    return dict(device_name=name, row=plat._asdict(),
+                k1_bound_ms=record['bound_ms'])
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
@@ -4639,7 +5146,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     tic = time.perf_counter()
     kind, records = smoke(torch.device('cuda', 0), FULL)
-    log(f"[smoke] phases 2-12 in {time.perf_counter() - tic:.1f} s")
+    log(f"[smoke] phases 2-13 in {time.perf_counter() - tic:.1f} s")
     print(json.dumps({'kernels': records}))
     print(smi())
     print(json.dumps({'ok': True, 'device': {

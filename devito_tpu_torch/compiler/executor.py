@@ -22,6 +22,10 @@ own (nslots, ...) tensors; ``u[t + k]`` is row ``(t + k) % nslots``
   (``<name>_sep`` in ``bufs``, operations/separable.py), by per-axis
   contractions of the band of the field its weights touch.
 
+A ``save`` access resolves to row ``t + toff - __save_base_<name>__``
+(``save_row``): under host streaming the function's tensor is a window of
+rows whose first holds that time; the base is 0 otherwise.
+
 A function may be stored narrower than it computes (``storage-dtype``,
 ``types/dense.py`` ``set_storage_dtype``): every read widens its slice to
 the compute dtype, the arithmetic runs there, and the write rounds to the
@@ -38,13 +42,14 @@ from collections import OrderedDict
 from itertools import product
 
 import torch
+from torch.profiler import record_function
 
 from ..ir.lowering import LoweredEq, LoweredSparse
 from ..exceptions import CompilationError
 from ..kernels.stencil import plan_for, stencil_update
 from ..types.dense import widen
 
-__all__ = ['build_runner', 'step_row', 'plan_rows']
+__all__ = ['build_runner', 'step_row', 'save_row', 'plan_rows']
 
 
 def step_row(t, toff, m):
@@ -100,13 +105,25 @@ def _time_row_index(fn, tk, toff, t, params):
             raise CompilationError("Stepping access outside the time loop")
         return step_row(t, toff, fn._time_size)
     if tk == 'save':
-        return t + toff
+        return save_row(t, toff, params, fn)
     if tk == 'cond':
         return t // factor_value(fn.dimensions[0].factor, params) + toff
     if tk == 'abs':
         return int(_eval_scalar(toff, dict(params or {},
                                            __loop_time__=t)))
     raise CompilationError(f"Bad time access kind {tk}")
+
+
+def save_row(t, toff, params, fn):
+    """Buffer row of a ``save`` access at time ``t + toff``. Under host
+    streaming (Operator._apply_streamed) the streamed function's tensor
+    holds only a window of rows and ``__save_base_<name>__`` (riding the
+    params) is the time of its row 0; for any other function the base is
+    0 (reference: devito_tpu/compiler/executor.py save_row)."""
+    base = 0
+    if params is not None:
+        base = params.get(f'__save_base_{fn.name}__', 0)
+    return t + toff - base
 
 
 def _resolve_time_indexed(bufs, fn, tk, toff, t, params=None):
@@ -432,7 +449,7 @@ def _exec_sparse(item, bufs, params, t, geom_cache):
     if item.field_time_kind == 'stepping':
         buf = buf[step_row(t, item.field_time_off or 0, field._time_size)]
     elif item.field_time_kind == 'save':
-        buf = buf[t + item.field_time_off]
+        buf = buf[save_row(t, item.field_time_off, params, field)]
     sidx = tuple(corner_idx[d.name] + hl
                  for d, (hl, hr) in zip(field.space_dimensions, field.halo))
     if matrix is not None:
@@ -459,21 +476,30 @@ def _unstable(bufs, names):
     return not bool(torch.stack(ok).all())
 
 
-def build_runner(schedule, storage=None, errctl=None):
-    """Build ``run(bufs, params, time_m, time_M)``, which updates the
-    tensors of ``bufs`` (by function name; ``<name>_coords`` for sparse
-    coordinates, ``<name>_sep`` for a factorised geometry) in place. The
-    stencil-kernel decision is taken here, once per dense equation, with
-    ``storage`` ({function name: torch dtype} of the narrow ones);
-    ``run.plans`` lists ``(eq, plan or None)``. With ``errctl`` (names of
-    written stepping functions) ``run`` returns the step whose stability
-    check failed, else None.
+def build_runner(schedule, storage=None, errctl=None, sections=None):
+    """Build ``run(bufs, params, time_m, time_M, tags=False)``, which
+    updates the tensors of ``bufs`` (by function name; ``<name>_coords``
+    for sparse coordinates, ``<name>_sep`` for a factorised geometry) in
+    place. The stencil-kernel decision is taken here, once per dense
+    equation, with ``storage`` ({function name: torch dtype} of the narrow
+    ones); ``run.plans`` lists ``(eq, plan or None)``. With ``errctl``
+    (names of written stepping functions) ``run`` returns the step whose
+    stability check failed, else None.
+
+    With ``tags`` each body item runs inside a ``torch.profiler.
+    record_function`` range named by ``sections`` (one name a body item;
+    by default ``dtpu_sec<i>``, numbered as Operator._estimate_flops
+    numbers its sections), which operator/trace_profile.py reads back;
+    the prologue and epilogue run untagged. Without, no range is opened.
     """
     plans = OrderedDict()
     for it in schedule.all_items:
         if isinstance(it, LoweredEq):
             plans[id(it)] = (it, plan_for(it, storage=storage))
     direction = schedule.direction
+    if sections is None:
+        sections = [f'dtpu_sec{i}' for i in range(len(schedule.body))]
+    tagged = list(zip(schedule.body, sections))
 
     def _exec_items(items, bufs, params, t, geom_cache):
         for it in items:
@@ -484,7 +510,12 @@ def build_runner(schedule, storage=None, errctl=None):
             else:
                 raise CompilationError(f"Cannot execute {it}")
 
-    def run(bufs, params, time_m, time_M):
+    def _exec_tagged(bufs, params, t, geom_cache):
+        for it, name in tagged:
+            with record_function(name):
+                _exec_items((it,), bufs, params, t, geom_cache)
+
+    def run(bufs, params, time_m, time_M, tags=False):
         geom_cache = {}
         halted = None
         _exec_items(schedule.prologue, bufs, params, None, geom_cache)
@@ -492,7 +523,10 @@ def build_runner(schedule, storage=None, errctl=None):
             anchor = time_m if direction >= 0 else time_M
             for i in range(max(time_M - time_m + 1, 0)):
                 t = anchor + direction * i
-                _exec_items(schedule.body, bufs, params, t, geom_cache)
+                if tags:
+                    _exec_tagged(bufs, params, t, geom_cache)
+                else:
+                    _exec_items(schedule.body, bufs, params, t, geom_cache)
                 if errctl and t % ERRCTL_PERIOD == 0 and \
                         _unstable(bufs, errctl):
                     halted = t

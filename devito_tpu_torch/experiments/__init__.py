@@ -40,15 +40,16 @@ import time
 
 import torch
 
+from ..arch import platform_registry
 from ..parameters import switchconfig, torch_device
 
 __all__ = ['device_for', 'time_ms', 'bound_ms', 'HBM_BYTES_S', 'FP32_FLOP_S']
 
-#: Data-sheet peaks of one H100 SXM at its 700 W limit (NVIDIA): device
-#: memory bytes per second, and fp32 operations per second outside the
-#: tensor cores.
-HBM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
+#: Data-sheet peaks of one H100 SXM at its 700 W limit (arch.py's
+#: 'nvidia-h100-sxm' row): device memory bytes per second, and fp32
+#: operations per second outside the tensor cores.
+HBM_BYTES_S = platform_registry['nvidia-h100-sxm'].hbm_bw
+FP32_FLOP_S = platform_registry['nvidia-h100-sxm'].fp32_flops
 
 
 def bound_ms(nbytes, flops):

@@ -17,12 +17,22 @@ narrow wavefield storage (``storage-dtype``, ``_storage_map``), the
 separable interpolation's set-up (``configuration['separable']``), the
 errctl stability scan (``ExecutionError``) and the ``autotune`` argument,
 which has no tuner here and runs untuned, as devito_tpu's Pallas backend
-does. An Operator pickles: the runner, its kernel plans and the bounded
-runners are left out and built again when it is unpickled, from the same
-units (kernels/_nvcc.py keys).
+does. Host streaming of ``save=nt`` wavefields (``save-streaming``,
+``save-budget``; ``_plan_streaming``, ``_apply_streamed``): the loop runs
+in chunks with only a window of each save buffer on the device. Measured
+profiling (``profiling='measured'``, ``profile-dir``): the loop runs under
+torch.profiler and each section gets its device time from the trace
+(operator/trace_profile.py). The log line gives the share of the device
+memory roofline of the card's arch.py row. An Operator pickles: the
+runner, its kernel plans, the bounded runners and the streaming plan are
+left out and built again when it is unpickled, from the same units
+(kernels/_nvcc.py keys).
 """
 
 import copy as _copy
+import os
+import shutil
+import tempfile
 import time as _time
 from collections import OrderedDict
 
@@ -37,9 +47,10 @@ from ..types.basic import AbstractFunction, retrieve_functions
 from ..types.constant import Constant
 from ..types.dimension import Dimension
 from ..exceptions import InvalidArgument, ExecutionError
-from ..logger import perf as log_perf
+from ..logger import perf as log_perf, debug, warning
 from ..parameters import configuration
-from ..types.dense import storage_torch_dtype, torch_dtype
+from ..types.dense import (storage_torch_dtype, torch_dtype, _stamp,
+                           _seconds)
 from .profiling import PerformanceSummary
 
 __all__ = ['Operator']
@@ -159,7 +170,8 @@ class Operator:
 
     def __getstate__(self):
         state = dict(self.__dict__)
-        for k in ('_runner', '_bounded_cache'):
+        for k in ('_runner', '_bounded_cache', '_stream_plan',
+                  '_stream_first', '_stream_log'):
             state.pop(k, None)
         return state
 
@@ -239,6 +251,38 @@ class Operator:
             if fn.grid is not None:
                 self._grid = fn.grid
                 break
+        self._save_spans = self._find_save_spans()
+
+    def _find_save_spans(self):
+        """{name: (off_min, off_max)} of the time offsets at which each
+        dense ``save``-kind TimeFunction is accessed: it sizes the device
+        window under host streaming (reference: operator.py:254-283)."""
+        spans = {}
+
+        def _note(fn, off):
+            lo, hi = spans.get(fn.name, (0, 0))
+            spans[fn.name] = (min(lo, off), max(hi, off))
+
+        for it in self._schedule.all_items:
+            accs = []
+            if isinstance(it, LoweredEq):
+                accs = list(retrieve_functions(it.rhs))
+                if it.condition is not None:
+                    accs += list(retrieve_functions(it.condition))
+                if it.lhs_access is not None:
+                    accs.append(it.lhs_access)
+            elif isinstance(it, LoweredSparse):
+                accs = list(retrieve_functions(it.expr))
+                if it.kind == 'inject' and it.field_time_kind == 'save':
+                    _note(it.field, it.field_time_off or 0)
+            for a in accs:
+                fn = a.function
+                if fn.is_SparseFunction:
+                    continue
+                tk, off = time_access_of(a)
+                if tk == 'save':
+                    _note(fn, off)
+        return spans
 
     def _storage_map(self, options):
         """{function name: narrow torch dtype} under ``'storage-dtype'``
@@ -303,25 +347,54 @@ class Operator:
     def _add_sections(self, summary, elapsed, nsteps):
         """One entry of ``summary`` a section (``section0``, ``section1``,
         ... in schedule order), with its exact flops, points and bytes over
-        ``nsteps`` steps and its label in ``summary.labels``. The loop is
-        timed as a whole, so its ``elapsed`` seconds are shared out by
-        each section's flops + bytes; the times sum to ``elapsed``. An
-        operator with no body item gets one ``section0`` of its totals."""
-        if not self._sections:
+        ``nsteps`` steps and its label in ``summary.labels``; each
+        section's bytes also land in ``_section_traffic`` (reference:
+        operator.py:1433-1481). An operator with no body item gets one
+        ``section0`` of its totals.
+
+        Times: after a measured apply (``_measured_secs``, from the
+        ``dtpu_secN`` ranges of the trace, operator/trace_profile.py) each
+        section gets its own measured device time, and the device time
+        outside every section (``_measured_other``) is shared out by each
+        section's flops + bytes; the times then sum to the measured busy
+        time. Otherwise the loop's ``elapsed`` seconds are shared out by
+        flops + bytes and sum to ``elapsed``."""
+        secs = self._sections
+        self._section_traffic = {f'section{i}': tr * nsteps
+                                 for i, (_, _, _, tr, _) in enumerate(secs)}
+        if not secs:
+            traffic0 = self._traffic_per_step * nsteps
+            self._section_traffic = {'section0': traffic0}
             summary.add('section0', elapsed,
                         flops=self._flops_per_step * nsteps,
                         points=self._points_per_step * nsteps,
-                        traffic=self._traffic_per_step * nsteps)
+                        traffic=traffic0)
             return
-        weights = [fl + tr for _, fl, _, tr, _ in self._sections]
-        total = sum(weights)
-        for i, ((label, fl, pts, tr, shape), w) in enumerate(
-                zip(self._sections, weights)):
+        meas = getattr(self, '_measured_secs', None)
+        if meas is not None:
+            other = getattr(self, '_measured_other', 0.0)
+            weights = [(fl + tr) or 1 for _, fl, _, tr, _ in secs]
+            total = sum(weights) or 1
+            times = [meas.get(f'dtpu_sec{i}', 0.0) + other * w / total
+                     for i, w in enumerate(weights)]
+            busy = sum(meas.values()) + other
+            cats = getattr(self, '_measured_cats', None) or {}
+            log_perf(f"measured device busy {busy:.4f} s of {elapsed:.4f} s "
+                     f"wall ({other * 1e3:.1f} ms outside sections, "
+                     f"{getattr(self, '_measured_unattributed', 0)} device "
+                     f"events unattributed); " + ", ".join(
+                         f"{c}={v * 1e3:.1f} ms"
+                         for c, v in cats.items() if v > 0))
+        else:
+            weights = [fl + tr for _, fl, _, tr, _ in secs]
+            total = sum(weights)
+            times = [elapsed * (w / total if total else 1 / len(weights))
+                     for w in weights]
+        for i, ((label, fl, pts, tr, shape), t) in enumerate(
+                zip(secs, times)):
             name = f'section{i}'
-            share = w / total if total else 1 / len(weights)
-            summary.add(name, elapsed * share, flops=fl * nsteps,
-                        points=pts * nsteps, traffic=tr * nsteps,
-                        itershapes=(shape,))
+            summary.add(name, t, flops=fl * nsteps, points=pts * nsteps,
+                        traffic=tr * nsteps, itershapes=(shape,))
             summary.labels[name] = label
 
     # -- public introspection ---------------------------------------------
@@ -502,11 +575,16 @@ class Operator:
 
         bound = {name: overrides.get(name, fn)
                  for name, fn in self._reads.items()}
+        # host streaming: a streamed function's window is made below, once
+        # the time bounds fix the first chunk
+        plan = self._stream_plan = self._plan_streaming(bound)
+        streamed = plan['fns'] if plan is not None else {}
         bufs = {}
         for name, fn in bound.items():
             if hasattr(fn, 'set_storage_dtype') and not fn.is_SparseFunction:
                 fn.set_storage_dtype(self._storage.get(name, fn.dtype))
-            bufs[name] = fn._device_array()
+            if name not in streamed:
+                bufs[name] = fn._device_array()
             if fn.is_SparseFunction:
                 bufs[f"{name}_coords"] = fn._coords_device()
         devices = {b.device for b in bufs.values()}
@@ -515,8 +593,8 @@ class Operator:
                 f"Operator `{self._name}`: functions live on several "
                 f"devices {sorted(map(str, devices))}")
 
-        # scalar params
-        params = {}
+        # scalar params; a save function's row 0 is time 0 unless it streams
+        params = {f'__save_base_{n}__': 0 for n in self._save_spans}
         if self._grid is not None:
             for s, v in self._grid.spacing_map.items():
                 params[s.name] = float(v)
@@ -567,8 +645,106 @@ class Operator:
         unknown = [k for k in kwargs if k != 'autotune']
         if unknown and not configuration['ignore-unknowns']:
             raise InvalidArgument(f"Unknown arguments {unknown}")
-        return (bufs, params, int(time_m or 0), int(time_M or 0), bound,
-                sbounds)
+        time_m, time_M = int(time_m or 0), int(time_M or 0)
+        if plan is not None:
+            # each streamed function's window, holding the first chunk's
+            # rows; its time of row 0 rides the params
+            chunks = self._stream_chunks(plan, time_m, time_M)
+            base = (chunks[0][0] if chunks else 0) + plan['span_lo']
+            self._stream_first = []
+            for name, fn in streamed.items():
+                bufs[name] = fn._device_window(base, base + plan['rows'],
+                                               split=self._stream_first)
+                params[f'__save_base_{name}__'] = base
+        return bufs, params, time_m, time_M, bound, sbounds
+
+    def _plan_streaming(self, bound):
+        """Decide host streaming of ``save=nt`` wavefields (reference:
+        operator.py:804-846; the reference's buffering + Orchestrator,
+        passes/clusters/buffering.py:27): when the save buffers exceed
+        ``configuration['save-budget']`` bytes (or ``save-streaming`` is
+        'on'), the time loop runs in chunks of K steps and only a window of
+        ``K + span`` rows of each save buffer lives on the device. Returns
+        None or ``{'fns', 'K', 'span_lo', 'rows'}``, devito_tpu's plan: the
+        arithmetic is on the allocated shapes, which are devito_tpu's.
+        Under 'on' a plan declined for a save function is logged with its
+        reason."""
+        mode = configuration['save-streaming']
+        if mode == 'off' or not self._schedule.body or not self._save_spans:
+            return None
+
+        def decline(why):
+            (warning if mode == 'on' else debug)(
+                f"Operator `{self._name}`: save-streaming={mode!r} declined "
+                f"({why}); the save buffers stay whole on the device")
+
+        # re-running the prologue and epilogue once a chunk is sound only
+        # for idempotent assignments
+        for it in self._schedule.prologue + self._schedule.epilogue:
+            if getattr(it, 'increment', False) or \
+                    getattr(it, 'reduction', None):
+                decline(f"{it!r} outside the time loop accumulates, and "
+                        f"would run once a chunk")
+                return None
+        fns = {name: fn for name, fn in bound.items()
+               if name in self._save_spans
+               and getattr(fn, 'is_TimeFunction', False)
+               and type(fn)._save is not None
+               and fn._time_size and fn.shape[0] > 1}
+        if not fns:
+            decline("no save function of more than one row")
+            return None
+        budget = int(configuration['save-budget'])
+        total = sum(int(np.prod(fn.shape_allocated)) * fn.dtype.itemsize
+                    for fn in fns.values())
+        if mode == 'auto' and total <= budget:
+            return None
+        row_bytes = sum(int(np.prod(fn.shape_allocated[1:])) *
+                        fn.dtype.itemsize for fn in fns.values())
+        span_lo = min(self._save_spans[n][0] for n in fns)
+        span_hi = max(self._save_spans[n][1] for n in fns)
+        span = span_hi - span_lo
+        K = max(4, budget // max(row_bytes, 1) - span)
+        nt = min(fn.shape[0] for fn in fns.values())
+        if K >= nt and mode == 'auto':
+            decline(f"K = {K} steps a chunk covers the {nt} rows")
+            return None
+        K = min(K, max(nt - 1, 4))
+        return {'fns': fns, 'K': int(K), 'span_lo': int(span_lo),
+                'rows': int(K + span)}
+
+    def _stream_chunks(self, plan, time_m, time_M):
+        """The chunks ``(first step, last step)`` of K steps covering
+        ``[time_m, time_M]``, in the order they run: reversed when the
+        schedule runs backward."""
+        K = plan['K']
+        chunks = [(c, min(c + K - 1, time_M))
+                  for c in range(time_m, time_M + 1, K)]
+        return chunks[::-1] if self._schedule.direction < 0 else chunks
+
+    def estimate_memory(self, layers=False, **kwargs):
+        """Bytes of device memory the operator's functions take
+        (reference: operator.py:485-508): their allocated shapes in their
+        compute dtypes, and each sparse function's coordinates. With
+        ``layers=True``, ``{'device': ..., 'host': ...}`` under this
+        configuration's streaming plan: a streamed function holds its
+        window's rows on the device and its whole history on the host."""
+        plan = self._plan_streaming(dict(self._reads))
+        device = host = 0
+        for fn in self._reads.values():
+            shape = fn.shape_allocated
+            nbytes = int(np.prod(shape)) * fn.dtype.itemsize
+            if plan is not None and fn.name in plan['fns']:
+                row = int(np.prod(shape[1:])) * fn.dtype.itemsize
+                device += row * plan['rows']
+                host += nbytes
+            else:
+                device += nbytes
+            if fn.is_SparseFunction:
+                device += fn._coords_host.nbytes
+        if layers:
+            return {'device': device, 'host': host}
+        return device
 
     def _separable_setup(self, bound, bufs, params):
         """Factorise the coordinates of every interpolated sparse function
@@ -624,8 +800,11 @@ class Operator:
         parts = [[c for c in map(clamp, items) if c is not None]
                  for items in (self._schedule.prologue, self._schedule.body,
                                self._schedule.epilogue)]
+        # a kept body item keeps its section's tag
+        sections = [f'dtpu_sec{i}' for i, it in enumerate(self._schedule.body)
+                    if clamp(it) is not None]
         runner = build_runner(Schedule(*parts, self._schedule.direction),
-                              self._storage, self._errctl)
+                              self._storage, self._errctl, sections)
         self._bounded_cache[key] = runner
         return runner
 
@@ -639,7 +818,18 @@ class Operator:
         package has no tuner, so it logs that once and runs untuned, as
         devito_tpu's Pallas backend does (operator.py:970-989). Under
         errctl='max' a failed stability check raises ExecutionError once
-        the tensors are adopted."""
+        the tensors are adopted.
+
+        Under a streaming plan (``_plan_streaming``) the loop runs in
+        chunks (``_apply_streamed``). Under ``profiling='measured'`` or
+        with ``profile-dir`` set, the loop runs under torch.profiler with
+        each body item in its ``dtpu_secN`` range, its Chrome trace goes
+        into ``profile-dir`` (a temporary directory when unset), and
+        'measured' gives each section its device time from it
+        (operator/trace_profile.py); with no device event in the trace (the
+        CPU) it warns and keeps the shares of the cost model. The log line
+        gives the share of the device's memory roofline (arch.py)."""
+        from ..arch import get_platform, roofline_fraction
         autotune = kwargs.pop('autotune', None)
         if autotune is None and configuration['autotuning'] != 'off':
             autotune = configuration['autotuning']
@@ -652,18 +842,60 @@ class Operator:
         device = next(iter(bufs.values())).device if bufs else \
             torch.device('cpu')
         on_cuda = device.type == 'cuda'
-        if on_cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        tic = _time.perf_counter()
-        halted = runner(bufs, params, time_m, time_M)
-        if on_cuda:
-            end.record()
-            end.synchronize()
-            elapsed = start.elapsed_time(end) / 1e3
+        nsteps = max(time_M - time_m + 1, 0) if self._schedule.body else 0
+        flops = self._flops_per_step * nsteps + self._static_flops
+        points = self._points_per_step * nsteps
+        traffic = self._traffic_per_step * nsteps
+        summary = PerformanceSummary(
+            device=torch.cuda.get_device_name(device) if on_cuda else 'cpu')
+        plat = summary.platform = get_platform(device)
+
+        def roof(nbytes, seconds, fmt):
+            r = roofline_fraction(plat, nbytes, seconds)
+            return fmt.format(100 * r, plat.name) if r is not None else ''
+
+        plan = self._stream_plan
+        if plan is not None:
+            elapsed = self._apply_streamed(plan, bufs, params, time_m,
+                                           time_M, bound, runner)
+            summary.add('section0', elapsed, flops=flops, points=points,
+                        traffic=traffic)
+            summary.add_glb(elapsed, flops=flops, points=points,
+                            traffic=traffic)
+            e = summary['section0']
+            log_perf(f"Operator `{self._name}` ran in {elapsed:.4f} s on "
+                     f"{summary.device} (host-streamed save) "
+                     f"[{e.gpointss:.2f} GPts/s"
+                     + roof(traffic, elapsed, ", {:.0f}% of {} HBM roofline")
+                     + "]")
+            return summary
+
+        trace_dir = configuration['profile-dir']
+        measured = configuration['profiling'] == 'measured'
+        tmp = None
+        if measured and not trace_dir:
+            tmp = trace_dir = tempfile.mkdtemp(prefix='dtpu_torch_prof_')
+        self._measured_cats = None
+        self._measured_secs, self._measured_other = None, 0.0
+        self._measured_unattributed = 0
+        if trace_dir:
+            from torch.profiler import profile, ProfilerActivity
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if on_cuda else [])
+            with profile(activities=acts) as prof:
+                elapsed, halted = self._timed_loop(runner, bufs, params,
+                                                   time_m, time_M, on_cuda,
+                                                   tags=True)
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                trace_dir, f'{self._name}.{_time.time_ns()}.pt.trace.json'))
+            if measured:
+                self._read_trace(trace_dir)
+            if tmp:
+                shutil.rmtree(tmp, ignore_errors=True)
         else:
-            elapsed = _time.perf_counter() - tic
+            elapsed, halted = self._timed_loop(runner, bufs, params, time_m,
+                                               time_M, on_cuda)
 
         # the tensors were updated in place: the device copy is now the
         # authoritative one
@@ -679,19 +911,122 @@ class Operator:
                     raise ExecutionError(
                         f"Detected nan/inf in `{name}` output")
 
-        nsteps = max(time_M - time_m + 1, 0) if self._schedule.body else 0
-        flops = self._flops_per_step * nsteps + self._static_flops
-        points = self._points_per_step * nsteps
-        traffic = self._traffic_per_step * nsteps
-        summary = PerformanceSummary(
-            device=torch.cuda.get_device_name(device) if on_cuda else 'cpu')
         self._add_sections(summary, elapsed, nsteps)
         summary.add_glb(elapsed, flops=flops, points=points, traffic=traffic)
         g = summary.globals['fdlike']
         log_perf(f"Operator `{self._name}` ran in {elapsed:.4f} s on "
                  f"{summary.device} [{g.gpointss:.2f} GPts/s, "
-                 f"{g.gflopss:.2f} GFlops/s]")
+                 f"{g.gflopss:.2f} GFlops/s"
+                 + roof(traffic, elapsed, ", {:.0f}% of {} HBM roofline")
+                 + "]")
+        for name, e in summary.items():
+            log_perf(f"  {name} ({summary.labels.get(name, '')}): "
+                     f"{e.time:.4f} s, {e.gflopss:.2f} GFlops/s, "
+                     f"{e.gpointss:.2f} GPts/s"
+                     + roof(self._section_traffic.get(name, 0), e.time,
+                            ", {:.0f}% roofline"))
         return summary
+
+    @staticmethod
+    def _timed_loop(runner, bufs, params, time_m, time_M, on_cuda,
+                    tags=False):
+        """``runner``'s loop over ``[time_m, time_M]``: (its seconds, CUDA
+        events around it on the card, the host clock elsewhere; the step
+        whose stability check failed, or None)."""
+        a = _stamp(on_cuda)
+        halted = runner(bufs, params, time_m, time_M, tags=True) if tags \
+            else runner(bufs, params, time_m, time_M)
+        b = _stamp(on_cuda)
+        if on_cuda:
+            b.synchronize()
+        return _seconds(a, b), halted
+
+    def _read_trace(self, trace_dir):
+        """A measured apply's sections from its trace (``_measured_secs``,
+        ``_measured_other``, ``_measured_unattributed``, ``_measured_cats``;
+        reference: operator.py:1337-1352); with no device event, a
+        warning, and the cost model's shares stay."""
+        from .trace_profile import attribute, categorize_ops, \
+            device_op_durations
+        res = attribute(trace_dir)
+        if res is None:
+            warning("profiling='measured': no device event in the trace "
+                    "(CPU run?); falling back to cost-model apportioning")
+            return
+        self._measured_secs = res['sections'] or None
+        self._measured_other = res['other']
+        self._measured_unattributed = res['unattributed']
+        self._measured_cats = categorize_ops(device_op_durations(trace_dir))
+
+    def _apply_streamed(self, plan, bufs, params, time_m, time_M, bound,
+                        runner):
+        """The chunked time loop of a streaming plan (reference:
+        operator.py:848-914): K steps a chunk, in reverse chunk order when
+        the schedule runs backward, each chunk's windows filled with its
+        rows before it runs and, for the written functions, written back
+        to the host after; the same runner and kernel units every chunk,
+        whose prologue and epilogue run each chunk; the other tensors,
+        rolling buffers included, carry from chunk to chunk. A chunk whose
+        stability check fails ends the loop, and ExecutionError is raised
+        once the tensors are adopted. Returns the seconds of the chunks'
+        loops (CUDA events on the card); ``_stream_log`` gets each chunk's
+        steps and the ms and bytes of its host-to-staging, staging-to-
+        device, compute, device-to-staging and staging-to-host parts
+        ('h2s', 's2d', 'compute', 'd2s', 's2h'; 'pin' where it allocated
+        the staging tensor)."""
+        names = plan['fns']
+        on_cuda = next(iter(names.values())).device.type == 'cuda'
+        spans = []
+        halted = None
+        try:
+            for i, (c0, c1) in enumerate(self._stream_chunks(
+                    plan, time_m, time_M)):
+                base = c0 + plan['span_lo']
+                split = self._stream_first if i == 0 else []
+                params2 = dict(params)
+                for name, fn in names.items():
+                    if i:
+                        bufs[name] = fn._device_window(
+                            base, base + plan['rows'], out=bufs[name],
+                            split=split)
+                    params2[f'__save_base_{name}__'] = base
+                a = _stamp(on_cuda)
+                halted = runner(bufs, params2, c0, c1)
+                split.append(('compute', a, _stamp(on_cuda), 0))
+                for name, fn in names.items():
+                    if name in self._writes:
+                        fn._absorb_window(bufs[name], base, split=split)
+                spans.append(((c0, c1), split))
+                if halted is not None:
+                    break
+            if on_cuda:
+                torch.cuda.synchronize(next(iter(bufs.values())).device)
+        finally:
+            for fn in names.values():
+                fn._release_staging()
+            self._stream_first = None
+        self._stream_log = []
+        for steps, split in spans:
+            row = {'steps': steps}
+            for phase, a, b, nbytes in split:
+                ms, nb = row.get(phase, (0.0, 0))
+                row[phase] = (ms + _seconds(a, b) * 1e3, nb + nbytes)
+            self._stream_log.append(row)
+        for name in self._writes:
+            if name not in names:
+                bound[name]._set_device_array(bufs[name])
+        if halted is not None:
+            raise ExecutionError(
+                f"Stability check failed at step {halted}: non-finite "
+                f"values in {list(self._errctl)} (errctl='max')")
+        elapsed = sum(r['compute'][0] for r in self._stream_log) / 1e3
+        tot = {p: sum(r[p][0] for r in self._stream_log if p in r)
+               for p in ('pin', 'h2s', 's2d', 'compute', 'd2s', 's2h')}
+        log_perf(f"Operator `{self._name}`: {len(self._stream_log)} chunks "
+                 f"of {plan['K']} steps, windows of {plan['rows']} rows of "
+                 f"{sorted(names)}; ms " + ", ".join(
+                     f"{p} {v:.1f}" for p, v in tot.items()))
+        return elapsed
 
     def __call__(self, **kwargs):
         return self.apply(**kwargs)

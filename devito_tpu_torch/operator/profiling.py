@@ -5,7 +5,8 @@ PerfEntry:28 — time/gflopss/gpointss/oi per section and global). Flop
 counts come from compile-time symbolic op counting (estimate_cost), i.e.
 the same methodology the reference documents in FAQ.md:858-872. Times are
 measured with CUDA events on a card and with the host clock on the CPU;
-``device`` names which.
+``device`` names which, and ``platform`` is the arch.py registry row the
+apply's roofline shares were taken against.
 """
 
 from collections import OrderedDict, namedtuple
@@ -19,6 +20,7 @@ class PerformanceSummary(OrderedDict):
     def __init__(self, *args, device=None, **kwargs):
         super().__init__(*args, **kwargs)
         self.device = device
+        self.platform = None
         self.globals = {}
         self.labels = {}   # section -> human label (target/sparse op)
 

@@ -69,6 +69,20 @@ configuration.add('separable', True, accepted=[True, False])
 # Operator.apply's autotune default. Accepted as devito_tpu's values; this
 # package has no tuner and runs untuned (logged once an operator).
 configuration.add('autotuning', 'off', accepted=['off', 'basic', 'aggressive'])
+# Host streaming of save=nt wavefields (Operator._apply_streamed): 'auto'
+# streams when the save buffers exceed `save-budget` bytes of device
+# memory, 'on' always streams, 'off' keeps them whole on the device.
+# devito_tpu's values and default budget, so that both plan alike.
+configuration.add('save-streaming', 'auto', accepted=['auto', 'on', 'off'])
+configuration.add('save-budget', 4 << 30)
+# 'measured' runs apply's loop under torch.profiler and gives each section
+# its device time (operator/trace_profile.py); 'basic' and 'advanced'
+# share the loop's time out by each section's flops and bytes.
+configuration.add('profiling', 'basic',
+                  accepted=['basic', 'advanced', 'measured'])
+# A directory: apply's loop runs under torch.profiler and its Chrome trace
+# is written there (it opens in Perfetto).
+configuration.add('profile-dir', None)
 
 _ENV_MAP = {
     'DEVITO_TPU_TORCH_LOG_LEVEL': 'log-level',
@@ -79,7 +93,14 @@ _ENV_MAP = {
     'DEVITO_TPU_TORCH_DTYPE': 'dtype',
     'DEVITO_TPU_TORCH_SEPARABLE': 'separable',
     'DEVITO_TPU_TORCH_AUTOTUNING': 'autotuning',
+    'DEVITO_TPU_TORCH_SAVE_STREAMING': 'save-streaming',
+    'DEVITO_TPU_TORCH_SAVE_BUDGET': 'save-budget',
+    'DEVITO_TPU_TORCH_PROFILING': 'profiling',
+    'DEVITO_TPU_TORCH_PROFILE_DIR': 'profile-dir',
 }
+
+#: Keys whose environment value is a count of bytes.
+_INT_KEYS = ('save-budget',)
 
 
 def init_configuration():
@@ -90,6 +111,8 @@ def init_configuration():
                 val = False
             elif val in ('1', 'True', 'true'):
                 val = True
+            if key in _INT_KEYS:
+                val = int(os.environ[env])
             configuration[key] = val
 
 

@@ -20,7 +20,14 @@ Operator sets it back. The host buffer, and so ``.data``, stays in the
 compute dtype; the narrow tensor holds the values rounded to nearest even.
 Here the storage dtype is the function's own, not a registry's by name,
 so that a later function of the same name starts in its compute dtype.
+
+A ``save=nt`` TimeFunction may be host-streamed (Operator.
+_apply_streamed): an apply holds only a window of its rows on the device
+(``_device_window``, ``_absorb_window``), the rows passing through a
+staging tensor, pinned on the card; the host copy is then authoritative.
 """
+
+import time as _time
 
 import numpy as np
 import sympy
@@ -62,6 +69,23 @@ def storage_torch_dtype(dt):
     if isinstance(dt, str) and dt in NARROW:
         return NARROW[dt]
     return torch_dtype(dt)
+
+
+def _stamp(on_card):
+    """A CUDA event recorded on the current stream, or the host clock."""
+    if not on_card:
+        return _time.perf_counter()
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def _seconds(a, b):
+    """Seconds between two ``_stamp``s: host clock readings or CUDA
+    events (synchronized already)."""
+    if isinstance(a, float):
+        return b - a
+    return a.elapsed_time(b) / 1e3
 
 
 def widen(arr, fn):
@@ -328,6 +352,103 @@ class DiscreteFunction(AbstractFunction):
         cls = type(self)
         cls._dev_buf = arr
         cls._coh = self._DEV
+
+    # -- host streaming of save rows (Operator._apply_streamed) -------------
+
+    def _staging(self, shape, dtype, split=None):
+        """The function's staging tensor of ``shape`` and ``dtype`` on the
+        host, pinned when the device is CUDA (a failed pinned allocation
+        raises; nothing falls back to pageable copies), made at the first
+        call and reused while the shape holds (``split`` gets the
+        allocation's 'pin' seconds). Before it is handed out, the last
+        copy from it to the device has completed."""
+        cls = type(self)
+        st = getattr(cls, '_stage', None)
+        if st is None or tuple(st.shape) != tuple(shape) or \
+                st.dtype != dtype:
+            cls._stage = cls._stage_done = None
+            tic = _time.perf_counter()
+            st = cls._stage = torch.empty(
+                shape, dtype=dtype, pin_memory=cls._device.type == 'cuda')
+            if split is not None:
+                split.append(('pin', tic, _time.perf_counter(),
+                              st.numel() * st.element_size()))
+        done = getattr(cls, '_stage_done', None)
+        if done is not None:
+            done.synchronize()
+            cls._stage_done = None
+        return st
+
+    def _release_staging(self):
+        """Drop the staging tensor (a streamed apply ends)."""
+        type(self)._stage = type(self)._stage_done = None
+
+    def _device_window(self, lo, hi, out=None, split=None):
+        """The device tensor of save rows ``[lo, hi)`` in the storage
+        dtype, rows outside ``[0, nt)`` zero (reference:
+        devito_tpu/types/dense.py ``_device_window``): ``out`` (a window
+        an earlier call returned) filled in place, else a new tensor.
+        Device-authoritative data goes to the host first. The rows pass
+        through the staging tensor (``_staging``): host rows to staging by
+        torch's multi-threaded ``copy_``, staging to the device with
+        ``non_blocking=True``. ``split`` (a list) gets ``(phase, start,
+        end, bytes)`` of both copies: 'h2s' on the host clock, 's2d' as
+        CUDA events on the card (and 'pin', a new staging tensor's)."""
+        cls = type(self)
+        host = self._ensure_host()
+        dt = getattr(cls, '_storage', None) or torch_dtype(self.dtype)
+        shape = (hi - lo,) + host.shape[1:]
+        if out is None:
+            out = torch.empty(shape, dtype=dt, device=cls._device)
+        nt = self.shape[0]
+        a0, a1 = max(lo, 0), min(hi, nt)
+        on_card = cls._device.type == 'cuda'
+        st = self._staging(shape, dt, split)
+        tic = _time.perf_counter()
+        if a1 > a0:
+            st[a0 - lo:a1 - lo].copy_(torch.from_numpy(host[a0:a1]))
+        st[:max(a0 - lo, 0)].zero_()
+        st[max(a1 - lo, 0):].zero_()
+        toc = _time.perf_counter()
+        a = _stamp(on_card)
+        out.copy_(st, non_blocking=True)
+        b = _stamp(on_card)
+        if on_card:
+            cls._stage_done = b
+        if split is not None:
+            nbytes = st.numel() * st.element_size()
+            split += [('h2s', tic, toc, nbytes), ('s2d', a, b, nbytes)]
+        return out
+
+    def _absorb_window(self, win, lo, split=None):
+        """Write the window ``win`` of save rows back into the host rows
+        from ``lo``, skipping rows outside ``[0, nt)``; the host becomes
+        authoritative (reference: devito_tpu/types/dense.py
+        ``_absorb_window``). Device to staging, a synchronize, then staging
+        to the host rows, widened to the compute dtype; ``split`` gets
+        'd2s' (CUDA events) and 's2h' (host clock)."""
+        cls = type(self)
+        host = self._allocate()
+        nt = self.shape[0]
+        a0, a1 = max(lo, 0), min(lo + win.shape[0], nt)
+        if a1 > a0:
+            on_card = cls._device.type == 'cuda'
+            st = self._staging(tuple(win.shape), win.dtype, split)
+            rows = slice(a0 - lo, a1 - lo)
+            a = _stamp(on_card)
+            st[rows].copy_(win[rows], non_blocking=True)
+            b = _stamp(on_card)
+            if on_card:
+                b.synchronize()
+            tic = _time.perf_counter()
+            torch.from_numpy(host[a0:a1]).copy_(st[rows])
+            toc = _time.perf_counter()
+            if split is not None:
+                nbytes = st[rows].numel() * st.element_size()
+                split += [('d2s', a, b, nbytes), ('s2h', tic, toc, nbytes)]
+        cls._coh = self._HOST
+        cls._pristine_zero = False
+        cls._dev_buf = None
 
     @property
     def data(self):

@@ -2,6 +2,7 @@
 kernel's launch counter is found, read and set to 0, and the byte counts
 of its bounds."""
 
+import json
 import sys
 from pathlib import Path
 
@@ -553,3 +554,55 @@ def test_narrow_close_allows_one_ulp():
     got[2] = torch.tensor(3.0625).to(torch.bfloat16)     # two ulps at 3
     with pytest.raises(AssertionError):
         C.narrow_close('x', got, want)
+
+
+def test_phase_13_runs_last():
+    """Phase 13 (streaming_phase) is the last phase _smoke drives, after
+    phase 12, and the self-test is checked after it."""
+    import inspect
+    src = inspect.getsource(C._smoke)
+    calls = [src.index(f'{name}(device') for name in (
+        'inverse', 'tti', 'solvers', 'narrow_phase', 'streaming_phase')]
+    assert calls == sorted(calls)
+    assert 'phase 13 ran the self-test again' in src
+    assert src.index('streaming_phase(device') > src.index(
+        'narrow_phase(device')
+    assert '13. Host streaming' in C.__doc__
+
+
+def test_streaming_phase_runs_on_the_cpu():
+    """Phase 13 at a small size on the CPU, where no kernel launches: the
+    streamed and resident rows, records and gradients bit-equal, a save
+    of 13 rows against a card of 10 under 'auto' (a budget of 5 rows
+    standing in for the default), the measured mode falling back to the
+    cost model, the roofline line against cpu-generic."""
+    from devito_tpu_torch import switchconfig
+    sizes = dict(C.FULL, p13_n=16, fwd_nbl=4, fwd_nrec=8, p13_rows=12,
+                 p13_K=4, p13_prof_steps=6)
+    row = 40 * 40 * 128 * 4
+    sizes.update(p13_card_bytes=10 * row, p13_auto_budget=5 * row)
+    record = {'launches': 0, 'ms': 1.0}
+    C.set_bound(record, 4 * 16 ** 3 * 5, 76 * 16 ** 3)
+    with switchconfig(device='cpu'):
+        res = C.streaming_phase(torch.device('cpu'), sizes, record)
+    json.dumps(res)
+    one = res['both_fit']
+    assert one['bit_equal'] == {'rows': True, 'rec': True, 'gradient': True}
+    st = one['streamed']
+    assert (st['forward']['K'], st['gradient']['K']) == (4, 6)
+    assert len(st['forward']['chunks']) == 3     # 10 steps in chunks of 4
+    assert set(st['forward']['chunks'][0]) == {'steps', 'pin', 'h2s', 's2d',
+                                                'compute', 'd2s', 's2h'}
+    assert 'pin' not in st['forward']['chunks'][1]    # staging reused
+    assert 'd2s' not in st['gradient']['chunks'][0]    # u is only read
+    assert one['resident']['forward']['K'] is None
+    two = res['larger']
+    assert (two['rows'], two['wanted_rows'], two['reason']) == (13, 13, None)
+    assert two['rec_max_abs_diff'] == 0 and two['same_design']
+    assert two['grad_max_abs_diff'] <= two['grad_tol']
+    assert two['forward']['K'] == 4 and len(two['forward']['chunks']) == 3
+    m = res['measured']
+    assert m['unattributed'] == 0 and 'cpu-generic HBM roofline' in \
+        m['log_line']
+    assert res['platform']['row']['name'] == 'cpu-generic'
+    assert record['launches'] == 0
