@@ -188,6 +188,28 @@
    row. Every drive has K1's counts at 0 just before it and read just
    after, its launches added to K1's main path.
 
+14. Multi-device through the port, on one card: ``mesh-devices`` 4 puts
+   four shards on it. (1) The forward shot at 512^3 + nbl 10 (532^3),
+   SO=8, fp32, 100 steps, unsharded, then on topologies (2, 2, 1) and
+   (4, 1, 1): each run's wavefield against the unsharded one (bit-equal
+   where every shard-local item takes the unsharded design, else K1's
+   plain-version tolerance) and its record within RUN_TOL x max; K1's
+   launches equal to the shard-local items K1 plans times the steps; the
+   exchange's copies and bytes a step equal to the halo plan's slabs;
+   the design of each shard-local item and why; the first and warm loop
+   and the host ms a step, peak device memory; then the (2, 2, 1) shot
+   under profiling='measured': K1's and the exchange's device ms a step
+   and whether the exchange's copies overlap K1's launches. (2) The
+   checkpointed gradient at (2, 2, 1), 100 steps, against the unsharded
+   one on the card. (3) Host streaming through the sharded runner at
+   128^3 + nbl 10: the streamed save bit-equal to the resident sharded
+   run. (4) The uneven topology (3, 2, 1) at 532^3 (six shards, the last
+   x-shards dead-padded) against the unsharded shot. (5) A schedule
+   explicit_halo_eligible rejects (a tap-read function whose halo the
+   user wrote) runs gathered under halo='auto', its reason printed, equal
+   to the unsharded run. A host with more than one card would run (1)
+   with one shard a card; on one card that branch is logged as not run.
+
 Every failure raises, and the script exits non-zero. The next-to-last
 lines are the kernel records (one JSON line, a record per kernel, each with
 its time, its plain version's, its bound -- the larger of the bytes its
@@ -195,7 +217,7 @@ result needs (each input point it reads once, each output point written
 once) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s, the H100
 SXM's data-sheet peaks -- the one PyTorch call that computes the same
 function, where there is one, and its launches on its own path and on the
-main path, phases 4, 5 and 9-13, every kernel's count read there; K1's
+main path, phases 4, 5 and 9-14, every kernel's count read there; K1's
 narrow-storage variant has a record of its own) and
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}.
@@ -279,7 +301,17 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
             # p13_auto_budget stand in for the card's memory and the
             # default budget where there is no card (the CPU tests)
             p13_n=512, p13_rows=40, p13_K=8, p13_host_share=0.6,
-            p13_prof_steps=50, p13_card_bytes=None, p13_auto_budget=None)
+            p13_prof_steps=50, p13_card_bytes=None, p13_auto_budget=None,
+            # phase 14: shards on the card, the forward shot's width
+            # (+fwd_nbl) and steps, its topologies, the uneven one; the
+            # checkpointed gradient's steps and topology; the streamed
+            # run's width, rows and K; the gathered schedule's width and
+            # steps; the steps of the measured run
+            p14_shards=4, p14_n=512, p14_steps=100,
+            p14_topologies=((2, 2, 1), (4, 1, 1)), p14_uneven=(3, 2, 1),
+            p14_grad_steps=100, p14_grad_topology=(2, 2, 1),
+            p14_stream_n=128, p14_stream_rows=40, p14_stream_K=8,
+            p14_gather_n=256, p14_gather_steps=20, p14_prof_steps=20)
 #: (name, source, TPU kernel replaced, the part of the kernel's mangled name
 #: that picks its ptxas report out of its unit's) of every kernel, in record
 #: order.
@@ -1063,6 +1095,12 @@ def _smoke(device, sizes):
     streaming_phase(device, sizes, record)
     if (K.selftests, K.selftest_launches) != (on_card, on_card):
         raise AssertionError("phase 13 ran the self-test again")
+    many = sharded_phase(device, sizes, record)['one_shard_a_card']
+    cards = many['cards'] if isinstance(many, dict) else 1
+    if (K.selftests, K.selftest_launches) != (on_card * cards,
+                                              on_card * cards):
+        raise AssertionError("phase 14 ran the self-test again (once a "
+                             "card is due)")
     for rec in records:
         rec.setdefault('library_ms', None)
         rec.setdefault('point_ms', None)
@@ -5134,6 +5172,434 @@ def platform_row(device, record, plat):
                 k1_bound_ms=record['bound_ms'])
 
 
+def set_topology(grid, topology):
+    """Attach a mesh of ``topology`` over the default mesh's devices
+    (``mesh-devices`` shards) to ``grid``, or detach it (None)."""
+    from devito_tpu_torch.parallel.distributor import Distributor
+    grid._distributor = None if topology is None else \
+        Distributor(grid, topology=topology)
+
+
+def shot_solver(model, steps, sizes):
+    """The forward shot's solver on ``model``: ``steps`` steps (a time axis
+    of steps + 2 samples), its own operators."""
+    s = forward_solver(sizes['p14_n'], sizes['fwd_nbl'],
+                       (steps + 0.5) * float(model.critical_dt),
+                       sizes['fwd_nrec'], model=model)
+    if s.geometry.nt != steps + 2:
+        raise AssertionError(f"{s.geometry.nt - 2} steps, not {steps}")
+    return s
+
+
+def host_timer(op):
+    """Wrap the runner ``op``'s next apply runs (its ShardedRunner's where
+    it has one) so that the host seconds it takes to return -- to enqueue
+    every step -- land in the returned dict's ``'s'``."""
+    hr = getattr(op, '_halo_runner', None)
+    owner, attr = (hr, 'runner') if hr is not None else (op, '_runner')
+    runner, out = getattr(owner, attr), {}
+
+    def timed(*args, **kw):
+        tic = time.perf_counter()
+        halted = runner(*args, **kw)
+        out['s'] = time.perf_counter() - tic
+        setattr(owner, attr, runner)
+        return halted
+
+    timed.plans = runner.plans
+    timed.shard_plans = getattr(runner, 'shard_plans', None)
+    setattr(owner, attr, timed)
+    return out
+
+
+def shard_launches(op, steps):
+    """(K1 launches a sharded apply of ``steps`` steps makes: the shard-
+    local items K1 plans, once a step for the body's and once for the
+    prologue's and epilogue's; the shard-local items by target, design and
+    reason)."""
+    hr = op._halo_runner
+    body = {id(it) for it in hr.local_schedule.body}
+    per = once = 0
+    designs = {}
+    for _, it, eq, plan in hr.runner.shard_plans:
+        key = (eq.target.name, plan.design if plan else 'torch',
+               plan.design_reason if plan else 'declined')
+        designs[key] = designs.get(key, 0) + 1
+        if plan is None:
+            continue
+        if id(it) in body:
+            per += 1
+        else:
+            once += 1
+    return per * steps + once, [dict(target=t, design=d, reason=r, items=n)
+                                for (t, d, r), n in sorted(designs.items())]
+
+
+def domain_tensor(fn):
+    """The device view of ``fn``'s domain (its whole tensor between
+    applies, sharded or not)."""
+    dev = fn._device_array()
+    return dev[fn._leading_slices() + tuple(
+        slice(hl, hl + n) for n, (hl, hr) in
+        zip(type(fn)._space_shape, fn.halo))]
+
+
+def held_against(label, got, want, rec, rec_want):
+    """(wavefield max|diff| / max, bit-equal, record max|diff| / max) of a
+    run against the unsharded one; raises beyond RUN_TOL (fp32)."""
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item() / scale
+    rerr = float(np.abs(rec - rec_want).max() / np.abs(rec_want).max())
+    if not (err <= RUN_TOL[np.float32] and rerr <= RUN_TOL[np.float32]):
+        raise AssertionError(f"(1) {label}: wavefield {err:.3e}, record "
+                             f"{rerr:.3e} x max from the unsharded run")
+    return err, bool(torch.equal(got, want)), rerr
+
+
+def p14_shot(device, sizes, model, topology, count, label, ref=None):
+    """Phase 14 (1): the forward shot on ``topology`` (None: unsharded),
+    a first and a warm run; the warm run's wavefield and record, checked
+    against ``ref`` (the unsharded run's) when given."""
+    from devito_tpu_torch.kernels import stencil as K
+    steps = sizes['p14_steps']
+    set_topology(model.grid, topology)
+    s = shot_solver(model, steps, sizes)
+    op = s.op_fwd(None)
+    build_units([op], device)
+    tic = time.perf_counter()
+    _, by1 = count(lambda: s.forward())
+    first_wall = time.perf_counter() - tic
+    nbuilds = len(K.build_seconds)
+    host = host_timer(op)
+    tic = time.perf_counter()
+    (rec, u, summ), by, peak, held = with_peak(lambda: s.forward(), count,
+                                               device)
+    wall = time.perf_counter() - tic
+    if len(K.build_seconds) != nbuilds:
+        raise AssertionError(f"(1) {label}: the warm run built a K1 unit")
+    row = dict(topology=topology, first_wall_s=first_wall, wall_s=wall,
+               loop_ms_per_step=summ.globals['fdlike'].time * 1e3 / steps,
+               host_ms_per_step=host['s'] * 1e3 / steps,
+               launches=sum(by.values()), by_design=by, peak=peak,
+               held=held, first_launches=sum(by1.values()))
+    hr = op._halo_runner
+    if topology is None:
+        want_launches = steps
+        if hr is not None:
+            raise AssertionError("(1) the unsharded shot is sharded")
+    else:
+        if hr is None:
+            raise AssertionError(f"(1) {label}: gathered ({op.halo_decline})")
+        want_launches, designs = shard_launches(op, steps)
+        step = hr.exchange['step_copies'], hr.exchange['step_bytes']
+        moved = op.last_exchange
+        row.update(shards=len(hr.shards), designs=designs,
+                   exchange_copies_per_step=moved['copies'] / steps,
+                   exchange_bytes_per_step=moved['bytes'] / steps,
+                   plan_copies_per_step=step[0], plan_bytes_per_step=step[1])
+        if (moved['copies'], moved['bytes']) != (steps * step[0],
+                                                 steps * step[1]):
+            raise AssertionError(f"(1) {label}: the exchange moved {moved}, "
+                                 f"the plan's slabs {step} a step")
+    if row['launches'] != (device.type == 'cuda') * want_launches:
+        raise AssertionError(f"(1) {label}: K1 launched {by}, not "
+                             f"{want_launches}")
+    r = np.array(rec.data)
+    if not (np.isfinite(r).all() and np.abs(r).max() > 0):
+        raise AssertionError(f"(1) {label}: the record is not finite and "
+                             f"non-zero")
+    out = domain_tensor(u).clone() if ref is None else None
+    if ref is not None:
+        row['err'], row['bit_equal'], row['rec_err'] = held_against(
+            label, domain_tensor(u), ref[0], r, ref[1])
+    log(f"[p14] (1) {label}: loop {row['loop_ms_per_step']:.4f} ms/step "
+        f"(first run's wall {first_wall:.2f} s), host "
+        f"{row['host_ms_per_step']:.4f} ms/step; K1 {by} = "
+        f"{want_launches} expected; peak device memory "
+        + (f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} held before the run)"
+           if peak is not None else 'not measured')
+        + ('' if topology is None else
+           f"; {row['shards']} shards; exchange {row['exchange_copies_per_step']:g}"
+           f" copies, {row['exchange_bytes_per_step'] / 1e6:.3f} MB a step "
+           f"= the plan's {step[0]}, {step[1] / 1e6:.3f} MB; wavefield "
+           f"{row['err']:.3e} x max from the unsharded (bit-equal "
+           f"{row['bit_equal']}), record {row['rec_err']:.3e}"))
+    if topology is not None:
+        for d in designs:
+            log(f"[p14-design] {label} {d['target']}: {d['items']} shard-"
+                f"local items on {d['design']} ({d['reason']})")
+    return row, (out, r)
+
+
+def overlap_us(a, b):
+    """Microseconds in which an interval of ``a`` overlaps one of ``b``
+    (each a list of (start, end) whose members do not overlap)."""
+    return sum(max(0., min(y, t) - max(x, s)) for x, y in a for s, t in b)
+
+
+def p14_measured(device, sizes, model, topology, count):
+    """Phase 14 (1): ``p14_prof_steps`` steps of the shot on ``topology``
+    under profiling='measured': K1's device ms a step (every shard), the
+    exchange's (its copies, the 'dtpu_exchange' range) and the other
+    sections', and the microseconds in which the exchange's copies run
+    beside a K1 launch."""
+    import tempfile
+    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch.operator.trace_profile import section_events
+    steps = sizes['p14_prof_steps']
+    set_topology(model.grid, topology)
+    s = shot_solver(model, steps, sizes)
+    s.forward()
+    with tempfile.TemporaryDirectory() as tmp:
+        with switchconfig(**{'profiling': 'measured', 'profile-dir': tmp}):
+            (_, _, summ), by = count(lambda: s.forward())
+        evs = section_events(tmp) or []
+    loop = summ.globals['fdlike'].time * 1e3 / steps
+    k1 = [(a, b) for _, cat, a, b, _, _ in evs if cat == 'stencil']
+    ex = [(a, b) for name, _, a, b, _, _ in evs if name == 'dtpu_exchange']
+    secs = {}
+    for name, _, a, b, _, _ in evs:
+        secs[name or 'other'] = secs.get(name or 'other', 0.) + (b - a)
+    ms = {k: v / 1e3 / steps for k, v in secs.items()}
+    both = overlap_us(ex, k1)
+    ex_ms = sum(b - a for a, b in ex) / 1e3 / steps
+    out = dict(steps=steps, loop_ms_per_step=loop, sections_ms=ms,
+               k1_ms_per_step=sum(b - a for a, b in k1) / 1e3 / steps,
+               exchange_ms_per_step=ex_ms,
+               exchange_events=len(ex), k1_events=len(k1),
+               overlap_ms_per_step=both / 1e3 / steps,
+               overlaps=both > 0, launches=by)
+    if device.type == 'cuda' and not (k1 and ex):
+        raise AssertionError(f"(1) measured: {len(k1)} K1 and {len(ex)} "
+                             f"exchange device events in the trace")
+    log(f"[p14-profile] {topology}, {steps} steps under profiling="
+        f"'measured': loop {loop:.4f} ms/step; K1 "
+        f"{out['k1_ms_per_step']:.4f} ms/step of device time over "
+        f"{len(k1)} launches, the exchange {ex_ms:.4f} ({len(ex)} device "
+        f"events); the exchange overlaps K1 for "
+        f"{out['overlap_ms_per_step']:.4f} ms/step (overlaps: "
+        f"{out['overlaps']}); by section " + ', '.join(
+            f"{k} {v:.4f}" for k, v in sorted(ms.items())))
+    return out
+
+
+def p14_gradient(device, sizes, model, count):
+    """Phase 14 (2): the checkpointed FWI gradient (jacobian_adjoint,
+    checkpointing=True) of ``p14_grad_steps`` steps, the unsharded shot's
+    record as the residual, unsharded and on ``p14_grad_topology``; the
+    sharded gradient against the unsharded one."""
+    steps = sizes['p14_grad_steps']
+    set_topology(model.grid, None)
+    s = shot_solver(model, steps, sizes)
+    resid = np.array(s.forward()[0].data)
+    out, ref = {}, None
+    for topo in (None, sizes['p14_grad_topology']):
+        set_topology(model.grid, topo)
+        s = shot_solver(model, steps, sizes)
+        rec = s.geometry.rec
+        rec.data[:] = resid
+        build_units([s.op_fwd(save=False), s.op_grad(save=False)], device,
+                    ('increment',))
+        tic = time.perf_counter()
+        (g, _), by, peak, held = with_peak(
+            lambda: s.jacobian_adjoint(rec, None, checkpointing=True),
+            count, device)
+        wall = time.perf_counter() - tic
+        row = dict(wall_s=wall, launches=by, peak=peak, held=held,
+                   sharded=s.op_grad(save=False)._halo_runner is not None)
+        if row['sharded'] != (topo is not None):
+            raise AssertionError(f"(2) {topo}: sharded {row['sharded']}")
+        gd = domain_tensor(g)
+        if ref is None:
+            ref = gd.clone()
+        else:
+            row['err'] = (gd - ref).abs().max().item() / \
+                ref.abs().max().item()
+            row['bit_equal'] = bool(torch.equal(gd, ref))
+            if not row['err'] <= RUN_TOL[np.float32]:
+                raise AssertionError(f"(2) the sharded gradient is "
+                                     f"{row['err']:.3e} x max from the "
+                                     f"unsharded one")
+        out[str(topo)] = row
+        log(f"[p14-grad] {topo}: checkpointed gradient of {steps} steps in "
+            f"{wall:.2f} s, K1 {by}, peak device memory "
+            + (f"{peak / 1e9:.2f} GB" if peak is not None else
+               'not measured')
+            + ('' if topo is None else
+               f"; against the unsharded {row['err']:.3e} x max "
+               f"(bit-equal {row['bit_equal']})"))
+        del g, gd
+        release(device)
+    return out
+
+
+def p14_streaming(device, sizes, count):
+    """Phase 14 (3): a ``p14_stream_rows``-row save at ``p14_stream_n``^3 +
+    nbl on ``p14_grad_topology``, resident then streamed (save-streaming
+    'on', K = ``p14_stream_K``) through the sharded runner: the rows and
+    the record bit-equal."""
+    from devito_tpu_torch import switchconfig
+    rows = sizes['p14_stream_rows']
+    model = forward_solver(sizes['p14_stream_n'], sizes['fwd_nbl'], 10.,
+                           sizes['fwd_nrec']).model
+    set_topology(model.grid, sizes['p14_grad_topology'])
+    sz = dict(sizes, p14_n=sizes['p14_stream_n'])
+    s = shot_solver(model, rows - 2, sz)
+    op = s.op_fwd(True)
+    build_units([op], device)
+    u_fn = op._reads['u']
+    row_bytes = int(np.prod(u_fn.shape_allocated[1:])) * 4
+    keep = {}
+    for way, mode, bud in (('resident', 'off', 4 << 40),
+                           ('streamed', 'on',
+                            (sizes['p14_stream_K'] + 2) * row_bytes)):
+        with switchconfig(**{'save-streaming': mode, 'save-budget': bud}):
+            (rec, u, summ), by = count(lambda: s.forward(save=True))
+        if op._halo_runner is None or (op._stream_plan is None) != \
+                (mode == 'off'):
+            raise AssertionError(f"(3) {way}: sharded "
+                                 f"{op._halo_runner is not None}, plan "
+                                 f"{op._stream_plan}")
+        keep[way] = (np.array(rec.data), np.array(u.data))
+        del rec, u
+    same = (np.array_equal(keep['resident'][0], keep['streamed'][0]) and
+            np.array_equal(keep['resident'][1], keep['streamed'][1]))
+    log(f"[p14-stream] {sizes['p14_stream_n']}^3 + nbl {sizes['fwd_nbl']}, "
+        f"{rows} rows on {sizes['p14_grad_topology']}: streamed in "
+        f"{len(op._stream_log)} chunks of K = {op._stream_plan['K']} through "
+        f"the sharded runner, rows and record bit-equal to the resident "
+        f"sharded run: {same}")
+    if not same:
+        raise AssertionError("(3) streamed and resident sharded runs differ")
+    set_topology(model.grid, None)
+    return dict(rows=rows, chunks=len(op._stream_log), bit_equal=same)
+
+
+def p14_gathered(device, sizes, count):
+    """Phase 14 (5): ``Eq(u.forward, u + b.dx)`` with b's halo written by
+    the user (``data_with_halo``): explicit_halo_eligible rejects it, so
+    under halo='auto' it runs gathered; its reason printed, its result
+    bit-equal to the unsharded run."""
+    from devito_tpu_torch import (Grid, TimeFunction, Function, Eq,
+                                  Operator, switchconfig)
+    n, steps = sizes['p14_gather_n'], sizes['p14_gather_steps']
+    out = []
+    for topo in (None, sizes['p14_grad_topology']):
+        grid = Grid(shape=(n,) * 3, extent=(10. * (n - 1),) * 3)
+        set_topology(grid, topo)
+        u = TimeFunction(name='ug', grid=grid, space_order=8)
+        b = Function(name='bg', grid=grid, space_order=8)
+        rng = np.random.default_rng(SEED)
+        b.data_with_halo[:] = rng.random(b.data_with_halo.shape,
+                                         dtype=np.float32)
+        u.data[0] = rng.random((n,) * 3, dtype=np.float32)
+        op = Operator(Eq(u.forward, u + 1e-3 * b.dx), name='gathered')
+        with switchconfig(halo='auto'):
+            _, by = count(lambda: op.apply(time_M=steps - 1, dt=1.))
+        out.append((op, domain_tensor(u).clone(), by))
+    (_, u0, _), (op, u1, by) = out
+    if op._halo_runner is not None or not op.halo_decline or \
+            op.gathered_applies != 1:
+        raise AssertionError("(5) the ineligible schedule did not run "
+                             "gathered")
+    same = bool(torch.equal(u0, u1))
+    log(f"[p14-gathered] {n}^3 on {sizes['p14_grad_topology']}: runs "
+        f"gathered ({op.halo_decline}); {op.gathered_applies} apply "
+        f"counted; K1 {by}; bit-equal to the unsharded run: {same}")
+    if not same:
+        raise AssertionError("(5) the gathered run differs from the "
+                             "unsharded one")
+    return dict(reason=op.halo_decline, bit_equal=same, launches=by)
+
+
+def one_shard_a_card(device, sizes, model, ref, count):
+    """Phase 14, on a host with more than one card: the forward shot with
+    one shard a card (``mesh-devices`` None, topology ('*', '*', 1)), the
+    exchange's copies peer copies between the cards, against the
+    unsharded run ``ref``, and under profiling='measured'. On one card:
+    'not run', logged and counted as not run."""
+    from devito_tpu_torch import switchconfig
+    ncard = torch.cuda.device_count() if device.type == 'cuda' else 0
+    if ncard < 2:
+        log(f"[p14] one shard a card: not run ({ncard or 'no'} CUDA device "
+            f"visible beside this one); counted as not run")
+        return 'not run'
+    with switchconfig(**{'mesh-devices': None}):
+        row, _ = p14_shot(device, sizes, model, ('*', '*', 1), count,
+                          f"one shard a card ({ncard} cards)", ref)
+        row['measured'] = p14_measured(device, sizes, model, ('*', '*', 1),
+                                       count)
+    row['cards'] = ncard
+    release(device)
+    return row
+
+
+def sharded_phase(device, sizes, record):
+    """Phase 14: multi-device through the port with ``p14_shards`` shards
+    on ``device`` (``mesh-devices``): (1) the forward shot unsharded and on
+    each of ``p14_topologies``, and the first one under measured
+    profiling; (2) the checkpointed gradient; (3) streaming through the
+    sharded runner; (4) the uneven topology; (5) a gathered schedule;
+    the one-shard-a-card branch where the host has more than one card.
+    Every drive has K1's counts at 0 just before it and read just after,
+    its launches added to K1's main path. Returns the phase's record (also
+    ``record['phase14']``)."""
+    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch.kernels import stencil as K
+    tic0 = time.perf_counter()
+    res = record['phase14'] = {}
+    release(device)
+
+    def count(fn):
+        K.launches = 0
+        K.launches_by_design.update(point=0, stream=0)
+        probe_launches(zero=True)
+        out = fn()
+        sync(device)
+        by = dict(K.launches_by_design)
+        if any(probe_launches().values()):
+            raise AssertionError("phase 14 launched a probe kernel")
+        record['launches'] += K.launches
+        record['launches_main_path'] = record['launches']
+        return out, by
+
+    log(f"[p14] {sizes['p14_shards']} shards on {device}: "
+        + (smi() if device.type == 'cuda' else 'cpu'))
+    model = forward_solver(sizes['p14_n'], sizes['fwd_nbl'], 10.,
+                           sizes['fwd_nrec']).model
+    with switchconfig(**{'mesh-devices': sizes['p14_shards']}):
+        res['unsharded'], ref = p14_shot(device, sizes, model, None, count,
+                                         'unsharded')
+        for topo in sizes['p14_topologies']:
+            res[str(topo)] = p14_shot(device, sizes, model, topo, count,
+                                      str(topo), ref)[0]
+            release(device)
+        res['measured'] = p14_measured(device, sizes, model,
+                                       sizes['p14_topologies'][0], count)
+    uneven = sizes['p14_uneven']
+    with switchconfig(**{'mesh-devices': int(np.prod(uneven))}):
+        res['uneven'] = p14_shot(device, sizes, model, uneven, count,
+                                 f"{uneven} uneven", ref)[0]
+    res['one_shard_a_card'] = one_shard_a_card(device, sizes, model, ref,
+                                               count)
+    set_topology(model.grid, None)
+    del ref, model
+    release(device)
+    with switchconfig(**{'mesh-devices': sizes['p14_shards']}):
+        model = forward_solver(sizes['p14_n'], sizes['fwd_nbl'], 10.,
+                               sizes['fwd_nrec']).model
+        res['gradient'] = p14_gradient(device, sizes, model, count)
+        del model
+        release(device)
+        res['streaming'] = p14_streaming(device, sizes, count)
+        release(device)
+        res['gathered'] = p14_gathered(device, sizes, count)
+        release(device)
+    res['seconds'] = time.perf_counter() - tic0
+    log(f"[p14] phase 14 in {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
@@ -5146,7 +5612,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     tic = time.perf_counter()
     kind, records = smoke(torch.device('cuda', 0), FULL)
-    log(f"[smoke] phases 2-13 in {time.perf_counter() - tic:.1f} s")
+    log(f"[smoke] phases 2-14 in {time.perf_counter() - tic:.1f} s")
     print(json.dumps({'kernels': records}))
     print(smi())
     print(json.dumps({'ok': True, 'device': {

@@ -255,30 +255,56 @@ def plan_rows(plan, bufs, t, params):
                                    params) for g in plan.groups])
 
 
-def _exec_dense(eq, plan, bufs, params, t):
-    if not _write_due(eq, bufs, t, params):
-        return
-    if plan is not None:
-        stencil_update(plan, plan_rows(plan, bufs, t, params), params)
-        return
+def _dense_value(eq, bufs, params, t, shard=None):
+    """``(target row, value over the region, translate context)`` of a
+    dense eq the torch translator runs; the value is reduced over the free
+    (contraction) dimensions. On a shard (``(Shard, parts)``) a free
+    partitioned dimension spans the shard's local extent, and its dead
+    cells (global index past the domain) are masked out of the reduction
+    with a where, not a product: a dead cell may hold inf or nan (1/f of a
+    zero pad), and 0 * inf would poison the combined sum."""
     target = _target_row(eq, bufs, t, params)
 
     from .translate import translate, DenseCtx
     region = _region_map(eq)
     free = _free_dims(eq)
+    parts = shard[1] if shard is not None else {}
     if free:
+        free = OrderedDict((dn, (0, parts[dn][2]) if dn in parts else ext)
+                           for dn, ext in free.items())
         region = OrderedDict(list(region.items()) + list(free.items()))
     ctx = DenseCtx(bufs, params, region, t=t, stride_map=_stride_map(eq),
                    device=target.device)
     val = translate(eq.rhs, ctx)
     if free:
-        ax = tuple(range(len(region) - len(free), len(region)))
+        nt_ax = len(region) - len(free)
+        val = _as_tensor(val, target)
+        for k, dn in enumerate(free):
+            if dn not in parts or shard[0].live[dn] == parts[dn][2]:
+                continue
+            shp = [1] * max(val.dim(), len(region))
+            shp[nt_ax + k] = parts[dn][2]
+            live = (torch.arange(parts[dn][2], device=val.device) <
+                    shard[0].live[dn]).reshape(shp)
+            fill = 0
+            if eq.reduction in ('max', 'min'):
+                info = torch.finfo(val.dtype)
+                fill = info.min if eq.reduction == 'max' else info.max
+            val = torch.where(live, val, torch.tensor(fill, dtype=val.dtype,
+                                                      device=val.device))
+        ax = tuple(range(nt_ax, len(region)))
         if eq.reduction == 'max':
             val = torch.amax(val, dim=ax)
         elif eq.reduction == 'min':
             val = torch.amin(val, dim=ax)
         else:
             val = torch.sum(val, dim=ax)
+    return target, val, ctx
+
+
+def _dense_store(eq, target, val, ctx):
+    """Combine ``val`` with the region's current values (reduction,
+    increment, condition) and write it into ``target``."""
     dst = target[_write_region_slices(eq)]
     val = _finalize_val(eq, val, widen(dst, eq.target), ctx)
     if val.untyped_storage().data_ptr() == \
@@ -288,7 +314,16 @@ def _exec_dense(eq, plan, bufs, params, t):
     dst.copy_(val)
 
 
-def _sparse_geometry(sf, bufs, params):
+def _exec_dense(eq, plan, bufs, params, t):
+    if not _write_due(eq, bufs, t, params):
+        return
+    if plan is not None:
+        stencil_update(plan, plan_rows(plan, bufs, t, params), params)
+        return
+    _dense_store(eq, *_dense_value(eq, bufs, params, t))
+
+
+def _sparse_geometry(sf, bufs, params, shard=None):
     """Corner indices {dim: (C, P) int64 tensor, domain coords, clipped}
     and weights (C, P) of a sparse function's interpolation stencil, from
     the runtime coordinates tensor (reference: WeightedInterpolator,
@@ -297,12 +332,20 @@ def _sparse_geometry(sf, bufs, params):
     PrecomputedInterpolator:555, MatrixSparseTimeFunction: the gridpoint
     is the minimum index, the points ``gridpoint + i`` for i in [0,
     ncoeffs)). A point outside ``[0, n-1]`` in any axis gets zero weight;
-    clipped duplicate corners accumulate."""
+    clipped duplicate corners accumulate.
+
+    On a shard (``(Shard, parts)``; devito_tpu: executor.py:1199-1282) the
+    geometry covers the points of the shard's owner bucket
+    (``<name>_own``) where there is one, and every corner is localized: the
+    shard's offset subtracted, a corner the shard does not own masked out
+    of W. Returns (corner_idx, W, own): ``own`` the bucket or None."""
     grid = sf.grid
     interp = sf.interpolator
+    own = bufs.get(f'{sf.name}_own') if shard is not None else None
     per_dim = []
     valid = None
     if getattr(interp, 'name', '') in ('precomputed', 'matrix'):
+        own = None
         for j, d in enumerate(grid.dimensions):
             n = grid.shape[j]
             offsets, coeffs, gp = interp.dim_weights_precomputed(j)
@@ -311,6 +354,8 @@ def _sparse_geometry(sf, bufs, params):
             per_dim.append((d, offsets, coeffs.unbind(1), gp, n))
     else:
         coords = bufs[f"{sf.name}_coords"]
+        if own is not None:
+            coords = coords[own]
         for j, d in enumerate(grid.dimensions):
             h = float(params.get(d.spacing.name, grid.spacing[j]))
             o = float(grid.origin[j])
@@ -331,7 +376,14 @@ def _sparse_geometry(sf, bufs, params):
             w = wlist[c] if w is None else w * wlist[c]
         weights.append(w)
     W = torch.stack(weights) * valid.to(weights[0].dtype)  # (C, P)
-    return {k: torch.stack(v) for k, v in corner_idx.items()}, W
+    idxs = {k: torch.stack(v) for k, v in corner_idx.items()}
+    if shard is not None:
+        sh, parts = shard
+        for dn, (_, _, lext, _) in parts.items():
+            loc = idxs[dn] - sh.offsets[dn]
+            W = W * ((loc >= 0) & (loc <= lext - 1)).to(W.dtype)
+            idxs[dn] = torch.clamp(loc, 0, lext - 1)
+    return idxs, W, own
 
 
 def _matmul(m, v):
@@ -417,9 +469,56 @@ def _interp_separable(terms, sep, bufs, params, t):
     return contract(acc, sep)
 
 
-def _exec_sparse(item, bufs, params, t, geom_cache):
+def _sparse_value(item, bufs, params, t, geom_cache, shard=None):
+    """``(sparse function, values, geometry)`` of a sparse item: for an
+    interpolation the (P,) values (on a shard, its partial sums, scattered
+    to the global point slots), for an injection the (C, P) contributions
+    ``W * val``."""
     from .translate import translate, SparseCtx
 
+    sf = item.sparse
+    if sf.name not in geom_cache:
+        # a matrix function's matrix goes to the device once an apply,
+        # with its geometry
+        matrix = getattr(type(sf), '_matrix', None)
+        geom_cache[sf.name] = _sparse_geometry(sf, bufs, params, shard) + (
+            None if matrix is None else
+            torch.as_tensor(matrix, device=bufs[sf.name].device),)
+    corner_idx, W, own, matrix = geom_cache[sf.name]
+    ctx = SparseCtx(bufs, params, corner_idx, W, sf, t=t, own=own)
+    val = translate(item.expr, ctx)  # (C, P), (P,) or scalar
+
+    if item.kind == 'interp':
+        res = torch.sum(W * val, dim=0)
+        if own is not None:
+            # the shard's owned points back to their global slots
+            res = torch.zeros(sf.npoint, dtype=res.dtype,
+                              device=res.device).index_add_(
+                0, own, res.expand(own.shape))
+        return sf, res, (corner_idx, W, matrix)
+    if matrix is not None:
+        # a location's values: matrix @ the channels' values
+        val = _matmul(matrix, val)
+    return sf, W * val, (corner_idx, W, matrix)
+
+
+def _inject(item, bufs, params, t, contrib, corner_idx):
+    """Scatter-add the (C, P) contributions into the field's row."""
+    field = item.field
+    buf = bufs[field.name]
+    if item.field_time_kind == 'stepping':
+        buf = buf[step_row(t, item.field_time_off or 0, field._time_size)]
+    elif item.field_time_kind == 'save':
+        buf = buf[save_row(t, item.field_time_off, params, field)]
+    sidx = tuple(corner_idx[d.name] + hl
+                 for d, (hl, hr) in zip(field.space_dimensions, field.halo))
+    # accumulate: clipped duplicate corners must add up; into a narrow
+    # buffer the contributions round to its dtype first, as the
+    # reference's scatter-add does
+    buf.index_put_(sidx, contrib.to(buf.dtype), accumulate=True)
+
+
+def _exec_sparse(item, bufs, params, t, geom_cache):
     sf = item.sparse
     if item.kind == 'interp' and f'{sf.name}_sep' in bufs:
         key = ('sep', id(item))
@@ -430,35 +529,11 @@ def _exec_sparse(item, bufs, params, t, geom_cache):
             res = _interp_separable(terms, bufs[f'{sf.name}_sep'], bufs,
                                     params, t)
             return _write_interp(item, sf, res, bufs, t, None)
-    if sf.name not in geom_cache:
-        # a matrix function's matrix goes to the device once an apply,
-        # with its geometry
-        matrix = getattr(type(sf), '_matrix', None)
-        geom_cache[sf.name] = _sparse_geometry(sf, bufs, params) + (
-            None if matrix is None else
-            torch.as_tensor(matrix, device=bufs[sf.name].device),)
-    corner_idx, W, matrix = geom_cache[sf.name]
-    ctx = SparseCtx(bufs, params, corner_idx, W, sf, t=t)
-    val = translate(item.expr, ctx)  # (C, P), (P,) or scalar
-
+    sf, val, (corner_idx, W, matrix) = _sparse_value(item, bufs, params, t,
+                                                     geom_cache)
     if item.kind == 'interp':
-        res = torch.sum(W * val, dim=0)
-        return _write_interp(item, sf, res, bufs, t, matrix)
-    field = item.field
-    buf = bufs[field.name]
-    if item.field_time_kind == 'stepping':
-        buf = buf[step_row(t, item.field_time_off or 0, field._time_size)]
-    elif item.field_time_kind == 'save':
-        buf = buf[save_row(t, item.field_time_off, params, field)]
-    sidx = tuple(corner_idx[d.name] + hl
-                 for d, (hl, hr) in zip(field.space_dimensions, field.halo))
-    if matrix is not None:
-        # a location's values: matrix @ the channels' values
-        val = _matmul(matrix, val)
-    # accumulate: clipped duplicate corners must add up; into a narrow
-    # buffer the contributions round to its dtype first, as the
-    # reference's scatter-add does
-    buf.index_put_(sidx, (W * val).to(buf.dtype), accumulate=True)
+        return _write_interp(item, sf, val, bufs, t, matrix)
+    _inject(item, bufs, params, t, val, corner_idx)
 
 
 #: The stability scan's period in steps (reference: errctl='max').
@@ -476,7 +551,8 @@ def _unstable(bufs, names):
     return not bool(torch.stack(ok).all())
 
 
-def build_runner(schedule, storage=None, errctl=None, sections=None):
+def build_runner(schedule, storage=None, errctl=None, sections=None,
+                 shard_spec=None):
     """Build ``run(bufs, params, time_m, time_M, tags=False)``, which
     updates the tensors of ``bufs`` (by function name; ``<name>_coords``
     for sparse coordinates, ``<name>_sep`` for a factorised geometry) in
@@ -491,7 +567,14 @@ def build_runner(schedule, storage=None, errctl=None, sections=None):
     by default ``dtpu_sec<i>``, numbered as Operator._estimate_flops
     numbers its sections), which operator/trace_profile.py reads back;
     the prologue and epilogue run untagged. Without, no range is opened.
+
+    With ``shard_spec`` (a parallel/halo.py ShardedRunner) the schedule is
+    its local schedule and ``run`` takes one dict of tensors a shard
+    (``_build_sharded``).
     """
+    if shard_spec is not None:
+        return _build_sharded(schedule, storage, errctl, sections,
+                              shard_spec)
     plans = OrderedDict()
     for it in schedule.all_items:
         if isinstance(it, LoweredEq):
@@ -535,4 +618,225 @@ def build_runner(schedule, storage=None, errctl=None, sections=None):
         return halted
 
     run.plans = list(plans.values())
+    return run
+
+
+def _bound_of(rel, parts):
+    """``(dim name, lo, hi)`` when ``rel`` bounds a partitioned dimension by
+    an integer (``d >= a``, ``d > a``, ``d < b``, ``d <= b``): the global
+    range ``[lo, hi)`` it keeps; else None."""
+    import sympy
+    from ..types.dimension import Dimension
+    ops = {sympy.GreaterThan: (0, None), sympy.StrictGreaterThan: (1, None),
+           sympy.StrictLessThan: (None, 0), sympy.LessThan: (None, 1)}
+    flip = {sympy.GreaterThan: sympy.LessThan,
+            sympy.StrictGreaterThan: sympy.StrictLessThan,
+            sympy.StrictLessThan: sympy.StrictGreaterThan,
+            sympy.LessThan: sympy.GreaterThan}
+    for cls in ops:
+        if isinstance(rel, cls):
+            lhs, rhs = rel.lhs, rel.rhs
+            if isinstance(rhs, Dimension) and not isinstance(lhs, Dimension):
+                lhs, rhs, cls = rhs, lhs, flip[cls]
+            if not isinstance(lhs, Dimension) or lhs.name not in parts or \
+                    not getattr(rhs, 'is_Integer', False):
+                return None
+            lo, hi = ops[cls]
+            c = int(rhs)
+            return (lhs.name, None if lo is None else c + lo,
+                    None if hi is None else c + hi)
+    return None
+
+
+def shard_item(eq, shard, parts):
+    """``eq`` (an item of the local schedule) as ``shard`` runs it, or None
+    when it writes nothing there: on each partitioned axis its region is
+    clamped to the global domain and to the bounds its condition puts on
+    the dimension (the local schedule's masks for sub-domain writes and
+    the uneven last shard, ``d >= a`` and ``d < b`` in global coordinates),
+    and those bounds leave the condition. The clamp writes what the masks
+    let through, so the stencil kernel can take the item; it also keeps a
+    ghost-zone extension inside the domain on the outermost shards, where
+    the whole run's halo stays zero. An item whose global region
+    (``global_region``) reaches past the domain into the halo -- CIRE's
+    temporaries, hoisted prologue items -- reaches as far past it on the
+    outermost shards, where its region touches the domain's edge, as the
+    whole run computes it there."""
+    import sympy
+    from copy import copy
+    cond = eq.condition
+    own = {d.name for d in eq.target.space_dimensions}
+    bounds = {}
+    rest = []
+    if cond is not None:
+        for a in (cond.args if isinstance(cond, sympy.And) else (cond,)):
+            b = _bound_of(a, parts)
+            if b is None or b[0] not in own:
+                rest.append(a)
+                continue
+            lo, hi = bounds.get(b[0], (None, None))
+            if b[1] is not None:
+                lo = b[1] if lo is None else max(lo, b[1])
+            if b[2] is not None:
+                hi = b[2] if hi is None else min(hi, b[2])
+            bounds[b[0]] = (lo, hi)
+    glob = getattr(eq, 'global_region', None) or eq.region
+    region = []
+    for d, (a, b), (ga, gb) in zip(eq.target.space_dimensions, eq.region,
+                                   glob):
+        part = parts.get(d.name)
+        if part is not None:
+            n, off = part[3], shard.offsets[d.name]
+            lo, hi = bounds.get(d.name, (None, None))
+            lo = 0 if lo is None else max(lo, 0)
+            hi = n if hi is None else min(hi, n)
+            edge_lo = ga < 0 and off == 0 and a <= 0
+            edge_hi = gb > n and off < n <= off + part[2] and \
+                b >= n - off
+            a = ga if edge_lo else max(a, lo - off)
+            b = gb - off if edge_hi else min(b, hi - off)
+        if b <= a:
+            return None
+        region.append((a, b))
+    if not bounds and tuple(region) == tuple(eq.region):
+        return eq
+    new = copy(eq)
+    new.region = tuple(region)
+    new.condition = (None if not rest else
+                     rest[0] if len(rest) == 1 else sympy.And(*rest))
+    return new
+
+
+def _combine(vals, op):
+    """``vals`` (one tensor a shard, in mesh order) combined on the first's
+    device: their sum, max or min (devito_tpu: psum, pmax, pmin)."""
+    out = vals[0]
+    for v in vals[1:]:
+        v = v.to(out.device)
+        out = torch.maximum(out, v) if op == 'max' else \
+            torch.minimum(out, v) if op == 'min' else out + v
+    return out
+
+
+def _build_sharded(schedule, storage, errctl, sections, spec):
+    """The runner of a ShardedRunner's local schedule:
+    ``run(sbufs, params, time_m, time_M, tags=False)`` over ``sbufs``, one
+    dict of tensors a shard (``spec.prepare_buffers``), in place.
+
+    Each item runs on every shard in turn, as ``shard_item`` gives it to
+    that shard; its stencil-kernel plans are planned once for the shards'
+    local layout (``spec.local_space``) and shared by the shards an item
+    gives the same region. An exchange marker runs once with every shard's
+    tensors. A contraction or reduction over partitioned dimensions
+    combines its shards' partials across the shards that share the
+    target's cells, an interpolation adds every shard's partial sums
+    (devito_tpu: executor.py:997-1034, 1411-1421), and under errctl one
+    shard's failed check halts every shard. ``run.plans`` lists the
+    distinct ``(eq, plan or None)``; ``run.shard_plans`` has ``(shard
+    index, item, eq, plan)`` for each shard's dense item."""
+    shards, parts = spec.shards, spec.parts
+    dims = [d.name for d in spec.grid.dimensions]
+    plans = OrderedDict()
+    per = {}            # id(item) -> [(eq, plan) or None per shard]
+    shard_plans = []
+    for it in schedule.all_items:
+        if not isinstance(it, LoweredEq):
+            continue
+        row = []
+        for sh in shards:
+            eq = shard_item(it, sh, parts)
+            if eq is None:
+                row.append(None)
+                continue
+            key = (id(it), eq.region, str(eq.condition))
+            if key not in plans:
+                plans[key] = (eq, plan_for(eq, storage=storage,
+                                           space=spec.local_space))
+            eq, plan = plans[key]
+            row.append((eq, plan))
+            shard_plans.append((sh.index, it, eq, plan))
+        per[id(it)] = row
+    direction = schedule.direction
+    tagged = list(zip(schedule.body, sections))
+
+    def groups(axes):
+        """The shards by their mesh coordinates off ``axes``: each group
+        shares a reduction target's cells."""
+        out = OrderedDict()
+        for sh in shards:
+            key = tuple(c for j, c in enumerate(sh.coords)
+                        if dims[j] not in axes)
+            out.setdefault(key, []).append(sh.index)
+        return list(out.values())
+
+    def dense(it, sbufs, sparams, t):
+        row = per[id(it)]
+        if not _write_due(it, sbufs[0], t, sparams[0]):
+            return
+        axes = {dn for dn in _free_dims(it) if dn in parts}
+        if not axes:
+            for sh, e in zip(shards, row):
+                if e is not None:
+                    _exec_dense(e[0], e[1], sbufs[sh.index],
+                                sparams[sh.index], t)
+            return
+        for group in groups(axes):
+            got = [(i, _dense_value(row[i][0], sbufs[i], sparams[i], t,
+                                    (shards[i], parts)))
+                   for i in group if row[i] is not None]
+            if not got:
+                continue
+            tot = _combine([v[1] for _, v in got], it.reduction)
+            for i, (target, _, ctx) in got:
+                _dense_store(row[i][0], target, tot.to(target.device), ctx)
+
+    def sparse(it, sbufs, sparams, t, geoms):
+        vals = [_sparse_value(it, sbufs[sh.index], sparams[sh.index], t,
+                              geoms[sh.index], (sh, parts))
+                for sh in shards]
+        if it.kind == 'interp':
+            tot = _combine([v[1] for v in vals], 'sum')
+            for sh, (sf, _, geo) in zip(shards, vals):
+                _write_interp(it, sf, tot.to(sh.device), sbufs[sh.index], t,
+                              geo[2])
+            return
+        for sh, (sf, contrib, geo) in zip(shards, vals):
+            _inject(it, sbufs[sh.index], sparams[sh.index], t, contrib,
+                    geo[0])
+
+    def _exec_items(items, sbufs, sparams, t, geoms):
+        for it in items:
+            if isinstance(it, LoweredEq):
+                dense(it, sbufs, sparams, t)
+            elif isinstance(it, LoweredSparse):
+                sparse(it, sbufs, sparams, t, geoms)
+            elif getattr(it, 'kind', None) == 'halo':
+                it.run(sbufs, sparams, t)
+            else:
+                raise CompilationError(f"Cannot execute {it}")
+
+    def run(sbufs, params, time_m, time_M, tags=False):
+        sparams = [dict(params, **sh.params) for sh in shards]
+        geoms = [{} for _ in shards]
+        halted = None
+        _exec_items(schedule.prologue, sbufs, sparams, None, geoms)
+        if schedule.body:
+            anchor = time_m if direction >= 0 else time_M
+            for i in range(max(time_M - time_m + 1, 0)):
+                t = anchor + direction * i
+                if tags:
+                    for it, name in tagged:
+                        with record_function(name):
+                            _exec_items((it,), sbufs, sparams, t, geoms)
+                else:
+                    _exec_items(schedule.body, sbufs, sparams, t, geoms)
+                if errctl and t % ERRCTL_PERIOD == 0 and \
+                        any(_unstable(b, errctl) for b in sbufs):
+                    halted = t
+                    break
+        _exec_items(schedule.epilogue, sbufs, sparams, None, geoms)
+        return halted
+
+    run.plans = [(eq, plan) for eq, plan in plans.values()]
+    run.shard_plans = shard_plans
     return run

@@ -391,6 +391,11 @@ class DenseCtx(BaseCtx):
             start, length = self.region[name]
             shape = [1] * len(dims)
             shape[j] = length
+            # on a shard the region is local: ``__shard_off_<dim>__`` (the
+            # sharded runner's parameter) keeps the coordinate GLOBAL, so
+            # sub-domain masks and x-dependent expressions translate alike
+            # on every shard (devito_tpu: translate.py:265-290)
+            start = start + self.params.get(f'__shard_off_{name}__', 0)
             return (torch.arange(length, device=self.device) + start
                     ).reshape(shape)
         return super().symbol(sym)
@@ -470,20 +475,24 @@ class SparseCtx(BaseCtx):
 
     ``corner_idx`` {dim name: int64 tensor (C, P)} holds absolute domain
     coordinates, clipped; ``weights`` (C, P) include the out-of-bounds
-    mask.
+    mask. ``own``: on a shard, the owned points' indices (the owner bucket,
+    devito_tpu: translate.py:486-510): the geometry covers those points
+    only, and a sparse row is gathered down to them.
     """
 
     def __init__(self, buffers, params, corner_idx, weights, sparse_fn,
-                 t=None, direction=1):
+                 t=None, direction=1, own=None):
         super().__init__(buffers, params, t=t, direction=direction)
         self.corner_idx = corner_idx
         self.weights = weights
         self.sparse_fn = sparse_fn
+        self.own = own
 
     def access(self, e):
         fn = e.function
         if fn.is_SparseFunction:
-            return self._time_resolved(fn, e)  # (P,)
+            row = self._time_resolved(fn, e)  # (P,)
+            return row if self.own is None else row[..., self.own]
         arr = self._time_resolved(fn, e)
         offs = space_offsets_of(e)
         idxs = tuple(self.corner_idx[d.name] + (hl + off)

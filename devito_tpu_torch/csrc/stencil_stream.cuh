@@ -251,10 +251,22 @@ int stream_launch(void* const* ptrs, const long long* dims, const int* org,
   for (int j = 0; j < 3; ++j) a.n[j] = n[j];
   a.tx = tx;
   for (int i = 0; i < NP; ++i) a.p[i] = static_cast<T>(params[i]);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      stream_kernel<L, NP, Point>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::SMEM);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // the attribute belongs to a device: set it once on each device the
+  // kernel launches on (the caller makes the launch's device current), as
+  // the self-test does (csrc/selftest.cu)
+  static bool smem_set[64] = {};
+  int dev = 0;
+  const cudaError_t cur = cudaGetDevice(&dev);
+  if (cur != cudaSuccess) return static_cast<int>(cur);
+  if (dev < 0 || dev >= 64)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (!smem_set[dev]) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        stream_kernel<L, NP, Point>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    smem_set[dev] = true;
+  }
   const dim3 grid((n[2] + L::TZ - 1) / L::TZ, (n[1] + L::TY - 1) / L::TY,
                   (n[0] + tx - 1) / tx);
   stream_kernel<L, NP, Point><<<grid, dim3(L::TZ, L::TY / L::PY), L::SMEM,

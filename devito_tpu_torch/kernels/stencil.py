@@ -110,8 +110,11 @@ class StencilPlan:
     """
 
     def __init__(self, eq, groups, param_names, design, reason, staged,
-                 centre, radii, tile, storage):
+                 centre, radii, tile, storage, space=None):
         self.eq = eq
+        # each row's halo'd extent per space axis: the function's own, or
+        # a shard's local layout (parallel/halo.py ShardedRunner.local_space)
+        self.space = space or _own_space
         self.storage = storage
         self.narrow = any(s in (torch.bfloat16, torch.float16)
                           for s in storage)
@@ -144,7 +147,7 @@ class StencilPlan:
             self._rows = [0] + [1 + k for k in staged + centre]
             fns = [eq.target] + [g['fn'] for g in groups]
             self._dims = (ctypes.c_longlong * (3 * n))(*[
-                d for r in self._rows for d in fns[r]._allocated_space()])
+                d for r in self._rows for d in self.space(fns[r])])
             self._org = (ctypes.c_int * (3 * n))(*[
                 o for r in self._rows for o in self.origins[r]])
 
@@ -161,7 +164,11 @@ def _origin(eq, fn):
                  in zip(eq.region, fn.halo, fn.origin_offset))
 
 
-def plan_for(eq, storage=None, _design=None, _tile=None):
+def _own_space(fn):
+    return fn._allocated_space()
+
+
+def plan_for(eq, storage=None, _design=None, _tile=None, space=None):
     """A StencilPlan for a lowered dense equation, or None (logged and
     counted in ``declines``) when the kernel cannot take it. The decision,
     and the choice of design, rest on the equation's shape and on
@@ -170,9 +177,11 @@ def plan_for(eq, storage=None, _design=None, _tile=None):
     backend's rested on the shape and dtypes. ``_design`` ('point') and
     ``_tile`` (a (TY, TZ, PY, STAGES, TX) tuple for ``stream_tile``)
     override the choice: chip_smoke.py's comparisons and tile sweep use
-    them; nothing else does."""
+    them; nothing else does. ``space`` (a function's halo'd extent per
+    space axis, default its ``_allocated_space``) plans for other rows: a
+    shard's (parallel/halo.py)."""
     global declines
-    plan, reason = _plan_or_reason(eq, storage, _design, _tile)
+    plan, reason = _plan_or_reason(eq, storage, _design, _tile, space)
     if plan is None:
         declines += 1
         debug(f"stencil kernel: {eq} runs in the torch translator ({reason})")
@@ -190,9 +199,10 @@ def decline_reason(eq):
     return None if plan is not None else reason
 
 
-def _plan_or_reason(eq, storage=None, _design=None, _tile=None):
+def _plan_or_reason(eq, storage=None, _design=None, _tile=None, space=None):
     """``(plan, design_reason)``, or ``(None, why the kernel declines
     eq)``."""
+    space = space or _own_space
     fn = eq.target
     if fn.grid is None:
         return None, "target has no grid"
@@ -208,7 +218,7 @@ def _plan_or_reason(eq, storage=None, _design=None, _tile=None):
     if np.dtype(fn.dtype) not in _CTYPE:
         return None, f"dtype {np.dtype(fn.dtype)}"
     for (s, e), (hl, hr), oo, n in zip(eq.region, fn.halo, fn.origin_offset,
-                                        fn._allocated_space()):
+                                        space(fn)):
         if hl + s - oo < 0 or hl + e - oo > n:
             return None, f"{fn.name}'s region {eq.region} writes outside " \
                 f"its allocation"
@@ -237,8 +247,7 @@ def _plan_or_reason(eq, storage=None, _design=None, _tile=None):
             # would see other threads' new values
             return None, "reads its own written row"
         for (s, e), (hl, hr), oo, o, n in zip(
-                eq.region, f.halo, f.origin_offset, offs,
-                f._allocated_space()):
+                eq.region, f.halo, f.origin_offset, offs, space(f)):
             if hl + s - oo + o < 0 or hl + e - oo + o > n:
                 return None, f"{a} reads outside its allocation"
         groups.setdefault(_access_key(a), {'fn': f, 'tk': tk, 'toff': toff,
@@ -272,7 +281,7 @@ def _plan_or_reason(eq, storage=None, _design=None, _tile=None):
         rows)
     try:
         plan = StencilPlan(eq, groups, param_names, design, reason, staged,
-                           centre, radii, tile, rows)
+                           centre, radii, tile, rows, space)
     except CompilationError as e:
         return None, str(e)
     return plan, reason
@@ -604,9 +613,9 @@ def _check_rows(plan, rows):
         if r.device != out.device:
             raise ValueError(f"row of {f.name} is on {r.device}, the "
                              f"target on {out.device}")
-        if tuple(r.shape) != tuple(f._allocated_space()):
+        if tuple(r.shape) != tuple(plan.space(f)):
             raise ValueError(f"row of {f.name} has shape {tuple(r.shape)}; "
-                             f"expected {f._allocated_space()}")
+                             f"expected {plan.space(f)}")
         if not r.is_contiguous():
             raise ValueError(f"row of {f.name} is not contiguous")
 

@@ -24,9 +24,19 @@ profiling (``profiling='measured'``, ``profile-dir``): the loop runs under
 torch.profiler and each section gets its device time from the trace
 (operator/trace_profile.py). The log line gives the share of the device
 memory roofline of the card's arch.py row. An Operator pickles: the
-runner, its kernel plans, the bounded runners and the streaming plan are
-left out and built again when it is unpickled, from the same units
-(kernels/_nvcc.py keys).
+runner, its kernel plans, the bounded runners, the sharded runner and the
+streaming plan are left out and built again when it is unpickled, from the
+same units (kernels/_nvcc.py keys).
+
+On a distributed Grid (``Grid(topology=...)``) ``apply`` runs the
+schedule sharded (parallel/halo.py ``ShardedRunner``, built at the first
+apply, ``_halo_runner_for``): the shards are cut from the functions' whole
+tensors, the local schedule runs on every shard with the halo exchange
+between them, and the shards' interiors are written back. A schedule
+``explicit_halo_eligible`` rejects runs gathered under
+``configuration['halo'] = 'auto'`` (the unsharded runner on the whole
+tensors; the reason is logged and kept in ``halo_decline``, the applies
+counted in ``gathered_applies``) and raises under 'explicit'.
 """
 
 import copy as _copy
@@ -171,7 +181,7 @@ class Operator:
     def __getstate__(self):
         state = dict(self.__dict__)
         for k in ('_runner', '_bounded_cache', '_stream_plan',
-                  '_stream_first', '_stream_log'):
+                  '_stream_first', '_stream_log', '_halo_runner'):
             state.pop(k, None)
         return state
 
@@ -729,7 +739,11 @@ class Operator:
         ``layers=True``, ``{'device': ..., 'host': ...}`` under this
         configuration's streaming plan: a streamed function holds its
         window's rows on the device and its whole history on the host."""
+        from ..parallel.halo import partitions, local_space
         plan = self._plan_streaming(dict(self._reads))
+        grid = self._grid
+        dist = grid.distributor if grid is not None else None
+        parts = partitions(grid) if dist is not None else {}
         device = host = 0
         for fn in self._reads.values():
             shape = fn.shape_allocated
@@ -738,10 +752,21 @@ class Operator:
                 row = int(np.prod(shape[1:])) * fn.dtype.itemsize
                 device += row * plan['rows']
                 host += nbytes
+                shape = (plan['rows'],) + tuple(shape[1:])
             else:
                 device += nbytes
             if fn.is_SparseFunction:
                 device += fn._coords_host.nbytes
+            if dist is not None:
+                # a sharded apply holds every shard's tensor besides the
+                # whole one: a grid function's local layout a shard, a
+                # replicated one's copy on every shard but the first
+                if fn.is_SparseFunction or fn.grid is None:
+                    device += nbytes * (dist.nprocs - 1)
+                else:
+                    lead = tuple(shape[:len(shape) - len(fn.halo)])
+                    device += dist.nprocs * fn.dtype.itemsize * int(
+                        np.prod(lead + local_space(fn, parts)))
         if layers:
             return {'device': device, 'host': host}
         return device
@@ -810,6 +835,38 @@ class Operator:
 
     # -- execution -----------------------------------------------------------
 
+    def _halo_runner_for(self):
+        """The ShardedRunner of this Operator on a distributed Grid, built
+        at the first call, or None: no distributed Grid, or a schedule
+        ``explicit_halo_eligible`` rejects under ``halo='auto'``, which
+        then runs gathered (the reason logged, kept in ``halo_decline``);
+        under ``halo='explicit'`` such a schedule raises InvalidArgument
+        (devito_tpu: operator.py:1221-1240)."""
+        if getattr(self, '_halo_runner', '?') != '?':
+            return self._halo_runner
+        runner = None
+        self.halo_decline = None
+        grid = self._grid
+        if grid is not None and grid.distributor is not None:
+            from ..parallel.halo import explicit_halo_reason, ShardedRunner
+            why = explicit_halo_reason(self)
+            if why is None:
+                runner = ShardedRunner(self)
+                log_perf(f"Operator `{self._name}`: explicit halo exchange "
+                         f"over the mesh {grid.distributor.topology}")
+            elif configuration['halo'] == 'explicit':
+                raise InvalidArgument(
+                    f"halo='explicit' requested but the schedule of "
+                    f"`{self._name}` is not eligible for the explicit halo "
+                    f"path: {why}")
+            else:
+                self.halo_decline = why
+                log_perf(f"Operator `{self._name}`: runs gathered on the "
+                         f"whole tensors ({why})")
+        self._halo_runner = runner
+        return runner
+
+
     def apply(self, **kwargs):
         """Run the time loop; returns a PerformanceSummary. On CUDA the
         time is measured with CUDA events around the loop.
@@ -839,6 +896,14 @@ class Operator:
             self._autotuned = True
         bufs, params, time_m, time_M, bound, sbounds = self._prepare(kwargs)
         runner = self._bounded_runner(sbounds) if sbounds else self._runner
+        hr = self._halo_runner_for()
+        if hr is not None and sbounds:
+            log_perf(f"Operator `{self._name}`: spatial bounds {sbounds} run "
+                     f"gathered on the whole tensors")
+            hr = None
+        if hr is None and self._grid is not None and \
+                self._grid.distributor is not None:
+            self.gathered_applies = getattr(self, 'gathered_applies', 0) + 1
         device = next(iter(bufs.values())).device if bufs else \
             torch.device('cpu')
         on_cuda = device.type == 'cuda'
@@ -857,7 +922,7 @@ class Operator:
         plan = self._stream_plan
         if plan is not None:
             elapsed = self._apply_streamed(plan, bufs, params, time_m,
-                                           time_M, bound, runner)
+                                           time_M, bound, runner, hr)
             summary.add('section0', elapsed, flops=flops, points=points,
                         traffic=traffic)
             summary.add_glb(elapsed, flops=flops, points=points,
@@ -878,14 +943,21 @@ class Operator:
         self._measured_cats = None
         self._measured_secs, self._measured_other = None, 0.0
         self._measured_unattributed = 0
+        loop_bufs, sync = bufs, None
+        if hr is not None:
+            # the shards, cut from the whole tensors; their interiors are
+            # written back below
+            loop_bufs, runner = hr.prepare_buffers(bufs), hr.runner
+            sync = hr.synchronize
+            copies0, bytes0 = hr.exchange['copies'], hr.exchange['bytes']
         if trace_dir:
             from torch.profiler import profile, ProfilerActivity
             acts = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if on_cuda else [])
             with profile(activities=acts) as prof:
-                elapsed, halted = self._timed_loop(runner, bufs, params,
+                elapsed, halted = self._timed_loop(runner, loop_bufs, params,
                                                    time_m, time_M, on_cuda,
-                                                   tags=True)
+                                                   tags=True, sync=sync)
             os.makedirs(trace_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(
                 trace_dir, f'{self._name}.{_time.time_ns()}.pt.trace.json'))
@@ -894,8 +966,22 @@ class Operator:
             if tmp:
                 shutil.rmtree(tmp, ignore_errors=True)
         else:
-            elapsed, halted = self._timed_loop(runner, bufs, params, time_m,
-                                               time_M, on_cuda)
+            elapsed, halted = self._timed_loop(runner, loop_bufs, params,
+                                               time_m, time_M, on_cuda,
+                                               sync=sync)
+        if hr is not None:
+            for name in self._writes:
+                hr.restore(name, [b[name] for b in loop_bufs], bufs[name])
+            self.last_exchange = {
+                'copies': hr.exchange['copies'] - copies0,
+                'bytes': hr.exchange['bytes'] - bytes0}
+            del loop_bufs
+            log_perf(f"Operator `{self._name}`: sharded over the mesh "
+                     f"{self._grid.distributor.topology} "
+                     f"({len(hr.shards)} shards on "
+                     f"{sorted({str(sh.device) for sh in hr.shards})}); the "
+                     f"exchange moved {self.last_exchange['bytes']} bytes in "
+                     f"{self.last_exchange['copies']} copies")
 
         # the tensors were updated in place: the device copy is now the
         # authoritative one
@@ -929,13 +1015,16 @@ class Operator:
 
     @staticmethod
     def _timed_loop(runner, bufs, params, time_m, time_M, on_cuda,
-                    tags=False):
+                    tags=False, sync=None):
         """``runner``'s loop over ``[time_m, time_M]``: (its seconds, CUDA
         events around it on the card, the host clock elsewhere; the step
-        whose stability check failed, or None)."""
+        whose stability check failed, or None). ``sync``, if given, runs
+        before the closing stamp: a sharded run's other devices finish."""
         a = _stamp(on_cuda)
         halted = runner(bufs, params, time_m, time_M, tags=True) if tags \
             else runner(bufs, params, time_m, time_M)
+        if sync is not None:
+            sync()
         b = _stamp(on_cuda)
         if on_cuda:
             b.synchronize()
@@ -959,7 +1048,7 @@ class Operator:
         self._measured_cats = categorize_ops(device_op_durations(trace_dir))
 
     def _apply_streamed(self, plan, bufs, params, time_m, time_M, bound,
-                        runner):
+                        runner, hr=None):
         """The chunked time loop of a streaming plan (reference:
         operator.py:848-914): K steps a chunk, in reverse chunk order when
         the schedule runs backward, each chunk's windows filled with its
@@ -973,11 +1062,18 @@ class Operator:
         steps and the ms and bytes of its host-to-staging, staging-to-
         device, compute, device-to-staging and staging-to-host parts
         ('h2s', 's2d', 'compute', 'd2s', 's2h'; 'pin' where it allocated
-        the staging tensor)."""
+        the staging tensor).
+
+        With ``hr`` (a ShardedRunner; devito_tpu: operator.py:849-913)
+        the chunks run sharded: the shards are cut once, each chunk's
+        windows are cut into them afresh and written back from them before
+        they go to the host, and the other shards carry from chunk to
+        chunk until they are written back at the end."""
         names = plan['fns']
         on_cuda = next(iter(names.values())).device.type == 'cuda'
         spans = []
         halted = None
+        sbufs = hr.prepare_buffers(bufs) if hr is not None else None
         try:
             for i, (c0, c1) in enumerate(self._stream_chunks(
                     plan, time_m, time_M)):
@@ -989,12 +1085,23 @@ class Operator:
                         bufs[name] = fn._device_window(
                             base, base + plan['rows'], out=bufs[name],
                             split=split)
+                        if hr is not None:
+                            for b, t in zip(sbufs,
+                                            hr.convert(name, bufs[name])):
+                                b[name] = t
                     params2[f'__save_base_{name}__'] = base
                 a = _stamp(on_cuda)
-                halted = runner(bufs, params2, c0, c1)
+                if hr is not None:
+                    halted = hr.runner(sbufs, params2, c0, c1)
+                    hr.synchronize()
+                else:
+                    halted = runner(bufs, params2, c0, c1)
                 split.append(('compute', a, _stamp(on_cuda), 0))
                 for name, fn in names.items():
                     if name in self._writes:
+                        if hr is not None:
+                            hr.restore(name, [b[name] for b in sbufs],
+                                       bufs[name])
                         fn._absorb_window(bufs[name], base, split=split)
                 spans.append(((c0, c1), split))
                 if halted is not None:
@@ -1014,6 +1121,8 @@ class Operator:
             self._stream_log.append(row)
         for name in self._writes:
             if name not in names:
+                if hr is not None:
+                    hr.restore(name, [b[name] for b in sbufs], bufs[name])
                 bound[name]._set_device_array(bufs[name])
         if halted is not None:
             raise ExecutionError(

@@ -8,7 +8,9 @@ under ``torch.profiler`` with the executor tagging each body item with a
 the directory; this module reads it back.
 
 Device events are the GPU kernels, memory copies and memsets of the trace.
-A device event belongs to the ``dtpu_secN`` range that encloses it: the
+A device event belongs to the ``dtpu_secN`` range that encloses it (or to
+``dtpu_exchange``, the range of a sharded run's halo exchange markers,
+parallel/halo.py): the
 ``gpu_user_annotation`` range torch.profiler draws on the device's
 timeline, or else the CPU ``user_annotation`` range that holds the
 runtime call which launched it, found by the two events' ``correlation``.
@@ -33,7 +35,7 @@ import re
 from collections import OrderedDict
 
 __all__ = ['device_events', 'device_op_durations', 'section_durations',
-           'attribute', 'categorize_ops', 'CATEGORIES']
+           'attribute', 'section_events', 'categorize_ops', 'CATEGORIES']
 
 #: category -> lower-case substrings of a device event's name, tried in
 #: this order (an index kernel is named ``index_elementwise_kernel``, a
@@ -51,7 +53,7 @@ CATEGORIES = OrderedDict([
 _DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 #: Host events that launch device work.
 _LAUNCH_CATS = ('cuda_runtime', 'cuda_driver')
-_TAG = re.compile(r'^dtpu_sec\d+$')
+_TAG = re.compile(r'^dtpu_(sec\d+|exchange)$')
 
 
 def _category(name):
@@ -128,13 +130,13 @@ def _enclosing(ranges, key, a, b):
     return None if best is None else best[1]
 
 
-def attribute(trace_dir):
-    """Each device event of the newest trace under ``trace_dir`` given to
-    its section (see the module's docstring): ``{'sections': {'dtpu_secN':
-    seconds}, 'other': seconds outside every section, unattributed ones
-    included, 'unattributed': their count, 'unattributed_s': their
-    seconds, 'events': the device events' count}``, or None when there is
-    no device event."""
+def section_events(trace_dir):
+    """Each device event of the newest trace under ``trace_dir`` with its
+    section: ``[(section or None, category, start us, end us, stream,
+    unattributed)]`` (section None: outside every section, or
+    unattributed: no range holds it and no correlation links it to its
+    launch), or None when there is no device event. The stream is the
+    trace's thread of the event."""
     evs = _trace_events(trace_dir)
     if evs is None:
         return None
@@ -149,27 +151,45 @@ def attribute(trace_dir):
         if e.get('ph') == 'X' and e.get('cat') in _LAUNCH_CATS and \
                 corr is not None:
             launch[corr] = e
-    secs, other, lost, lost_s = {}, 0.0, 0, 0.0
+    out = []
     for e in dev:
         a = float(e['ts'])
         b = a + float(e['dur'])
-        secs_ = float(e['dur']) * 1e-6
         name = _enclosing(gpu, (e.get('pid'), e.get('tid')), a, b)
+        lost = False
         if name is None:
             r = launch.get((e.get('args') or {}).get('correlation'))
             if r is None:
-                lost += 1
-                lost_s += secs_
-                other += secs_
-                continue
-            t = float(r['ts'])
-            name = _enclosing(cpu, (r.get('pid'), r.get('tid')), t, t)
+                lost = True
+            else:
+                t = float(r['ts'])
+                name = _enclosing(cpu, (r.get('pid'), r.get('tid')), t, t)
+        out.append((name, _category(e['name']), a, b, e.get('tid'), lost))
+    return out
+
+
+def attribute(trace_dir):
+    """Each device event of the newest trace under ``trace_dir`` given to
+    its section (see the module's docstring): ``{'sections': {'dtpu_secN':
+    seconds}, 'other': seconds outside every section, unattributed ones
+    included, 'unattributed': their count, 'unattributed_s': their
+    seconds, 'events': the device events' count}``, or None when there is
+    no device event."""
+    evs = section_events(trace_dir)
+    if evs is None:
+        return None
+    secs, other, lost, lost_s = {}, 0.0, 0, 0.0
+    for name, _, a, b, _, unattributed in evs:
+        secs_ = (b - a) * 1e-6
+        if unattributed:
+            lost += 1
+            lost_s += secs_
         if name is None:
             other += secs_
         else:
             secs[name] = secs.get(name, 0.0) + secs_
     return {'sections': secs, 'other': other, 'unattributed': lost,
-            'unattributed_s': lost_s, 'events': len(dev)}
+            'unattributed_s': lost_s, 'events': len(evs)}
 
 
 def section_durations(trace_dir):

@@ -26,15 +26,21 @@ class Parameters(dict):
         self._accepted = {}
         self._callbacks = {}
         self._defaults = {}
+        self._refused = {}
 
-    def add(self, key, default, accepted=None, callback=None):
+    def add(self, key, default, accepted=None, callback=None, refused=None):
         self._accepted[key] = accepted
         self._defaults[key] = default
         if callback is not None:
             self._callbacks[key] = callback
+        if refused:
+            self._refused[key] = refused
         self[key] = default
 
     def __setitem__(self, key, value):
+        why = self._refused.get(key, {}).get(value)
+        if why is not None:
+            raise InvalidArgument(f"{key}={value!r} is not supported: {why}")
         accepted = self._accepted.get(key)
         if accepted is not None and value not in accepted:
             raise InvalidArgument(
@@ -83,6 +89,21 @@ configuration.add('profiling', 'basic',
 # A directory: apply's loop runs under torch.profiler and its Chrome trace
 # is written there (it opens in Perfetto).
 configuration.add('profile-dir', None)
+# Multi-device runs (parallel/halo.py): 'auto' runs a schedule on the
+# explicit halo path when explicit_halo_eligible allows it and gathered
+# (the shards' interiors joined on the mesh's first device, the unsharded
+# runner there, the result scattered back) otherwise; 'explicit' raises
+# InvalidArgument for an ineligible schedule. devito_tpu's third value,
+# 'gspmd', names XLA's SPMD partitioner, which has no counterpart here.
+configuration.add('halo', 'auto', accepted=['auto', 'explicit'], refused={
+    'gspmd': "XLA's SPMD partitioner has no counterpart in devito_tpu_torch "
+             "(ROADMAP.md, 'Do not port': the GSPMD fallback runner); "
+             "halo='auto' runs an ineligible schedule gathered instead"})
+# The shards of a distributed Grid's mesh (parallel/distributor.py): None
+# puts one on each visible device of `device`; an integer N makes N,
+# placed in turn on those devices (on the CPU all on 'cpu'), as XLA's
+# virtual device count makes N devices of one host.
+configuration.add('mesh-devices', None)
 
 _ENV_MAP = {
     'DEVITO_TPU_TORCH_LOG_LEVEL': 'log-level',
@@ -97,10 +118,12 @@ _ENV_MAP = {
     'DEVITO_TPU_TORCH_SAVE_BUDGET': 'save-budget',
     'DEVITO_TPU_TORCH_PROFILING': 'profiling',
     'DEVITO_TPU_TORCH_PROFILE_DIR': 'profile-dir',
+    'DEVITO_TPU_TORCH_HALO': 'halo',
+    'DEVITO_TPU_TORCH_MESH_DEVICES': 'mesh-devices',
 }
 
 #: Keys whose environment value is a count of bytes.
-_INT_KEYS = ('save-budget',)
+_INT_KEYS = ('save-budget', 'mesh-devices')
 
 
 def init_configuration():

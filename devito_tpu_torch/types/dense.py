@@ -25,6 +25,13 @@ A ``save=nt`` TimeFunction may be host-streamed (Operator.
 _apply_streamed): an apply holds only a window of its rows on the device
 (``_device_window``, ``_absorb_window``), the rows passing through a
 staging tensor, pinned on the card; the host copy is then authoritative.
+
+On a distributed Grid the tensor stays whole (parallel/halo.py cuts the
+shards from it for an apply and writes them back), and once an apply has
+written it ``.data`` is the global-indexing ``Data`` view over it
+(data.py) rather than a host copy. ``halo_state`` says what the halo holds
+('zero', 'edge' after ``pad_outer_halo``, 'dirty' once ``data_with_halo``
+was handed out), which decides whether a shard can rebuild it.
 """
 
 import time as _time
@@ -182,6 +189,8 @@ class DiscreteFunction(AbstractFunction):
         cls._coh = cls._HOST
         # the device tensor's dtype when narrower than the compute dtype
         cls._storage = None
+        # what the halo holds: 'zero', 'edge' or 'dirty' (halo_state)
+        cls._halo_state = 'zero'
 
     @staticmethod
     def _normalize_staggered(staggered, dims):
@@ -453,15 +462,35 @@ class DiscreteFunction(AbstractFunction):
     @property
     def data(self):
         """Writable numpy view over the domain region (host becomes
-        authoritative)."""
+        authoritative); for a function of a distributed Grid whose device
+        tensor is authoritative, the global-indexing ``Data`` view over it
+        (devito_tpu: types/dense.py:495-511)."""
+        cls = type(self)
+        grid = cls._grid
+        if cls._coh == self._DEV and cls._dev_buf is not None and \
+                not self.is_SparseFunction and grid is not None and \
+                grid.distributor is not None:
+            from ..data import Data
+            return Data(self)
         return self._domain_view(self._ensure_host())
 
     @property
     def data_with_halo(self):
         buf = self._ensure_host()
+        # the user may write anything into the halo through this view: a
+        # shard can no longer rebuild it from the exchange and edge rules
+        # (parallel/halo.py explicit_halo_eligible)
+        type(self)._halo_state = 'dirty'
         # trim the row padding
         sl = tuple(slice(0, n) for n in self.shape_with_halo)
         return buf[sl]
+
+    @property
+    def halo_state(self):
+        """What the halo provably holds: 'zero' (never written), 'edge'
+        (``pad_outer_halo``'s edge values) or 'dirty' (the user's, through
+        ``data_with_halo``)."""
+        return type(self)._halo_state
 
     def pad_outer_halo(self):
         """Edge-replicate the domain data into the outer halo ring
@@ -469,6 +498,8 @@ class DiscreteFunction(AbstractFunction):
         physical parameters near the boundary see edge values, not
         zeros)."""
         buf = self._ensure_host()
+        if type(self)._halo_state == 'zero':
+            type(self)._halo_state = 'edge'
         lead = len(self._leading_slices())
         for j, (n, (hl, hr)) in enumerate(zip(
                 type(self)._space_shape, type(self)._halo)):

@@ -2,8 +2,9 @@
 
 Reference parity: devito/types/grid.py (Grid:72, SubDomain:566, Interior,
 SubDomainSet:783). The Grid owns the Cartesian domain (shape, extent,
-origin, spacing symbols) and the time/stepping dimensions. Multi-device
-decomposition (``topology=``) is not ported yet (ROADMAP.md, Queue 1).
+origin, spacing symbols) and the time/stepping dimensions. ``topology=``
+(or ``comm=``) decomposes it over a mesh of shards: its ``distributor``
+(parallel/distributor.py).
 """
 
 import numpy as np
@@ -78,12 +79,12 @@ class Grid:
         # machine has none
         self._device = torch_device()
 
-        if comm is not None or topology is not None or \
-                distributor is not None:
-            raise NotImplementedError(
-                "Grid(topology=...) and other multi-device decompositions "
-                "are not ported to devito_tpu_torch yet (ROADMAP.md, "
-                "Queue 1: multi-device)")
+        # the mesh's Distributor (None: one device, unsharded)
+        self._distributor = distributor
+        if distributor is None and (comm is not None or
+                                    topology is not None):
+            from ..parallel.distributor import Distributor
+            self._distributor = Distributor(self, topology=topology)
 
         self._subdomains = [Domain(grid=self), Interior(grid=self)]
         for sd in as_tuple(subdomains):
@@ -93,6 +94,20 @@ class Grid:
     @property
     def shape(self):
         return self._shape
+
+    @property
+    def distributor(self):
+        return self._distributor
+
+    @property
+    def is_distributed(self):
+        return self._distributor is not None
+
+    @property
+    def shape_local(self):
+        if self._distributor is None:
+            return self.shape
+        return self._distributor.shape_local
 
     @property
     def dimensions(self):
@@ -158,18 +173,6 @@ class Grid:
     def device(self):
         """The ``torch.device`` of this grid's functions."""
         return self._device
-
-    @property
-    def distributor(self):
-        return None
-
-    @property
-    def is_distributed(self):
-        return False
-
-    @property
-    def shape_local(self):
-        return self.shape
 
     def __repr__(self):
         return (f"Grid[extent={self.extent}, shape={self.shape}, "

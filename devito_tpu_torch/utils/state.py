@@ -6,7 +6,12 @@ so it also reads the JAX package's functions without importing it, and
 never sees a device-only layout. ``load_numpy_state`` writes such arrays
 into this package's functions, so both packages compute from identical
 state. Precomputed and matrix sparse functions also carry their
-gridpoints, coefficient tables and coupling matrix.
+gridpoints, coefficient tables and coupling matrix. A function's
+``halo_state`` travels with its halo: reading ``data_with_halo`` would
+mark it 'dirty' (a user may write the halo through it), which here only
+copies it, and a distributed run needs to know that the halo is still
+'zero' or 'edge' (parallel/halo.py). A function of a distributed Grid is
+carried as its global array, whole, as any other.
 """
 
 import numpy as np
@@ -37,8 +42,9 @@ def _tables(f):
 
 def numpy_state(functions):
     """{name: copy of ``data_with_halo``} per function, plus
-    ``<name>_coords`` for sparse functions and ``<name>_<table>`` for the
-    tables of precomputed and matrix ones (``_tables``)."""
+    ``<name>_coords`` for sparse functions, ``<name>_<table>`` for the
+    tables of precomputed and matrix ones (``_tables``) and
+    ``<name>_halo_state`` where the function has one."""
     out = {}
     for name, f in _by_name(functions).items():
         if getattr(f, 'is_SparseFunction', False):
@@ -47,7 +53,11 @@ def numpy_state(functions):
             for k, v in _tables(f).items():
                 out[f'{name}_{k}'] = np.array(v)
         else:
+            state = getattr(f, 'halo_state', None)
             out[name] = np.array(f.data_with_halo)
+            if state is not None:
+                type(f)._halo_state = state
+                out[f'{name}_halo_state'] = np.array(state)
     return out
 
 
@@ -72,3 +82,5 @@ def load_numpy_state(functions, arrays):
                 raise ValueError(f"{name}: state of shape {src.shape} for "
                                  f"a view of shape {dst.shape}")
             dst[...] = src.astype(dst.dtype, copy=False)
+        if f'{name}_halo_state' in arrays:
+            type(f)._halo_state = str(arrays[f'{name}_halo_state'])

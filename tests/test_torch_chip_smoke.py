@@ -557,17 +557,21 @@ def test_narrow_close_allows_one_ulp():
 
 
 def test_phase_13_runs_last():
-    """Phase 13 (streaming_phase) is the last phase _smoke drives, after
-    phase 12, and the self-test is checked after it."""
+    """Phase 13 (streaming_phase) runs after phase 12, and phase 14
+    (sharded_phase) after it, the last phase _smoke drives; the self-test
+    is checked after each."""
     import inspect
     src = inspect.getsource(C._smoke)
     calls = [src.index(f'{name}(device') for name in (
-        'inverse', 'tti', 'solvers', 'narrow_phase', 'streaming_phase')]
+        'inverse', 'tti', 'solvers', 'narrow_phase', 'streaming_phase',
+        'sharded_phase')]
     assert calls == sorted(calls)
     assert 'phase 13 ran the self-test again' in src
+    assert 'phase 14 ran the self-test again' in src
     assert src.index('streaming_phase(device') > src.index(
         'narrow_phase(device')
     assert '13. Host streaming' in C.__doc__
+    assert '14. Multi-device through the port' in C.__doc__
 
 
 def test_streaming_phase_runs_on_the_cpu():
@@ -606,3 +610,51 @@ def test_streaming_phase_runs_on_the_cpu():
         m['log_line']
     assert res['platform']['row']['name'] == 'cpu-generic'
     assert record['launches'] == 0
+
+
+P14_SMALL = dict(C.FULL, p14_n=17, fwd_nbl=4, fwd_nrec=8, p14_steps=6,
+                 p14_grad_steps=6, p14_stream_n=12, p14_stream_rows=10,
+                 p14_stream_K=4, p14_gather_n=12, p14_gather_steps=3,
+                 p14_prof_steps=3)
+
+
+def test_sharded_phase_runs_on_the_cpu():
+    """Phase 14 at a small size on the CPU (4 shards on 'cpu', 6 for the
+    uneven (3, 2, 1); 25^3 with nbl 4, uneven on every topology), where
+    no kernel launches: every sharded shot, the gradient, the streamed run
+    and the gathered schedule bit-equal to their unsharded runs, the
+    exchange's copies and bytes equal to the plan's, the one-card branch
+    counted as not run."""
+    from devito_tpu_torch import switchconfig
+    record = {'launches': 0}
+    with switchconfig(device='cpu'):
+        res = C.sharded_phase(torch.device('cpu'), P14_SMALL, record)
+    json.dumps(res)
+    for key in ('(2, 2, 1)', '(4, 1, 1)', 'uneven'):
+        row = res[key]
+        assert row['bit_equal'] and row['rec_err'] == 0
+        assert row['exchange_bytes_per_step'] == row['plan_bytes_per_step']
+        assert all(d['design'] == 'stream' for d in row['designs'])
+    assert res['uneven']['shards'] == 6
+    assert res['(2, 2, 1)']['plan_copies_per_step'] == 8
+    assert res['gradient']['(2, 2, 1)']['bit_equal']
+    assert res['streaming']['bit_equal'] and res['streaming']['chunks'] == 2
+    assert "'dirty'" in res['gathered']['reason']
+    assert res['one_shard_a_card'] == 'not run'
+    assert record['launches'] == 0
+
+
+def test_sharded_phase_fails_loudly_on_a_mismatch(monkeypatch):
+    """A sharded shot that departs from the unsharded one raises."""
+    import devito_tpu_torch.parallel.halo as H
+    restore = H.ShardedRunner.restore
+
+    def off_by_one(self, name, locals_, arr):
+        out = restore(self, name, locals_, arr)
+        if name == 'u':
+            arr[:, 10, 10, 10] += 1.0      # a domain point of every row
+        return out
+    monkeypatch.setattr(H.ShardedRunner, 'restore', off_by_one)
+    from devito_tpu_torch import switchconfig
+    with switchconfig(device='cpu'), pytest.raises(AssertionError):
+        C.sharded_phase(torch.device('cpu'), P14_SMALL, {'launches': 0})

@@ -50,6 +50,9 @@ def test_import_pulls_in_no_jax():
             "import devito_tpu_torch.checkpointing\n"
             "import devito_tpu_torch.arch\n"
             "import devito_tpu_torch.operator.trace_profile\n"
+            "import devito_tpu_torch.parallel, devito_tpu_torch.data\n"
+            "from devito_tpu_torch.parallel import (Distributor, "
+            "redistribute, halo)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'devito_tpu', 'ml_dtypes'))\n"
             "print(bad)\n"

@@ -259,3 +259,48 @@ def test_configuration_keys():
         assert dt.configuration[k] == dj.configuration[k] == v
     with pytest.raises(dt.InvalidArgument):
         dt.configuration['save-streaming'] = 'always'
+
+
+def _sharded_setup(topology):
+    from devito_tpu_torch.parallel.distributor import Distributor
+    s = _setup(st)
+    n = int(np.prod(topology))
+    s.model.grid._distributor = Distributor(
+        s.model.grid, topology=topology, devices=[torch.device('cpu')] * n)
+    return s
+
+
+@pytest.mark.parametrize('topology', [(2, 2), (4, 1)])
+def test_streamed_sharded_matches_resident(topology):
+    """Streaming through the sharded runner (tests/test_streaming.py's
+    sharded cases): each chunk's window is cut into the shards and written
+    back from them; the streamed sharded forward is bit-equal to the
+    port's resident unsharded one, and within 1e-10 x max of devito_tpu's
+    resident forward."""
+    _, rec0, u0, _ = _run(st, grad=False)
+    s = _sharded_setup(topology)
+    with dt.switchconfig(halo='explicit', **{'save-streaming': 'on',
+                                             'save-budget': u0.nbytes // 6}):
+        op = s.op_fwd(True)
+        rec1, u1, _ = s.forward(save=True)
+        assert op._stream_plan is not None and op._halo_runner is not None
+        assert len(op._stream_log) > 1
+    assert np.array_equal(np.array(u1.data), u0)
+    _close(np.array(rec1.data), rec0, 1e-13)
+    _, recj, uj, _ = _run(sj, grad=False)
+    _close(np.array(u1.data), uj)
+    _close(np.array(rec1.data), recj)
+
+
+def test_streamed_sharded_gradient():
+    """The gradient reading a host-streamed save wavefield on the sharded
+    path equals the resident unsharded gradient (fp64, 1e-12 x max)."""
+    *_, g0 = _run(st)
+    s = _sharded_setup((2, 2))
+    with dt.switchconfig(halo='explicit', **{'save-streaming': 'on',
+                                             'save-budget': 400_000}):
+        rec, u, _ = s.forward(save=True)
+        g, _ = s.jacobian_adjoint(rec, u, src=s.geometry.src)
+        assert s.op_grad()._stream_plan is not None
+        assert s.op_grad()._halo_runner is not None
+    _close(np.array(g.data), g0, 1e-12)
