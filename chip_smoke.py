@@ -210,6 +210,30 @@
    to the unsharded run. A host with more than one card would run (1)
    with one shard a card; on one card that branch is logged as not run.
 
+15. devito_tpu's examples through the port (devito_tpu_torch/examples):
+   the phase's K1 units handed to nvcc first (every example, the survey
+   and the overrides lowered on the CPU with apply stubbed out); (1)
+   every example function at devito_tpu's defaults on the card (linalg:
+   its five products), each against the same function run by the port
+   on the CPU in a child process (fp32 within 1e-4 x max, fp64 within
+   1e-10 x max, strings equal), with the facts devito_tpu's tests
+   assert: Black-Scholes against the closed form, the products against
+   numpy, the ABC methods' interior energy under a quarter of the
+   reflecting run's, the FWI objective decreasing; (2) each example's K1
+   launches by design equal to its plans' counts, every applied plan
+   launched, each declined item's reason, no probe kernel; (3)
+   seismic_fwi.run_fwi on a 601^2 survey (nbl 40, SO=4, 4 shots, 151
+   receivers, tn 3000 ms: about 1,620 steps a shot and a 3.0 GB save; 2
+   iterations, the model update's step a tenth of the example's): ms a
+   step of the forward, save-forward and gradient (CUDA events), wall
+   seconds an iteration, peak device memory, the objective decreasing
+   and the first shot's gradient repeated bit-equal; (4) a Born dm of
+   space order 1 into Born's of space order 0 and a written TimeFunction
+   override of a wider halo, each against the CPU's run and bit-equal to
+   the Operator's own layout, the relaid plans' launches counted; (5)
+   with 4 shards on the card, the sharded diffusion and both halo modes
+   ('auto', 'explicit') bit-equal to the unsharded run, 'gspmd' refused.
+
 Every failure raises, and the script exits non-zero. The next-to-last
 lines are the kernel records (one JSON line, a record per kernel, each with
 its time, its plain version's, its bound -- the larger of the bytes its
@@ -217,7 +241,7 @@ result needs (each input point it reads once, each output point written
 once) over 3.35 TB/s and its fp32 operations over 67 TFLOP/s, the H100
 SXM's data-sheet peaks -- the one PyTorch call that computes the same
 function, where there is one, and its launches on its own path and on the
-main path, phases 4, 5 and 9-14, every kernel's count read there; K1's
+main path, phases 4, 5 and 9-15, every kernel's count read there; K1's
 narrow-storage variant has a record of its own) and
 the card's name and power limit; the last line is {"ok": true, "device":
 {...}}.
@@ -311,7 +335,23 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
             p14_topologies=((2, 2, 1), (4, 1, 1)), p14_uneven=(3, 2, 1),
             p14_grad_steps=100, p14_grad_topology=(2, 2, 1),
             p14_stream_n=128, p14_stream_rows=40, p14_stream_K=8,
-            p14_gather_n=256, p14_gather_steps=20, p14_prof_steps=20)
+            p14_gather_n=256, p14_gather_steps=20, p14_prof_steps=20,
+            # phase 15: each example's arguments by 'module.function' (none:
+            # devito_tpu's defaults); the shards of multichip's; the FWI
+            # survey's run_fwi arguments; the Born override's width (+nbl
+            # 20) and tn, the written override's width and steps
+            p15_args={}, p15_shards=4,
+            # (tn 3000 ms: the survey's direct wave crosses its 6 km from
+            # the sources to the receivers in 2.4-2.5 s; at 2000 ms both
+            # records are zero and the objective is 0)
+            # the factor on the example's step (0.05 / max|gradient|): at
+            # this survey the example's own step raises the objective
+            # (PERF.md §5), a tenth of it lowers it
+            p15_fwi=dict(shape=(601, 601), spacing=(10., 10.), nbl=40,
+                         space_order=4, tn=3000., nshots=4, nreceivers=151,
+                         fwi_iterations=2), p15_fwi_step=0.1,
+            p15_born_n=201, p15_born_tn=600., p15_diff_n=512,
+            p15_diff_steps=100)
 #: (name, source, TPU kernel replaced, the part of the kernel's mangled name
 #: that picks its ptxas report out of its unit's) of every kernel, in record
 #: order.
@@ -1101,6 +1141,10 @@ def _smoke(device, sizes):
                                               on_card * cards):
         raise AssertionError("phase 14 ran the self-test again (once a "
                              "card is due)")
+    examples_phase(device, sizes, record)
+    if (K.selftests, K.selftest_launches) != (on_card * cards,
+                                              on_card * cards):
+        raise AssertionError("phase 15 ran the self-test again")
     for rec in records:
         rec.setdefault('library_ms', None)
         rec.setdefault('point_ms', None)
@@ -5600,6 +5644,664 @@ def sharded_phase(device, sizes, record):
     return res
 
 
+# -- phase 15: devito_tpu's examples through the port ------------------------
+
+#: Every example function phase 15 runs, by module of
+#: devito_tpu_torch/examples: each at devito_tpu's defaults (FULL's
+#: ``p15_args`` may give smaller arguments), multichip's with
+#: ``p15_shards`` shards. ``linalg`` runs demo() and the three products
+#: demo() leaves out, on demo()'s matrices (``linalg_products``).
+EXAMPLES = [
+    ('userapi', ('dsl_overview', 'apply_and_arguments', 'subdomains_demo',
+                 'boundary_conditions_demo', 'conditional_dimension_demo',
+                 'sparse_operations_demo', 'staggered_interpolation_demo',
+                 'fd_evaluation_demo')),
+    ('cfd', ('linear_convection', 'diffusion', 'burgers', 'poisson',
+             'nonlinear_convection', 'laplace', 'cavity_flow',
+             'shallow_water', 'darcy_flow')),
+    ('seismic_abc', ('reflecting', 'damping_abc', 'pml_abc', 'habc')),
+    ('seismic_fwi', ('run_fwi',)),
+    ('linalg', ('products',)),
+    ('finance', ('black_scholes',)),
+    ('compiler_tour', ('lowering_tour', 'introspection_tour')),
+    ('multichip', ('sharded_diffusion', 'topologies_demo',
+                   'halo_modes_demo'))]
+#: Example against its plain version on the CPU, x max|plain|, by dtype.
+EX_TOL = {np.dtype(np.float32): 1e-4, np.dtype(np.float64): 1e-10}
+#: The dtype an example computes in where its results are wider: run_fwi's
+#: objective history is a float64 array of fp32 misfits.
+EX_DTYPE = {'seismic_fwi.run_fwi': np.dtype(np.float32)}
+
+
+def linalg_products(n=8):
+    """linalg.demo(n), then transpose_mat_vec, mat_mat and mat_mat_sum on
+    its A, B, C and x, into new outputs: every product of the module."""
+    from devito_tpu_torch.examples import linalg as L
+    A, B, C, D, E, F, x, b = L.demo(n)
+    i, j = A.dimensions
+    k = B.dimensions[1]
+    bt = L.transpose_mat_vec(A, x, L.make_vec('bt', n, i))
+    AB = L.mat_mat(A, B, L.make_mat('AB', (n, n), (i, k)))
+    ABC = L.mat_mat_sum(A, B, C, L.make_mat('ABC', (n, n), (i, k)))
+    return A, B, C, D, E, F, x, b, bt, AB, ABC
+
+
+def flat(out, key='', acc=None):
+    """{key: ndarray, int or str} of an example's result: each function's
+    data, each array, number and string, by its path in the result; a
+    performance summary (times) is left out, a seismic model gives its
+    velocity."""
+    import sympy
+    acc = {} if acc is None else acc
+    if type(out).__name__ == 'PerformanceSummary':
+        return acc
+    if isinstance(out, dict):
+        for k, v in out.items():
+            flat(v, f'{key}/{k}', acc)
+    elif isinstance(out, (tuple, list)):
+        for i, v in enumerate(out):
+            flat(v, f'{key}/{i}', acc)
+    elif isinstance(out, np.ndarray):
+        acc[key] = out.copy()
+    elif hasattr(out, 'vp') and hasattr(out, 'grid'):
+        acc[key + '/vp'] = np.array(out.vp.data)
+    elif hasattr(out, 'data') and hasattr(out, 'grid'):
+        acc[key] = np.array(out.data)
+    elif isinstance(out, (bool, int, np.integer)):
+        acc[key] = int(out)
+    elif isinstance(out, (float, np.floating)):
+        acc[key] = np.array(out)
+    elif isinstance(out, (str, sympy.Basic)):
+        acc[key] = str(out)
+    return acc
+
+
+def run_example(mod, name, kwargs, shards):
+    """The example ``mod.name(**kwargs)`` on the configured device,
+    flattened (``flat``); multichip's with ``shards`` shards."""
+    from devito_tpu_torch import switchconfig
+    m = importlib.import_module(f'devito_tpu_torch.examples.{mod}')
+    fn = linalg_products if (mod, name) == ('linalg', 'products') else \
+        getattr(m, name)
+    with switchconfig(**({'mesh-devices': shards} if mod == 'multichip'
+                         else {})):
+        return flat(fn(**kwargs))
+
+
+def examples_on_cpu(path, spec):
+    """Every example of ``spec`` (JSON: {'args': {name: kwargs}, 'shards':
+    n}) through the port on the CPU, its plain versions, pickled into
+    ``path`` as {'mod.name': flat result}: phase 15's reference, run in a
+    child process beside the card's runs."""
+    import pickle
+    from devito_tpu_torch import switchconfig
+    spec = json.loads(spec)
+    # two threads: the card's process and nvcc share the host's cores
+    torch.set_num_threads(2)
+    out = {}
+    with switchconfig(device='cpu'):
+        for mod, names in EXAMPLES:
+            for name in names:
+                key = f'{mod}.{name}'
+                out[key] = run_example(mod, name, spec['args'].get(key, {}),
+                                       spec['shards'])
+    with open(path, 'wb') as f:
+        pickle.dump(out, f)
+
+
+class built_operators:
+    """The Operators built inside the ``with`` block, in ``ops``, and the
+    number of them applied, in ``applied``."""
+
+    def __enter__(self):
+        from devito_tpu_torch.operator.operator import Operator
+        self.ops, self.ran = [], set()
+        self._saved = init, apply = Operator.__init__, Operator.apply
+        ops, ran = self.ops, self.ran
+
+        def record(op, *a, **k):
+            init(op, *a, **k)
+            ops.append(op)
+
+        def applied(op, **k):
+            ran.add(id(op))
+            return apply(op, **k)
+        Operator.__init__, Operator.apply = record, applied
+        return self
+
+    def __exit__(self, *exc):
+        from devito_tpu_torch.operator.operator import Operator
+        Operator.__init__, Operator.apply = self._saved
+
+    @property
+    def applied(self):
+        return [op for op in self.ops if id(op) in self.ran]
+
+
+def all_plans(op):
+    """Every (eq, plan or None) of ``op``'s runner, of its sharded runner
+    and of the runners it made for overrides of another layout."""
+    out = list(op.kernel_plans)
+    hr = getattr(op, '_halo_runner', None)
+    if hr is not None:
+        out += list(hr.runner.plans)
+    for rel in getattr(op, '_layout_ops', {}).values():
+        out += all_plans(rel)
+    return out
+
+
+def held_example(key, got, want):
+    """The card's flat result against the CPU's: every array within
+    EX_TOL x max|CPU's| of its dtype (EX_DTYPE's where the example names
+    one), every other value equal. Returns the worst ratio of error to
+    tolerance; raises with every value that differs."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{key}: results {sorted(got)} against the "
+                             f"CPU's {sorted(want)}")
+    worst, bad = 0., []
+    for k, g in got.items():
+        w = want[k]
+        if isinstance(w, np.ndarray) and w.dtype.kind == 'f':
+            tol = EX_TOL[EX_DTYPE.get(key, w.dtype)] * max(
+                float(np.abs(w).max()), 1e-30)
+            err = float(np.abs(g - w).max()) if w.size else 0.
+            if not (g.shape == w.shape and g.dtype == w.dtype and
+                    np.isfinite(g).all() and err <= tol):
+                bad.append(f"{k}: {err:.3e} from the CPU's, tolerance "
+                           f"{tol:.3e}")
+            worst = max(worst, err / tol)
+        elif not (np.array_equal(g, w) if isinstance(w, np.ndarray)
+                  else g == w):
+            bad.append(f"{k}: {g!r} against the CPU's {w!r}")
+    if bad:
+        raise AssertionError(f"{key}: " + '; '.join(bad))
+    return worst
+
+
+def example_facts(key, res, kwargs):
+    """What devito_tpu's own example tests assert, on the result ``res`` of
+    the example ``key`` called with ``kwargs``; returns the facts checked,
+    as text."""
+    if key == 'finance.black_scholes':
+        from devito_tpu_torch.examples.finance import call_value_bs
+        v, s_axis, nt = res['/0'], res['/1'], res['/2']
+        sl = slice(20, -20)
+        T = (nt - 1) * kwargs.get('dt0', 0.0005)
+        truth = call_value_bs(s_axis[sl], 100.0, T, 0.12, 0.1)
+        rms = float(np.sqrt(np.mean((truth - v[nt - 1][sl]) ** 2)))
+        if not rms < 0.1:
+            raise AssertionError(f"Black-Scholes: RMS {rms} from the closed "
+                                 f"form")
+        return f"RMS {rms:.4f} from the closed form (< 0.1)"
+    if key == 'linalg.products':
+        A, B, C, D, E, F, x, b, bt, AB, ABC = (
+            res[f'/{i}'].astype(np.float64) for i in range(11))
+        checks = [(b, A @ x), (D, A @ B + A @ C), (F, D @ E), (bt, A.T @ x),
+                  (AB, A @ B), (ABC, A @ B + A @ C)]
+        err = max(float(np.abs(g - w).max() / np.abs(w).max())
+                  for g, w in checks)
+        if not err < 1e-5:
+            raise AssertionError(f"linalg: {err} x max from numpy")
+        return f"six products within {err:.2e} x max of numpy's"
+    if key == 'seismic_fwi.run_fwi':
+        h = res['/0'].ravel()
+        if not (h[1] < h[0] and h[-1] < h[0]):
+            raise AssertionError(f"FWI: the objective {h} does not decrease")
+        return "objective " + ", ".join(f"{v:.6g}" for v in h)
+    return ''
+
+
+def examples_on_card(device, sizes, count, record):
+    """Phase 15 (1) and (2): every example at ``p15_args`` on the card,
+    each with K1's counts at 0 just before it and read just after; its
+    operators' plans and declines; each K1 launch by design, equal to the
+    launches its plans counted; no probe kernel. Returns ({key: flat
+    result}, {key: log row})."""
+    from devito_tpu_torch.kernels import stencil as K
+    from devito_tpu_torch.kernels.stencil import decline_reason
+    results, rows = {}, {}
+    for mod, names in EXAMPLES:
+        for name in names:
+            key = f'{mod}.{name}'
+            tic = time.perf_counter()
+            with built_operators() as b:
+                res, by = count(lambda: run_example(
+                    mod, name, sizes['p15_args'].get(key, {}),
+                    sizes['p15_shards']))
+            wall = time.perf_counter() - tic
+            plans = [pl for op in b.ops for pl in all_plans(op)]
+            planned = sum(p.launches for _, p in plans if p is not None)
+            launches = sum(by.values())
+            # on the card an applied operator with a plan launches K1
+            due = device.type == 'cuda' and any(
+                p is not None for op in b.applied for _, p in all_plans(op))
+            if launches != planned or due != (launches > 0):
+                raise AssertionError(f"{key}: K1 launched {by}, its plans "
+                                     f"count {planned} (due: {due})")
+            declined = {}
+            for eq, p in plans:
+                if p is None:
+                    why = decline_reason(eq)
+                    declined[why] = declined.get(why, 0) + 1
+            results[key] = res
+            rows[key] = dict(wall_s=wall, launches=by, operators=len(b.ops),
+                             plans=sum(p is not None for _, p in plans),
+                             declined=declined,
+                             applied=len(b.applied),
+                             facts=example_facts(
+                                 key, res,
+                                 sizes['p15_args'].get(key, {})))
+            log(f"[p15] {key}: {wall:.2f} s on {device}, {len(b.ops)} "
+                f"operators ({len(b.applied)} applied), "
+                f"{rows[key]['plans']} K1 plans, K1 {by}; "
+                f"declined: " + (', '.join(f'{n} x {w}' for w, n in
+                                           declined.items()) or 'none')
+                + (f"; {rows[key]['facts']}" if rows[key]['facts'] else ''))
+    return results, rows
+
+
+def energy_order(results):
+    """seismic_abc: each treated boundary leaves under a quarter of the
+    reflecting run's interior energy (tests/test_abc_methods.py)."""
+    from devito_tpu_torch.examples.seismic_abc import interior_energy
+
+    class U:
+        def __init__(self, d):
+            self.data = d
+    e = {n: interior_energy(U(results[f'seismic_abc.{n}']['']))
+         for n in ('reflecting', 'damping_abc', 'pml_abc', 'habc')}
+    for n in ('damping_abc', 'pml_abc', 'habc'):
+        if not e[n] < 0.25 * e['reflecting']:
+            raise AssertionError(f"{n}: interior energy {e[n]} against the "
+                                 f"reflecting {e['reflecting']}")
+    log("[p15] seismic_abc interior energy: " + ', '.join(
+        f"{n} {v:.6g}" for n, v in e.items()))
+    return e
+
+
+class fwi_taps:
+    """Inside the ``with`` block: each outermost Operator.apply's loop ms a
+    step, by kind ('forward', 'save-forward', 'gradient'); the wall clock
+    at each model update (``update_with_box``, once an iteration), whose
+    step is scaled by ``step``; and the first gradient repeated twice on
+    fresh functions, bit-equal."""
+
+    def __init__(self, device, step=1.):
+        self.device, self.loops, self.stamps = device, {}, []
+        self.repeat, self.step = None, step
+
+    def __enter__(self):
+        from devito_tpu_torch.operator.operator import Operator
+        from devito_tpu_torch.models.seismic import AcousticWaveSolver
+        from devito_tpu_torch.examples import seismic_fwi as F
+        self._saved = (Operator.apply, AcousticWaveSolver.jacobian_adjoint,
+                       F.update_with_box)
+        apply, jadj, update = self._saved
+        depth = [0]
+        tap = self
+
+        def timed_apply(op, **kw):
+            depth[0] += 1
+            try:
+                summ = apply(op, **kw)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0 and op._schedule.body:
+                tm, tM = op._default_time_bounds()
+                steps = kw.get('time_M', tM) - kw.get('time_m', tm) + 1
+                kind = 'gradient' if op.name == 'Gradient' else \
+                    'save-forward' if op._save_spans else 'forward'
+                ms, n = tap.loops.get(kind, (0., 0))
+                tap.loops[kind] = (ms + summ.globals['fdlike'].time * 1e3,
+                                   n + steps)
+            return summ
+
+        def repeated(solver, rec, u, **kw):
+            if tap.repeat is None:
+                g = [jadj(solver, rec, u, vp=kw.get('vp'))[0] for _ in (0, 1)]
+                a, b = (domain_tensor(x) for x in g)
+                tap.repeat = dict(bit_equal=bool(torch.equal(a, b)),
+                                  max_abs=float(a.abs().max()))
+                del g, a, b
+            return jadj(solver, rec, u, **kw)
+
+        def stamped(vp, alpha, dm, *a, **k):
+            update(vp, alpha * tap.step, dm, *a, **k)
+            sync(tap.device)
+            tap.stamps.append(time.perf_counter())
+        Operator.apply = timed_apply
+        AcousticWaveSolver.jacobian_adjoint = repeated
+        F.update_with_box = stamped
+        return self
+
+    def __exit__(self, *exc):
+        from devito_tpu_torch.operator.operator import Operator
+        from devito_tpu_torch.models.seismic import AcousticWaveSolver
+        from devito_tpu_torch.examples import seismic_fwi as F
+        (Operator.apply, AcousticWaveSolver.jacobian_adjoint,
+         F.update_with_box) = self._saved
+
+
+def fwi_survey(device, sizes, count):
+    """Phase 15 (3): seismic_fwi.run_fwi on ``p15_fwi``'s survey (601^2,
+    4 shots, 151 receivers, 2 iterations at FULL) with its model update's
+    step scaled by ``p15_fwi_step``: loop ms a step of the forward,
+    save-forward and gradient (CUDA events), wall seconds an iteration,
+    peak device memory, K1's launches; the objective must decrease and
+    the first shot's gradient, repeated, must be bit-equal."""
+    from devito_tpu_torch.examples import seismic_fwi as F
+    args = sizes['p15_fwi']
+    tap = fwi_taps(device, sizes['p15_fwi_step'])
+    tic = time.perf_counter()
+    with tap:
+        (hist, model0), by, peak, held = with_peak(
+            lambda: F.run_fwi(**args), count, device)
+    wall = time.perf_counter() - tic
+    hist = np.asarray(hist).ravel()
+    starts = [tic] + tap.stamps[:-1]
+    iters = [b - a for a, b in zip(starts, tap.stamps)]
+    loops = {k: ms / n for k, (ms, n) in tap.loops.items()}
+    steps = {k: n for k, (_, n) in tap.loops.items()}
+    vp = np.array(model0.vp.data)
+    out = dict(args={k: list(v) if isinstance(v, tuple) else v
+                     for k, v in args.items()}, step=tap.step,
+               objective=hist.tolist(), wall_s=wall, iteration_s=iters,
+               ms_per_step=loops, steps=steps, launches=by, peak=peak,
+               held=held, repeat=tap.repeat,
+               save_bytes=None)
+    nt = steps.get('save-forward', 0) // max(args['nshots'] *
+                                             args['fwi_iterations'], 1)
+    shape = model0.grid.shape
+    out['save_bytes'] = int(nt * np.prod(shape) * 4)
+    log(f"[p15-fwi] run_fwi {args}, step x{tap.step:g} of the example's: "
+        f"{nt} steps a shot on {shape} "
+        f"(save {out['save_bytes'] / 1e9:.2f} GB of domain); loop ms a "
+        f"step " + ', '.join(f"{k} {v:.4f}" for k, v in loops.items())
+        + f"; wall {wall:.2f} s, a iteration " + ', '.join(
+            f"{s:.2f}" for s in iters)
+        + f" s; peak device memory "
+        + (f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} held before the run)"
+           if peak is not None else 'not measured')
+        + f"; K1 {by}; objective " + ', '.join(f"{v:.6g}" for v in hist)
+        + f"; first gradient repeated bit-equal {tap.repeat['bit_equal']}")
+    if not (hist[-1] < hist[0] and np.all(np.diff(hist) < 0)):
+        raise AssertionError(f"FWI survey: the objective {hist} does not "
+                             f"decrease")
+    if not (np.isfinite(vp).all() and tap.repeat['bit_equal'] and
+            tap.repeat['max_abs'] > 0):
+        raise AssertionError(f"FWI survey: model finite "
+                             f"{np.isfinite(vp).all()}, repeated gradient "
+                             f"{tap.repeat}")
+    if len(iters) != args['fwi_iterations']:
+        raise AssertionError(f"FWI survey: {len(iters)} iterations timed")
+    return out
+
+
+def born_override(sizes, so, data):
+    """Born's record of a dm of space order ``so`` holding ``data``, on the
+    acoustic solver at ``p15_born_n``^2 + nbl 20, SO=4, fp32; and Born's
+    Operator."""
+    from devito_tpu_torch import Function
+    from devito_tpu_torch.models.seismic import acoustic_setup
+    n = sizes['p15_born_n']
+    s = acoustic_setup(shape=(n, n), spacing=(10., 10.),
+                       tn=sizes['p15_born_tn'], nbl=20, space_order=4)
+    dm = Function(name='dm', grid=s.model.grid, space_order=so)
+    dm.data[:] = data
+    return np.array(s.jacobian(dm)[0].data), s.op_born()
+
+
+def written_override(sizes, so, u0):
+    """``p15_diff_steps`` steps of 2-D diffusion on ``p15_diff_n``^2 by an
+    Operator built for u of space order 2, writing u (``so`` 2) or an
+    override of space order ``so``: its rows, and the Operator."""
+    from devito_tpu_torch import Grid, TimeFunction, Eq, Operator, solve
+    dn, steps = sizes['p15_diff_n'], sizes['p15_diff_steps']
+    g = Grid(shape=(dn, dn), extent=(1., 1.))
+    u = TimeFunction(name='u', grid=g, space_order=2)
+    op = Operator(Eq(u.forward, solve(u.dt - 0.5 * u.laplace, u.forward)))
+    w = u if so == 2 else TimeFunction(name='u', grid=g, space_order=so)
+    w.data[0] = u0
+    op.apply(time_M=steps - 1, dt=0.2 / (dn - 1) ** 2,
+             **({} if w is u else {'u': w}))
+    return np.array(w.data), op
+
+
+def override_runs(device, sizes, count):
+    """Phase 15 (4): overrides of another halo on the card. Born's record
+    of a dm of space order 1 bound to Born's dm of space order 0
+    (``born_override``), and a diffusion that writes a TimeFunction of
+    space order 8 into an Operator built for space order 2
+    (``written_override``): each against the same run on the CPU
+    (RUN_TOL x max) and against the card's run with the Operator's own
+    layout (bit-equal); the relaid plans' launches counted."""
+    from devito_tpu_torch import switchconfig
+    n, dn = sizes['p15_born_n'], sizes['p15_diff_n']
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for label, fn, relaid_so, own_so, data in (
+            ('born dm', born_override, 1, 0,
+             rng.standard_normal((n + 40,) * 2)),
+            ('written u', written_override, 8, 2,
+             rng.standard_normal((dn,) * 2))):
+        (got, op), by = count(lambda: fn(sizes, relaid_so, data))
+        relaid = sum(p.launches for rel in op._layout_ops.values()
+                     for _, p in rel.kernel_plans if p is not None)
+        own, _ = fn(sizes, own_so, data)
+        with switchconfig(device='cpu'):
+            plain, _ = fn(sizes, relaid_so, data)
+        err = float(np.abs(got - plain).max() / np.abs(plain).max())
+        row = dict(launches=by, relaid_launches=relaid,
+                   relayouts=op.relayouts, err=err,
+                   bit_equal_own=bool(np.array_equal(got, own)))
+        log(f"[p15-override] {label}: space order {relaid_so} into "
+            f"{own_so}: {op.relayouts} relaid runner, K1 {by} of which "
+            f"{relaid} on its plans; {err:.3e} x max from the CPU's run; "
+            f"bit-equal to the Operator's own layout: {row['bit_equal_own']}")
+        if not (err <= RUN_TOL[np.float32] and row['bit_equal_own'] and
+                relaid == (device.type == 'cuda') * sum(by.values())):
+            raise AssertionError(f"{label}: {row}")
+        out[label] = row
+    return out
+
+
+def prebuild_examples(device, sizes):
+    """Phase 15's K1 units, handed to nvcc before its runs: every example,
+    the FWI survey and the overrides lowered on the CPU with
+    Operator.apply stubbed out (nothing runs, results are dropped), each
+    new unit submitted to a pool of 8 builds as soon as its Operator is
+    built. The card's runs then wait only for the units they launch, in
+    the order they were submitted. Returns (the units' keys, seconds of
+    lowering,
+    the pool's futures, the pool, the build stamps: the wall clock as
+    each build ends)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch.examples import seismic_fwi as F
+    from devito_tpu_torch.kernels import stencil as K
+    from devito_tpu_torch.operator.operator import Operator
+    from devito_tpu_torch.operator.profiling import PerformanceSummary
+    keys, futs, stamps = set(), [], []
+    pool = ThreadPoolExecutor(8)
+    saved = Operator.__init__, Operator.apply
+
+    def init(op, *a, **k):
+        saved[0](op, *a, **k)
+        for _, p in op.kernel_plans:
+            if p is not None and p.key not in keys:
+                keys.add(p.key)
+                if device.type == 'cuda':
+                    futs.append(pool.submit(K.build, p))
+                    futs[-1].add_done_callback(
+                        lambda f: stamps.append(time.perf_counter()))
+
+    def nothing(op, **k):
+        summ = PerformanceSummary(device='cpu')
+        summ.add_glb(1e-9)
+        return summ
+    tic = time.perf_counter()
+    Operator.__init__, Operator.apply = init, nothing
+    try:
+        with switchconfig(device='cpu'), np.errstate(all='ignore'):
+            for mod, names in EXAMPLES:
+                for name in names:
+                    key = f'{mod}.{name}'
+                    run_example(mod, name, sizes['p15_args'].get(key, {}),
+                                sizes['p15_shards'])
+            F.run_fwi(**sizes['p15_fwi'])
+            n, dn = sizes['p15_born_n'], sizes['p15_diff_n']
+            born_override(sizes, 0, np.zeros((n + 40,) * 2))
+            written_override(sizes, 2, np.zeros((dn,) * 2))
+    finally:
+        Operator.__init__, Operator.apply = saved
+    return keys, time.perf_counter() - tic, futs, pool, stamps
+
+
+def multichip_checks(device, sizes, results, count):
+    """Phase 15 (5): with ``p15_shards`` shards on the card, the sharded
+    diffusion and both halo modes against the unsharded run, to the
+    bit."""
+    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch.examples import multichip as M
+    from devito_tpu_torch.exceptions import InvalidArgument
+    args = sizes['p15_args'].get('multichip.sharded_diffusion', {})
+    (u1, _), by = count(lambda: M.sharded_diffusion(
+        **dict(args, topology=None)))
+    # halo_modes_demo's problem: 64^2, its steps
+    (u20, _), _ = count(lambda: M.sharded_diffusion(
+        shape=(64, 64), topology=None, steps=sizes['p15_args'].get(
+            'multichip.halo_modes_demo', {}).get('steps', 20)))
+    sharded = results['multichip.sharded_diffusion']['/0']
+    modes = results['multichip.halo_modes_demo']
+    out = dict(sharded_bit_equal=bool(np.array_equal(sharded,
+                                                     np.array(u1.data))),
+               auto_bit_equal=bool(np.array_equal(modes['/auto'],
+                                                  np.array(u20.data))),
+               explicit_bit_equal=bool(np.array_equal(modes['/explicit'],
+                                                      np.array(u20.data))),
+               topologies={k: v for k, v in
+                           results['multichip.topologies_demo'].items()})
+    out['refused'] = None
+    try:
+        with switchconfig(halo='gspmd'):
+            pass
+    except InvalidArgument as e:
+        out['refused'] = type(e).__name__
+    log(f"[p15-multichip] {sizes['p15_shards']} shards on {device}: sharded "
+        f"diffusion bit-equal to the unsharded {out['sharded_bit_equal']}; "
+        f"halo 'auto' {out['auto_bit_equal']}, 'explicit' "
+        f"{out['explicit_bit_equal']}; 'gspmd' refused "
+        f"({out['refused']})")
+    if not (out['sharded_bit_equal'] and out['auto_bit_equal'] and
+            out['explicit_bit_equal'] and out['refused']):
+        raise AssertionError(f"multichip: {out}")
+    return out
+
+
+def examples_phase(device, sizes, record):
+    """Phase 15: devito_tpu's examples through the port. Its K1 units are
+    handed to nvcc first (``prebuild_examples``); then a child process
+    runs every example on the CPU (the plain versions) while this one
+    runs (1) every example on ``device``, each held against the CPU's
+    result (EX_TOL x max) and the facts devito_tpu's tests assert, (2)
+    with its K1 launches by design and its declines' reasons; then (3) the
+    601^2 FWI survey, (4) the overrides of another halo and (5) the
+    sharded examples against their unsharded runs. Every drive has K1's
+    counts at 0 just before it and read just after, its launches added to
+    K1's main path. Returns the phase's record (also
+    ``record['phase15']``)."""
+    import pickle
+    import tempfile
+    from devito_tpu_torch.kernels import stencil as K
+    tic0 = time.perf_counter()
+    res = record['phase15'] = {}
+    release(device)
+
+    def count(fn):
+        K.launches = 0
+        K.launches_by_design.update(point=0, stream=0)
+        probe_launches(zero=True)
+        out = fn()
+        sync(device)
+        by = dict(K.launches_by_design)
+        if any(probe_launches().values()):
+            raise AssertionError("phase 15 launched a probe kernel")
+        record['launches'] += K.launches
+        record['launches_main_path'] = record['launches']
+        return out, by
+
+    log(f"[p15] devito_tpu's examples on {device}: "
+        + (smi() if device.type == 'cuda' else 'cpu'))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / 'cpu.pkl')
+        spec = json.dumps({'args': sizes['p15_args'],
+                           'shards': sizes['p15_shards']})
+        child = None
+        try:
+            before = set(K.build_seconds)
+            keys, lower, futs, pool, stamps = prebuild_examples(device,
+                                                                sizes)
+            log(f"[p15-build] {len(keys)} K1 units of the phase lowered in "
+                f"{lower:.2f} s on the CPU, handed to nvcc")
+            # the plain versions, on the CPU beside the card's runs
+            child = subprocess.Popen(
+                [sys.executable, '-c', 'import sys, chip_smoke as C; '
+                 'C.examples_on_cpu(sys.argv[1], sys.argv[2])', path, spec],
+                cwd=str(Path(__file__).resolve().parent))
+            results, res['examples'] = examples_on_card(device, sizes, count,
+                                                        record)
+            res['energy'] = energy_order(results)
+            # the CPU's runs end before the timed survey starts: its loop
+            # is host-paced, and shares no core with them
+            tic = time.perf_counter()
+            rc = child.wait(timeout=900)
+            res['cpu_wait_s'] = time.perf_counter() - tic
+            if rc != 0:
+                raise AssertionError(f"the examples on the CPU exited {rc}")
+            with open(path, 'rb') as f:
+                plain = pickle.load(f)
+            for f in futs:
+                f.result()
+            pool.shutdown()
+            late = [k for k in K.build_seconds
+                    if k not in before and k not in keys]
+            res['build'] = dict(
+                units=len(keys), lower_s=lower, late=len(late),
+                wall_s=(max(stamps) - tic0) if stamps else 0.,
+                nvcc_s=sum(K.build_seconds.get(k, 0.) for k in keys))
+            log(f"[p15-build] the {len(futs)} builds (nvcc "
+                f"{res['build']['nvcc_s']:.2f} s) ended "
+                f"{res['build']['wall_s']:.2f} s into the phase; "
+                f"{len(late)} units built outside them")
+        finally:
+            if child is not None and child.poll() is None:
+                child.kill()
+                child.wait()
+    worst, bad = {}, []
+    for key, got in results.items():
+        try:
+            worst[key] = held_example(key, got, plain[key])
+        except AssertionError as e:
+            bad.append(str(e))
+            continue
+        res['examples'][key]['tol_ratio'] = worst[key]
+    if bad:
+        raise AssertionError("examples on the card against the CPU: "
+                             + ' | '.join(bad))
+    res['worst'] = max(worst.items(), key=lambda kv: kv[1])
+    log(f"[p15] every example on {device} against the CPU: worst "
+        f"{res['worst'][1]:.3e} of its tolerance ({res['worst'][0]}); the "
+        f"CPU's runs kept this process waiting {res['cpu_wait_s']:.1f} s")
+    release(device)
+    res['fwi'] = fwi_survey(device, sizes, count)
+    release(device)
+    res['override'] = override_runs(device, sizes, count)
+    res['multichip'] = multichip_checks(device, sizes, results, count)
+    res['seconds'] = time.perf_counter() - tic0
+    log(f"[p15] phase 15 in {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: "
@@ -5612,7 +6314,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     tic = time.perf_counter()
     kind, records = smoke(torch.device('cuda', 0), FULL)
-    log(f"[smoke] phases 2-14 in {time.perf_counter() - tic:.1f} s")
+    log(f"[smoke] phases 2-15 in {time.perf_counter() - tic:.1f} s")
     print(json.dumps({'kernels': records}))
     print(smi())
     print(json.dumps({'ok': True, 'device': {

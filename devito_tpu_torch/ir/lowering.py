@@ -20,8 +20,8 @@ from ..exceptions import InvalidOperator
 from ..utils import as_tuple, filter_ordered
 
 __all__ = ['LoweredEq', 'LoweredSparse', 'Schedule', 'lower_expressions',
-           'time_access_of', 'space_offsets_of', 'space_index_specs',
-           'estimate_cost']
+           'rebind', 'time_access_of', 'space_offsets_of',
+           'space_index_specs', 'estimate_cost']
 
 
 class LoweredEq:
@@ -112,6 +112,44 @@ class Schedule:
     def all_items(self):
         return self.prologue + self.body + self.epilogue
 
+
+def rebind(schedule, functions):
+    """A copy of ``schedule`` whose items access, in place of each function
+    named in ``functions`` ({name: function}), that function: every access
+    in a right-hand side, a condition, a sampled expression, and each
+    target and injected field. The items are shallow copies, so their
+    regions, time accesses and flags stay; an Operator runs a bound
+    function of another halo on it (``Operator._relaid``). Names, not
+    classes, identify a function: an unpickled schedule's accesses of one
+    function may each have a class of their own."""
+    import copy
+
+    def new(a):
+        return type(functions[a.name])(*a.args)
+
+    def sub(e):
+        if not isinstance(e, sympy.Basic):
+            return e
+        if isinstance(e, AbstractFunction):
+            return new(e) if e.name in functions else e
+        hits = {a: new(a) for a in e.atoms(AbstractFunction)
+                if a.name in functions}
+        return e.xreplace(hits) if hits else e
+
+    def item(it):
+        out = copy.copy(it)
+        for k in ('target', 'rhs', 'condition', 'lhs_access', 'expr',
+                  'field'):
+            if getattr(out, k, None) is not None:
+                setattr(out, k, sub(getattr(out, k)))
+        for k in ('target', 'field'):
+            if getattr(out, k, None) is not None:
+                setattr(out, k, getattr(out, k).function)
+        return out
+
+    return Schedule([item(i) for i in schedule.prologue],
+                    [item(i) for i in schedule.body],
+                    [item(i) for i in schedule.epilogue], schedule.direction)
 
 
 LOOP_TIME = sympy.Symbol('__loop_time__')

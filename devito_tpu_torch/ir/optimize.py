@@ -220,6 +220,7 @@ def _hoist_shifted_transcendentals(schedule, body_dense, body_written,
         existing.add(name)
         temp = Function(name=name, grid=fn.grid, space_order=E,
                         dtype=fn.dtype)
+        type(temp)._hoisted = True
         region = tuple((-E, n + E) for n in fn.grid.shape)
         le = LoweredEq(temp.function, None, None, region, g(fn),
                        time_dep=False)
@@ -299,6 +300,7 @@ def hoist_invariants(schedule, trig_taps=False):
         existing.add(name)
         temp = Function(name=name, grid=grid, space_order=ext,
                         dtype=grid.dtype)
+        type(temp)._hoisted = True
         region = tuple((-ext, n + ext) for n in grid.shape)
         le = LoweredEq(temp.function, None, None, region,
                        cand, time_dep=False)

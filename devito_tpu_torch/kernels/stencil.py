@@ -438,12 +438,23 @@ class _CudaCtx:
         return f'DTPU_LD(g{k}, {" + ".join(terms)})'
 
 
+def _label_name(fn):
+    """``fn``'s name in a unit's comments. A temporary of CIRE or of the
+    hoisting pass is named by its kind alone: the hoisting pass numbers
+    its temporaries from a counter that every lowering advances, and the
+    same equation lowered again must keep its unit's key."""
+    if getattr(fn, '_compiler_temp', False) or getattr(fn, '_hoisted',
+                                                       False):
+        return 'temporary'
+    return fn.name
+
+
 def _unit_label(eq):
     """The equation a unit is generated for, without its region: the
     region reaches the kernel as launch arguments, so one unit serves every
     region of the same equation (spatial apply bounds)."""
     tk = '' if eq.time_off is None else f"[{eq.time_kind}{eq.time_off:+d}]"
-    return f"{eq.target.name}{tk} = ..."
+    return f"{_label_name(eq.target)}{tk} = ..."
 
 
 def _generate(eq, groups, param_names, storage):
@@ -516,7 +527,7 @@ def _generate_stream(plan):
     eq, t = plan.eq, plan.tile
     ctype = _CTYPE[plan.dtype]
     expr = cuda_expr(eq.rhs, _StreamCtx(plan, ctype))
-    names = [', '.join(plan.groups[k]['fn'].name for k in ks) or '-'
+    names = [', '.join(_label_name(plan.groups[k]['fn']) for k in ks) or '-'
              for ks in (plan.staged, plan.centre)]
     rx, ry, rz = plan.radii
     return f"""// Generated for: {_unit_label(eq)}

@@ -28,6 +28,12 @@ runner, its kernel plans, the bounded runners, the sharded runner and the
 streaming plan are left out and built again when it is unpickled, from the
 same units (kernels/_nvcc.py keys).
 
+A function override of another halo than the Operator's function
+(``apply(f=g)``, ``g`` of ``f``'s shape and dtype) runs on a copy of the
+Operator whose schedule accesses ``g``'s function, with a runner planned
+for its layout, built once a layout (``_relaid``); ``ccode`` shows the
+generated code of each item.
+
 On a distributed Grid (``Grid(topology=...)``) ``apply`` runs the
 schedule sharded (parallel/halo.py ``ShardedRunner``, built at the first
 apply, ``_halo_runner_for``): the shards are cut from the functions' whole
@@ -51,7 +57,8 @@ import sympy
 import torch
 
 from ..ir.lowering import (LoweredEq, LoweredSparse, Schedule,
-                           lower_expressions, estimate_cost, time_access_of)
+                           lower_expressions, estimate_cost, time_access_of,
+                           rebind, space_offsets_of)
 from ..compiler.executor import build_runner
 from ..types.basic import AbstractFunction, retrieve_functions
 from ..types.constant import Constant
@@ -110,6 +117,48 @@ def _stepping(fn):
     dims = getattr(fn, 'dimensions', ())
     return bool(getattr(fn, 'is_TimeFunction', False) and dims and
                 dims[0].is_Stepping)
+
+
+def _layout(fn):
+    """What fixes a dense function's addressing in a runner: its halo, its
+    allocated shape and its origin offset."""
+    return (tuple(fn.halo), tuple(fn.shape_allocated),
+            tuple(fn.origin_offset))
+
+
+def _past_halo(schedule, fn):
+    """The first access (or write) of ``fn`` by a dense item of
+    ``schedule`` that reaches past ``fn``'s allocation, as text; None when
+    every one stays inside."""
+    ext = fn._allocated_space()
+
+    def names(f):
+        return [d.root.name if d.is_Derived else d.name
+                for d in f.space_dimensions]
+    for it in schedule.all_items:
+        if not isinstance(it, LoweredEq) or it.target.grid is None:
+            continue
+        accs = [a for a in retrieve_functions(it.rhs)
+                if a.function.name == fn.name]
+        if it.target.name == fn.name:
+            accs.append(it.lhs_access or it.target)
+        for a in accs:
+            if names(a.function) != names(it.target):
+                continue
+            offs = space_offsets_of(a, absolute='zero')
+            for (lo, hi), (hl, _), oo, o, n in zip(
+                    it.region, fn.halo, fn.origin_offset, offs, ext):
+                if hl + lo - oo + o < 0 or hl + hi - oo + o > n:
+                    return f"{a} over the region {it.region}"
+    return None
+
+
+#: The attributes of an Operator that ``_relaid`` builds anew for another
+#: layout; every other attribute is the state of the applies, which the
+#: Operator and its relaid copies share.
+_LAYOUT_STATE = ('_schedule', '_reads', '_writes', '_sparse', '_symbols',
+                 '_grid', '_save_spans', '_runner', '_bounded_cache',
+                 '_halo_runner', 'halo_decline', '_layout_ops')
 
 
 def _scalar(sym, v):
@@ -181,7 +230,8 @@ class Operator:
     def __getstate__(self):
         state = dict(self.__dict__)
         for k in ('_runner', '_bounded_cache', '_stream_plan',
-                  '_stream_first', '_stream_log', '_halo_runner'):
+                  '_stream_first', '_stream_log', '_halo_runner',
+                  '_layout_ops'):
             state.pop(k, None)
         return state
 
@@ -432,6 +482,57 @@ class Operator:
         torch translator."""
         return list(self._runner.plans)
 
+    @property
+    def ccode(self):
+        """The generated code of the Operator, in schedule order, as the
+        reference Devito's ``op.ccode`` shows its C (devito_tpu's
+        counterparts are ``jaxpr``/``hlo``): for each dense item, K1's
+        design and why, then the CUDA translation unit nvcc builds for it
+        (``StencilPlan.source``, with its point expression); for an item K1
+        declines, the reason, and its equation, which the torch translator
+        runs; for each sparse item its path: an interpolation separable
+        (the contraction, operations/separable.py) or gathered, an
+        injection scattered. Built on the host from the plans: it needs no
+        nvcc and no card."""
+        from ..kernels.stencil import decline_reason
+        plans = {id(eq): p for eq, p in self._runner.plans}
+        params = {s.name: float(v) for s, v in (
+            self._grid.spacing_map.items() if self._grid is not None
+            else ())}
+        out = [f"// Operator `{self._name}` (direction="
+               f"{'fwd' if self._schedule.direction > 0 else 'bwd'})"]
+        for sec, items in [('prologue', self._schedule.prologue),
+                           ('time loop', self._schedule.body),
+                           ('epilogue', self._schedule.epilogue)]:
+            for i, it in enumerate(items):
+                out.append(f"// -- {sec}, item {i}: {it!r}")
+                if isinstance(it, LoweredSparse):
+                    out.append(f"//    sparse {it.kind}: "
+                               + self._sparse_path(it, params))
+                    continue
+                plan = plans.get(id(it))
+                if plan is None:
+                    out.append(f"//    K1 declines it ({decline_reason(it)}"
+                               f"); the torch translator runs "
+                               f"{it.target.name} = {it.rhs}")
+                    continue
+                out.append(f"//    K1, {plan.design} design "
+                           f"({plan.design_reason})")
+                out.append(plan.source.rstrip())
+        return "\n".join(out) + "\n"
+
+    def _sparse_path(self, it, params):
+        """How ``apply`` runs the sparse item ``it`` with the sparse
+        function's coordinates as they are."""
+        if it.kind == 'inject':
+            return "scatter-add of each point's corners (index_put_)"
+        if configuration['separable']:
+            from ..operations.separable import separable_geometry
+            if separable_geometry(it.sparse, params) is not None:
+                return ("separable: per-axis contractions of the band the "
+                        "weights touch")
+        return "gather of each point's corners, weighted sum"
+
     def __str__(self):
         lines = [f"Operator `{self._name}` "
                  f"(direction={'fwd' if self._schedule.direction > 0 else 'bwd'})"]
@@ -540,8 +641,8 @@ class Operator:
     def _prepare(self, kwargs):
         kwargs = dict(kwargs)
         # function overrides by name: the override's tensor stands in for
-        # the function's; metadata that fixes the kernels' addressing
-        # (shape, dtype, halo) must match
+        # the function's; its shape and dtype must match (another layout
+        # runs on the Operator ``_relaid`` gives it)
         overrides = {}
         for k in list(kwargs):
             v = kwargs[k]
@@ -553,12 +654,10 @@ class Operator:
             orig = self._reads.get(name)
             if orig is None or orig.is_SparseFunction:
                 continue
-            for what in ('shape', 'halo'):
-                if tuple(getattr(ofn, what)) != tuple(getattr(orig, what)):
-                    raise InvalidArgument(
-                        f"Override `{name}` has {what} "
-                        f"{tuple(getattr(ofn, what))}; the Operator was "
-                        f"built for {tuple(getattr(orig, what))}")
+            if tuple(ofn.shape) != tuple(orig.shape):
+                raise InvalidArgument(
+                    f"Override `{name}` has shape {tuple(ofn.shape)}; the "
+                    f"Operator was built for {tuple(orig.shape)}")
             if np.dtype(ofn.dtype) != np.dtype(orig.dtype):
                 raise InvalidArgument(
                     f"Override `{name}` has dtype {np.dtype(ofn.dtype)}; "
@@ -835,6 +934,61 @@ class Operator:
 
     # -- execution -----------------------------------------------------------
 
+    def _relaid(self, kwargs):
+        """The Operator that runs ``kwargs``' function overrides: this one,
+        or, where an override has the shape and dtype of the function it
+        stands in for but another layout (``_layout``: its halo, as
+        ``solver.jacobian(dm)`` binds a ``dm`` of space order 1 to Born's of
+        space order 0), a copy whose schedule accesses the overrides'
+        functions (ir/lowering.py ``rebind``), with a runner planned for
+        their layouts. It is built once a signature of the layouts, kept in
+        ``_layout_ops``, and logged; ``relayouts`` counts the builds. The
+        Operator's own functions keep its own runner and plans. Its K1
+        plans are made as any plan is: a layout may change a plan's design,
+        and one K1 declines runs in the torch translator with its reason."""
+        relaid = {}
+        for name, v in kwargs.items():
+            orig = self._reads.get(name)
+            if orig is None or orig.is_SparseFunction or not (
+                    isinstance(v, AbstractFunction)):
+                continue
+            fn = v.function
+            if tuple(fn.shape) == tuple(orig.shape) and \
+                    _layout(fn) != _layout(orig):
+                relaid[name] = fn
+        if not relaid:
+            return self
+        key = tuple(sorted((n, _layout(f)) for n, f in relaid.items()))
+        cache = self.__dict__.setdefault('_layout_ops', {})
+        op = cache.get(key)
+        if op is None:
+            sched = rebind(self._schedule, relaid)
+            for n, f in sorted(relaid.items()):
+                why = _past_halo(sched, f)
+                if why is not None:
+                    raise InvalidArgument(
+                        f"Override `{n}` has halo {tuple(f.halo)}: "
+                        f"Operator `{self._name}` reaches past it ({why})")
+            op = _copy.copy(self)
+            for k in ('_halo_runner', 'halo_decline'):
+                op.__dict__.pop(k, None)
+            op._layout_ops = {}
+            op._schedule = sched
+            op._collect()
+            op._runner = build_runner(op._schedule, self._storage,
+                                      self._errctl)
+            op._bounded_cache = {}
+            cache[key] = op
+            self.relayouts = getattr(self, 'relayouts', 0) + 1
+            planned = [p for _, p in op._runner.plans if p is not None]
+            log_perf(f"Operator `{self._name}`: the overrides "
+                     f"{sorted(relaid)} have another layout ("
+                     + ", ".join(f"{n} halo {tuple(f.halo)} against "
+                                 f"{tuple(self._reads[n].halo)}"
+                                 for n, f in sorted(relaid.items()))
+                     + f"); a runner for it, {len(planned)} K1 plans")
+        return op
+
     def _halo_runner_for(self):
         """The ShardedRunner of this Operator on a distributed Grid, built
         at the first call, or None: no distributed Grid, or a schedule
@@ -887,6 +1041,16 @@ class Operator:
         CPU) it warns and keeps the shares of the cost model. The log line
         gives the share of the device's memory roofline (arch.py)."""
         from ..arch import get_platform, roofline_fraction
+        op = self._relaid(kwargs)
+        if op is not self:
+            # the applies' state is shared both ways
+            op.__dict__.update({k: v for k, v in self.__dict__.items()
+                                if k not in _LAYOUT_STATE})
+            try:
+                return op.apply(**kwargs)
+            finally:
+                self.__dict__.update({k: v for k, v in op.__dict__.items()
+                                      if k not in _LAYOUT_STATE})
         autotune = kwargs.pop('autotune', None)
         if autotune is None and configuration['autotuning'] != 'off':
             autotune = configuration['autotuning']

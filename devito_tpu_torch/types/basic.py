@@ -31,6 +31,9 @@ NODE = 'node'
 CELL = 'cell'
 
 _symbol_cache = {}
+#: The class flags of a compiler temporary: CIRE's (ir/cire.py) and the
+#: hoisting pass's (ir/optimize.py).
+_TEMP_FLAGS = ('_compiler_temp', '_hoisted')
 
 
 class AbstractFunction(Differentiable, sympy.Function):
@@ -260,6 +263,10 @@ class AbstractFunction(Differentiable, sympy.Function):
             state['halo_state'] = getattr(cls, '_halo_state', 'zero')
         if getattr(cls, '_coords_host', None) is not None:
             state['coords'] = cls._coords_host
+        # a compiler temporary stays one: its kernel units keep their keys
+        for flag in _TEMP_FLAGS:
+            if getattr(cls, flag, False):
+                state[flag] = True
         return (_reconstruct_function,
                 (type(self).__bases__[0], meta, tuple(self.args)),
                 state or None)
@@ -269,6 +276,9 @@ class AbstractFunction(Differentiable, sympy.Function):
         if not state:
             return
         cls = type(self)
+        for flag in _TEMP_FLAGS:
+            if state.get(flag):
+                setattr(cls, flag, True)
         buf = state.get('host_buf')
         if buf is not None and hasattr(self, '_allocate') and \
                 cls._host_buf is not buf:

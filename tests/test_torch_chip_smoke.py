@@ -658,3 +658,70 @@ def test_sharded_phase_fails_loudly_on_a_mismatch(monkeypatch):
     from devito_tpu_torch import switchconfig
     with switchconfig(device='cpu'), pytest.raises(AssertionError):
         C.sharded_phase(torch.device('cpu'), P14_SMALL, {'launches': 0})
+
+
+P15_SMALL = dict(C.FULL, p15_args={
+    'cfd.linear_convection': dict(nx=21, ny=21, nt=10),
+    'cfd.diffusion': dict(nx=21, ny=21, nt=20),
+    'cfd.burgers': dict(nx=21, ny=21, nt=10),
+    'cfd.poisson': dict(nx=20, ny=20, niter=20),
+    'cfd.nonlinear_convection': dict(nx=21, ny=21, nt=10),
+    'cfd.laplace': dict(nx=11, ny=11, niter=10),
+    'cfd.cavity_flow': dict(nx=11, ny=11, nt=10),
+    'cfd.shallow_water': dict(nx=21, ny=21, nt=10),
+    'cfd.darcy_flow': dict(n=16, niter=20),
+    'seismic_abc.reflecting': dict(shape=(61, 61), extent=(600., 600.),
+                                   nt=400),
+    'seismic_abc.damping_abc': dict(shape=(61, 61), extent=(600., 600.),
+                                    nt=400, nbl=10),
+    'seismic_abc.pml_abc': dict(shape=(61, 61), extent=(600., 600.), nt=400,
+                                nbl=10),
+    'seismic_abc.habc': dict(shape=(61, 61), extent=(600., 600.), nt=400,
+                             nbl=10),
+    'seismic_fwi.run_fwi': dict(shape=(31, 31), nshots=2, nreceivers=11,
+                                fwi_iterations=2, tn=300., nbl=10),
+    'finance.black_scholes': dict(tmax=0.1, dt0=0.002),
+    'multichip.sharded_diffusion': dict(shape=(32, 32), steps=10),
+    'multichip.halo_modes_demo': dict(steps=5)},
+    p15_fwi=dict(shape=(41, 41), spacing=(10., 10.), nbl=10, space_order=4,
+                 tn=300., nshots=2, nreceivers=11, fwi_iterations=2),
+    p15_born_n=21, p15_born_tn=100., p15_diff_n=24, p15_diff_steps=5)
+
+
+def test_examples_phase_runs_on_the_cpu():
+    """Phase 15 at small sizes on the CPU, where no kernel launches: every
+    example against its run in the child process, the facts devito_tpu's
+    tests assert, the FWI survey's objective decreasing and its repeated
+    gradient bit-equal, both overrides bit-equal to the Operator's own
+    layout, the sharded examples bit-equal to the unsharded run."""
+    from devito_tpu_torch import switchconfig
+    record = {'launches': 0}
+    with switchconfig(device='cpu'):
+        res = C.examples_phase(torch.device('cpu'), P15_SMALL, record)
+    json.dumps(res)
+    assert sorted(res['examples']) == sorted(
+        f'{m}.{n}' for m, names in C.EXAMPLES for n in names)
+    assert all(r['tol_ratio'] == 0 for r in res['examples'].values())
+    assert res['examples']['seismic_fwi.run_fwi']['declined'] == \
+        {'increment': 1}
+    fwi = res['fwi']
+    assert fwi['objective'][1] < fwi['objective'][0]
+    assert fwi['repeat']['bit_equal'] and len(fwi['iteration_s']) == 2
+    assert set(fwi['ms_per_step']) == {'forward', 'save-forward',
+                                       'gradient'}
+    for row in res['override'].values():
+        assert row['bit_equal_own'] and row['relayouts'] == 1
+    mc = res['multichip']
+    assert mc['sharded_bit_equal'] and mc['auto_bit_equal'] and \
+        mc['explicit_bit_equal'] and mc['refused'] == 'InvalidArgument'
+    assert record['launches'] == 0
+
+
+def test_held_example_fails_loudly_on_a_mismatch():
+    want = {'/0': np.ones(4, np.float32), '/1': 'a', '/2': 3}
+    assert C.held_example('k', dict(want), want) == 0
+    for bad in ({'/0': np.ones(4, np.float32) * 1.001, '/1': 'a', '/2': 3},
+                {'/0': want['/0'], '/1': 'b', '/2': 3},
+                {'/0': want['/0'], '/1': 'a'}):
+        with pytest.raises(AssertionError):
+            C.held_example('k', bad, want)

@@ -145,3 +145,29 @@ def test_hoist_invariants_on_a_plain_equation():
     from devito_tpu_torch.types.basic import retrieve_functions
     assert pt.prologue[0].target.name in {
         a.function.name for a in retrieve_functions(pt.body[0].rhs)}
+
+
+def test_units_keep_their_keys_across_lowerings_and_pickling():
+    """The hoisting pass numbers its temporaries from a counter every
+    lowering advances; a unit names a temporary by its kind, so the same
+    equations lowered again, or the Operator unpickled, keep their K1
+    unit keys (no new nvcc build)."""
+    import pickle
+
+    def keys(op):
+        return [p.key for _, p in op.kernel_plans if p is not None]
+    def darcy():
+        # examples/cfd.py darcy_flow's update: a.grad's average is hoisted
+        grid = dt.Grid(shape=(8, 8), extent=(1., 1.))
+        u = dt.TimeFunction(name='u', grid=grid, space_order=2)
+        a = dt.Function(name='a', grid=grid, space_order=2)
+        f1 = dt.Function(name='f1', grid=grid)
+        eq = dt.Eq(-dt.div(a * dt.grad(u, shift=.5), shift=-.5), f1)
+        return dt.Operator(dt.Eq(u.forward, dt.solve(eq, u)))
+    ops = [darcy(), darcy()]
+    names = [[eq.target.name for eq, _ in op.kernel_plans] for op in ops]
+    assert keys(ops[0]) == keys(ops[1])
+    assert names[0] != names[1]          # r<n>: the counter moved on
+    assert any(getattr(eq.target, '_hoisted', False)
+               for eq, _ in ops[0].kernel_plans)
+    assert keys(pickle.loads(pickle.dumps(ops[0]))) == keys(ops[0])

@@ -53,6 +53,9 @@ def test_import_pulls_in_no_jax():
             "import devito_tpu_torch.parallel, devito_tpu_torch.data\n"
             "from devito_tpu_torch.parallel import (Distributor, "
             "redistribute, halo)\n"
+            "from devito_tpu_torch.examples import (cfd, userapi, "
+            "seismic_abc, seismic_fwi, linalg, finance, multichip, "
+            "compiler_tour)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'devito_tpu', 'ml_dtypes'))\n"
             "print(bad)\n"
