@@ -182,11 +182,11 @@
    the checkpointed one (TOL x max), host RSS; (3) 50 steps of the shot
    under profiling='measured' with a profile-dir: the Chrome trace parsed,
    every body section's device time > 0, the busy time within 1.02 x the
-   loop's CUDA-event time, the unattributed events, the loop split and
-   the tags' host cost; (4) get_platform's row for the card's name, the
-   apply's roofline line, and the bounds read from the nvidia-h100-sxm
-   row. Every drive has K1's counts at 0 just before it and read just
-   after, its launches added to K1's main path.
+   loop's CUDA-event time, the unattributed events and the loop split;
+   (4) get_platform's row for the card's name, the apply's roofline
+   line, and the bounds read from the nvidia-h100-sxm row. Every drive
+   has K1's counts at 0 just before it and read just after, its
+   launches added to K1's main path.
 
 14. Multi-device through the port, on one card: ``mesh-devices`` 4 puts
    four shards on it. (1) The forward shot at 512^3 + nbl 10 (532^3),
@@ -5098,8 +5098,8 @@ def measured_profile(device, sizes, model, count, plat):
     file parses, every body section has device time (on the card), the
     busy time is within 1.02 x the loop's CUDA-event time; beside it the
     unattributed events, the loop split (``loop_split``), and the loop ms
-    a step without the tags, with them (no profiler: their host cost) and
-    under the profiler; apply's roofline line names ``plat``."""
+    a step with no profiler (the program's spans closed) and under the
+    profiler; apply's roofline line names ``plat``."""
     import logging
     import tempfile
     from devito_tpu_torch import switchconfig
@@ -5111,16 +5111,6 @@ def measured_profile(device, sizes, model, count, plat):
     build_units([op], device)
     s.forward()
     basic = s.forward()[2].globals['fdlike'].time * 1e3 / steps
-    runner = op._runner
-
-    def tagged(*args):
-        return runner(*args, tags=True)
-    tagged.plans = runner.plans
-    op._runner = tagged
-    try:
-        tags_ms = s.forward()[2].globals['fdlike'].time * 1e3 / steps
-    finally:
-        op._runner = runner
     msgs = []
 
     class Keep(logging.Handler):
@@ -5169,7 +5159,7 @@ def measured_profile(device, sizes, model, count, plat):
         busy_ms_per_step=busy * 1e3 / steps,
         loop_ms_per_step=loop * 1e3 / steps,
         unattributed=lost, categories=cats,
-        basic_ms_per_step=basic, tags_ms_per_step=tags_ms,
+        basic_ms_per_step=basic,
         trace_events=nev, trace_bytes=tbytes, split=split,
         log_line=roof[0].replace('\x1b[32m', '').replace('\x1b[0m', ''))
     log(f"[p13] (3) {steps} steps under profiling='measured': "
@@ -5181,9 +5171,8 @@ def measured_profile(device, sizes, model, count, plat):
         f"categories " + ', '.join(f"{k} {v:.4f}" for k, v in
                                    out['categories'].items() if v)
         + f"; the trace {nev} events, {tbytes / 1e6:.1f} MB")
-    log(f"[p13] (3) loop ms/step without the tags {basic:.4f}, with them "
-        f"(no profiler) {tags_ms:.4f}: their host cost "
-        f"{tags_ms - basic:.4f}; loop_split: " + ', '.join(
+    log(f"[p13] (3) loop ms/step with no profiler (the spans closed) "
+        f"{basic:.4f}; loop_split: " + ', '.join(
             f"{k} {v:.4f}" for k, v in split['ms'].items())
         + f", outside every call {split['rest_ms']:.4f} of "
         f"{split['loop_ms']:.4f} ms/step")

@@ -42,12 +42,12 @@ from collections import OrderedDict
 from itertools import product
 
 import torch
-from torch.profiler import record_function
 
 from ..ir.lowering import LoweredEq, LoweredSparse
 from ..exceptions import CompilationError
 from ..kernels.stencil import plan_for, stencil_update
 from ..types.dense import widen
+from ..utils import span
 
 __all__ = ['build_runner', 'step_row', 'save_row', 'plan_rows']
 
@@ -518,6 +518,11 @@ def _inject(item, bufs, params, t, contrib, corner_idx):
     buf.index_put_(sidx, contrib.to(buf.dtype), accumulate=True)
 
 
+#: a sparse item's span, by its kind
+SPARSE_SPANS = {'inject': 'dtpu::sparse.inject',
+                'interp': 'dtpu::sparse.interp'}
+
+
 def _exec_sparse(item, bufs, params, t, geom_cache):
     sf = item.sparse
     if item.kind == 'interp' and f'{sf.name}_sep' in bufs:
@@ -553,7 +558,7 @@ def _unstable(bufs, names):
 
 def build_runner(schedule, storage=None, errctl=None, sections=None,
                  shard_spec=None):
-    """Build ``run(bufs, params, time_m, time_M, tags=False)``, which
+    """Build ``run(bufs, params, time_m, time_M)``, which
     updates the tensors of ``bufs`` (by function name; ``<name>_coords``
     for sparse coordinates, ``<name>_sep`` for a factorised geometry) in
     place. The stencil-kernel decision is taken here, once per dense
@@ -562,11 +567,12 @@ def build_runner(schedule, storage=None, errctl=None, sections=None,
     (names of written stepping functions) ``run`` returns the step whose
     stability check failed, else None.
 
-    With ``tags`` each body item runs inside a ``torch.profiler.
-    record_function`` range named by ``sections`` (one name a body item;
-    by default ``dtpu_sec<i>``, numbered as Operator._estimate_flops
-    numbers its sections), which operator/trace_profile.py reads back;
-    the prologue and epilogue run untagged. Without, no range is opened.
+    Each body item runs inside a ``span`` (utils/tools.py) named by
+    ``sections`` (one name a body item; by default ``dtpu_sec<i>``,
+    numbered as Operator._estimate_flops numbers its sections), which
+    operator/trace_profile.py reads back: a ``torch.profiler`` range while
+    a profiler records, nothing otherwise. The prologue and epilogue run
+    outside the sections.
 
     With ``shard_spec`` (a parallel/halo.py ShardedRunner) the schedule is
     its local schedule and ``run`` takes one dict of tensors a shard
@@ -584,21 +590,20 @@ def build_runner(schedule, storage=None, errctl=None, sections=None,
         sections = [f'dtpu_sec{i}' for i in range(len(schedule.body))]
     tagged = list(zip(schedule.body, sections))
 
+    def _exec_item(it, bufs, params, t, geom_cache):
+        if isinstance(it, LoweredEq):
+            _exec_dense(it, plans[id(it)][1], bufs, params, t)
+        elif isinstance(it, LoweredSparse):
+            with span(SPARSE_SPANS[it.kind]):
+                _exec_sparse(it, bufs, params, t, geom_cache)
+        else:
+            raise CompilationError(f"Cannot execute {it}")
+
     def _exec_items(items, bufs, params, t, geom_cache):
         for it in items:
-            if isinstance(it, LoweredEq):
-                _exec_dense(it, plans[id(it)][1], bufs, params, t)
-            elif isinstance(it, LoweredSparse):
-                _exec_sparse(it, bufs, params, t, geom_cache)
-            else:
-                raise CompilationError(f"Cannot execute {it}")
+            _exec_item(it, bufs, params, t, geom_cache)
 
-    def _exec_tagged(bufs, params, t, geom_cache):
-        for it, name in tagged:
-            with record_function(name):
-                _exec_items((it,), bufs, params, t, geom_cache)
-
-    def run(bufs, params, time_m, time_M, tags=False):
+    def run(bufs, params, time_m, time_M):
         geom_cache = {}
         halted = None
         _exec_items(schedule.prologue, bufs, params, None, geom_cache)
@@ -606,10 +611,9 @@ def build_runner(schedule, storage=None, errctl=None, sections=None,
             anchor = time_m if direction >= 0 else time_M
             for i in range(max(time_M - time_m + 1, 0)):
                 t = anchor + direction * i
-                if tags:
-                    _exec_tagged(bufs, params, t, geom_cache)
-                else:
-                    _exec_items(schedule.body, bufs, params, t, geom_cache)
+                for it, name in tagged:
+                    with span(name):
+                        _exec_item(it, bufs, params, t, geom_cache)
                 if errctl and t % ERRCTL_PERIOD == 0 and \
                         _unstable(bufs, errctl):
                     halted = t
@@ -720,7 +724,7 @@ def _combine(vals, op):
 
 def _build_sharded(schedule, storage, errctl, sections, spec):
     """The runner of a ShardedRunner's local schedule:
-    ``run(sbufs, params, time_m, time_M, tags=False)`` over ``sbufs``, one
+    ``run(sbufs, params, time_m, time_M)`` over ``sbufs``, one
     dict of tensors a shard (``spec.prepare_buffers``), in place.
 
     Each item runs on every shard in turn, as ``shard_item`` gives it to
@@ -804,18 +808,22 @@ def _build_sharded(schedule, storage, errctl, sections, spec):
             _inject(it, sbufs[sh.index], sparams[sh.index], t, contrib,
                     geo[0])
 
+    def _exec_item(it, sbufs, sparams, t, geoms):
+        if isinstance(it, LoweredEq):
+            dense(it, sbufs, sparams, t)
+        elif isinstance(it, LoweredSparse):
+            with span(SPARSE_SPANS[it.kind]):
+                sparse(it, sbufs, sparams, t, geoms)
+        elif getattr(it, 'kind', None) == 'halo':
+            it.run(sbufs, sparams, t)
+        else:
+            raise CompilationError(f"Cannot execute {it}")
+
     def _exec_items(items, sbufs, sparams, t, geoms):
         for it in items:
-            if isinstance(it, LoweredEq):
-                dense(it, sbufs, sparams, t)
-            elif isinstance(it, LoweredSparse):
-                sparse(it, sbufs, sparams, t, geoms)
-            elif getattr(it, 'kind', None) == 'halo':
-                it.run(sbufs, sparams, t)
-            else:
-                raise CompilationError(f"Cannot execute {it}")
+            _exec_item(it, sbufs, sparams, t, geoms)
 
-    def run(sbufs, params, time_m, time_M, tags=False):
+    def run(sbufs, params, time_m, time_M):
         sparams = [dict(params, **sh.params) for sh in shards]
         geoms = [{} for _ in shards]
         halted = None
@@ -824,12 +832,9 @@ def _build_sharded(schedule, storage, errctl, sections, spec):
             anchor = time_m if direction >= 0 else time_M
             for i in range(max(time_M - time_m + 1, 0)):
                 t = anchor + direction * i
-                if tags:
-                    for it, name in tagged:
-                        with record_function(name):
-                            _exec_items((it,), sbufs, sparams, t, geoms)
-                else:
-                    _exec_items(schedule.body, sbufs, sparams, t, geoms)
+                for it, name in tagged:
+                    with span(name):
+                        _exec_item(it, sbufs, sparams, t, geoms)
                 if errctl and t % ERRCTL_PERIOD == 0 and \
                         any(_unstable(b, errctl) for b in sbufs):
                     halted = t

@@ -6,7 +6,8 @@ hashes its text, the headers it depends on and ``_NVCC_FLAGS``, and loaded
 with ctypes. A library that is already in ``_build/`` under its key is
 loaded without compiling. ``build_seconds`` and ``build_log`` record, by
 key, the seconds nvcc took and its ptxas resource report (registers,
-spills), for every kernel of the package.
+spills), for every kernel of the package; while a profiler records, each
+compile is the span ``dtpu::nvcc``.
 """
 
 import ctypes
@@ -20,6 +21,7 @@ import time
 from pathlib import Path
 
 from ..exceptions import CompilationError
+from ..utils import span
 
 __all__ = ['source_key', 'unit_key', 'headers', 'build', 'fixed',
            'fixed_key', 'entry', 'check_launch']
@@ -103,9 +105,10 @@ def _compile(key, stem, source):
         cu.write_text(source)
         tmp = _BUILD / f'{stem}_{key}.{os.getpid()}.so'
         tic = time.perf_counter()
-        res = subprocess.run(
-            [nvcc, *_NVCC_FLAGS, '-I', str(_CSRC), '-o', str(tmp), str(cu)],
-            capture_output=True, text=True)
+        with span('dtpu::nvcc'):
+            res = subprocess.run(
+                [nvcc, *_NVCC_FLAGS, '-I', str(_CSRC), '-o', str(tmp),
+                 str(cu)], capture_output=True, text=True)
         if res.returncode != 0:
             raise CompilationError(
                 f"nvcc failed on {cu}:\n{res.stderr[-4000:]}")

@@ -65,6 +65,7 @@ from ..logger import debug
 from ..types.basic import AbstractFunction, retrieve_functions
 from ..types.dense import torch_dtype, widen
 from ..types.dimension import Dimension
+from ..utils import span
 
 __all__ = ['StencilPlan', 'plan_for', 'decline_reason', 'build',
            'point_flops', 'stream_tile', 'stream_occupancy', 'stencil_update',
@@ -635,15 +636,26 @@ def stencil_update(plan, rows, params):
     """Write ``plan.eq``'s right-hand side over its region into the target
     row, in place. ``rows`` is ``(target row, [one row per group])``,
     each a halo'd row tensor of its function; ``params`` maps symbol names
-    to values. CUDA tensors go through the kernel; CPU tensors through
+    to values. CUDA tensors go through the kernel, each launch from the
+    rows' checks to the kernel's return in the span ``dtpu::k1.launch``
+    (utils/tools.py ``span``); CPU tensors through
     ``stencil_update_reference``."""
-    global launches
+    out = rows[0]
+    if isinstance(out, torch.Tensor) and out.device.type == 'cuda':
+        with span('dtpu::k1.launch'):
+            _check_rows(plan, rows)
+            _launch(plan, out, rows[1], params)
+        return
     _check_rows(plan, rows)
-    out, ins = rows
     if out.device.type == 'cpu':
         return stencil_update_reference(plan, rows, params)
-    if out.device.type != 'cuda':
-        raise ValueError(f"no stencil kernel for device {out.device}")
+    raise ValueError(f"no stencil kernel for device {out.device}")
+
+
+def _launch(plan, out, ins, params):
+    """``stencil_update``'s launch of ``plan``'s unit on CUDA rows that
+    ``_check_rows`` passed."""
+    global launches
     if out.device not in validated:
         validate_backend(out.device)
     entry = build(plan)

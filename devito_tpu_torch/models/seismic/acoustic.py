@@ -21,6 +21,7 @@ from ...types import Eq, Inc, Function, TimeFunction
 from ...operator import Operator
 from ...operations.solve import solve
 from ...utils import memoized_meth
+from .utils import solver_spans
 
 __all__ = ['iso_stencil', 'laplacian', 'ForwardOperator', 'AdjointOperator',
            'GradientOperator', 'BornOperator', 'AcousticWaveSolver']
@@ -175,6 +176,7 @@ def BornOperator(model, geometry, space_order=4, kernel='OT2', **kwargs):
                     subs=model.spacing_map, name='Born', **kwargs)
 
 
+@solver_spans
 class AcousticWaveSolver:
     """Seismic-inversion solver facade (reference: wavesolver.py:8)."""
 

@@ -21,6 +21,7 @@ from ...operator import Operator
 from ...operations.solve import solve
 from ...finite_differences.operators import div, grad, diag
 from ...utils import memoized_meth
+from .utils import solver_spans
 
 __all__ = ['ForwardElasticOperator', 'ElasticWaveSolver', 'elastic_setup']
 
@@ -61,6 +62,7 @@ def ForwardElasticOperator(model, geometry, space_order=4, save=False,
     return op
 
 
+@solver_spans
 class ElasticWaveSolver:
     """Reference: elastic/wavesolver.py ElasticWaveSolver."""
 

@@ -16,6 +16,7 @@ import numpy as np
 from ...types import Eq, Function, TimeFunction, Grid
 from ...operator import Operator
 from ...utils import memoized_meth
+from .utils import solver_spans
 
 __all__ = ['setup_w_over_q', 'sa_iso_stencil', 'IsoFwdOperator',
            'IsoAdjOperator', 'SaIsoWaveSolver', 'sa_setup']
@@ -99,6 +100,7 @@ def IsoAdjOperator(model, geometry, space_order=8, save=False, **kwargs):
     return op
 
 
+@solver_spans
 class SaIsoWaveSolver:
 
     def __init__(self, model, geometry, space_order=8, **kwargs):

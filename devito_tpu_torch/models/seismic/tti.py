@@ -26,6 +26,7 @@ from ...operator import Operator
 from ...operations.solve import solve
 from ...finite_differences.derivative import Derivative
 from ...utils import memoized_meth
+from .utils import solver_spans
 
 __all__ = ['kernel_centered', 'TTIForwardOperator', 'TTIAdjointOperator',
            'AnisotropicWaveSolver', 'tti_setup']
@@ -346,6 +347,7 @@ def TTIJacobianAdjOperator(model, geometry, space_order=4, save=True,
     return op
 
 
+@solver_spans
 class AnisotropicWaveSolver:
     """Reference: tti/wavesolver.py AnisotropicWaveSolver."""
 

@@ -2,14 +2,40 @@
 setup_geometry/setup_rec_coords and acoustic/acoustic_example.py
 acoustic_setup:14)."""
 
+from functools import wraps
+
 import numpy as np
 
+from ...utils import span
 from .geometry import AcquisitionGeometry
 from .model import demo_model
 
 __all__ = ['setup_geometry', 'setup_rec_coords', 'acoustic_setup']
 
 _default_radius = {'linear': 1, 'sinc': 4, 'precomputed': 2}
+
+#: a solver's entry points that call ``Operator.apply``
+SOLVER_ENTRIES = ('forward', 'adjoint', 'jacobian', 'jacobian_adjoint')
+
+
+def solver_spans(cls):
+    """Class decorator of a seismic solver: each of its ``SOLVER_ENTRIES``,
+    and each alias of one (``born``, ``gradient``), runs in the span
+    ``dtpu::solver.<entry>`` (utils/tools.py ``span``)."""
+    def spanned(fn, name):
+        @wraps(fn)
+        def entry(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return entry
+
+    wrapped = {id(cls.__dict__[name]): spanned(cls.__dict__[name],
+                                               f'dtpu::solver.{name}')
+               for name in SOLVER_ENTRIES if name in cls.__dict__}
+    for attr, value in list(cls.__dict__.items()):
+        if id(value) in wrapped:
+            setattr(cls, attr, wrapped[id(value)])
+    return cls
 
 
 def setup_geometry(model, tn, f0=0.010, interpolation='linear', **kwargs):

@@ -22,6 +22,7 @@ from ...operator import Operator
 from ...operations.solve import solve
 from ...finite_differences.operators import div, grad
 from ...utils import memoized_meth
+from .utils import solver_spans
 
 __all__ = ['ViscoForwardOperator', 'ViscoAdjointOperator',
            'ViscoacousticWaveSolver', 'viscoacoustic_setup']
@@ -238,6 +239,7 @@ def ViscoAdjointOperator(model, geometry, space_order=4, kernel='sls',
     return op
 
 
+@solver_spans
 class ViscoacousticWaveSolver:
     """Reference: viscoacoustic/wavesolver.py ViscoacousticWaveSolver."""
 

@@ -21,6 +21,7 @@ from ...operator import Operator
 from ...operations.solve import solve
 from ...finite_differences.operators import div, grad, diag
 from ...utils import memoized_meth
+from .utils import solver_spans
 from .elastic import src_rec
 
 __all__ = ['ViscoelasticForwardOperator', 'ViscoelasticWaveSolver',
@@ -66,6 +67,7 @@ def ViscoelasticForwardOperator(model, geometry, space_order=4, save=False,
     return op
 
 
+@solver_spans
 class ViscoelasticWaveSolver:
     """Reference: viscoelastic/wavesolver.py."""
 

@@ -68,6 +68,7 @@ from ..logger import perf as log_perf, debug, warning
 from ..parameters import configuration
 from ..types.dense import (storage_torch_dtype, torch_dtype, _stamp,
                            _seconds)
+from ..utils import span
 from .profiling import PerformanceSummary
 
 __all__ = ['Operator']
@@ -1039,7 +1040,18 @@ class Operator:
         'measured' gives each section its device time from it
         (operator/trace_profile.py); with no device event in the trace (the
         CPU) it warns and keeps the shares of the cost model. The log line
-        gives the share of the device's memory roofline (arch.py)."""
+        gives the share of the device's memory roofline (arch.py).
+
+        While a profiler records, the call is the span ``dtpu::apply``
+        (utils/tools.py ``span``), with three children:
+        ``dtpu::apply.prepare`` (the arguments and the choice of runner),
+        ``dtpu::apply.loop`` (the runner's call, each chunk's under a
+        streaming plan) and ``dtpu::apply.finish`` (the written tensors
+        adopted, the sections, the summary and the log lines)."""
+        with span('dtpu::apply'):
+            return self._apply(kwargs)
+
+    def _apply(self, kwargs):
         from ..arch import get_platform, roofline_fraction
         op = self._relaid(kwargs)
         if op is not self:
@@ -1047,73 +1059,85 @@ class Operator:
             op.__dict__.update({k: v for k, v in self.__dict__.items()
                                 if k not in _LAYOUT_STATE})
             try:
-                return op.apply(**kwargs)
+                return op._apply(kwargs)
             finally:
                 self.__dict__.update({k: v for k, v in op.__dict__.items()
                                       if k not in _LAYOUT_STATE})
-        autotune = kwargs.pop('autotune', None)
-        if autotune is None and configuration['autotuning'] != 'off':
-            autotune = configuration['autotuning']
-        if autotune and not self._autotuned:
-            log_perf(f"Operator `{self._name}`: autotune={autotune!r} asked "
-                     f"for; devito_tpu_torch has no tuner, running untuned")
-            self._autotuned = True
-        bufs, params, time_m, time_M, bound, sbounds = self._prepare(kwargs)
-        runner = self._bounded_runner(sbounds) if sbounds else self._runner
-        hr = self._halo_runner_for()
-        if hr is not None and sbounds:
-            log_perf(f"Operator `{self._name}`: spatial bounds {sbounds} run "
-                     f"gathered on the whole tensors")
-            hr = None
-        if hr is None and self._grid is not None and \
-                self._grid.distributor is not None:
-            self.gathered_applies = getattr(self, 'gathered_applies', 0) + 1
-        device = next(iter(bufs.values())).device if bufs else \
-            torch.device('cpu')
-        on_cuda = device.type == 'cuda'
-        nsteps = max(time_M - time_m + 1, 0) if self._schedule.body else 0
-        flops = self._flops_per_step * nsteps + self._static_flops
-        points = self._points_per_step * nsteps
-        traffic = self._traffic_per_step * nsteps
-        summary = PerformanceSummary(
-            device=torch.cuda.get_device_name(device) if on_cuda else 'cpu')
-        plat = summary.platform = get_platform(device)
+        with span('dtpu::apply.prepare'):
+            autotune = kwargs.pop('autotune', None)
+            if autotune is None and configuration['autotuning'] != 'off':
+                autotune = configuration['autotuning']
+            if autotune and not self._autotuned:
+                log_perf(f"Operator `{self._name}`: autotune={autotune!r} "
+                         f"asked for; devito_tpu_torch has no tuner, "
+                         f"running untuned")
+                self._autotuned = True
+            bufs, params, time_m, time_M, bound, sbounds = \
+                self._prepare(kwargs)
+            runner = self._bounded_runner(sbounds) if sbounds else \
+                self._runner
+            hr = self._halo_runner_for()
+            if hr is not None and sbounds:
+                log_perf(f"Operator `{self._name}`: spatial bounds "
+                         f"{sbounds} run gathered on the whole tensors")
+                hr = None
+            if hr is None and self._grid is not None and \
+                    self._grid.distributor is not None:
+                self.gathered_applies = \
+                    getattr(self, 'gathered_applies', 0) + 1
+            device = next(iter(bufs.values())).device if bufs else \
+                torch.device('cpu')
+            on_cuda = device.type == 'cuda'
+            nsteps = max(time_M - time_m + 1, 0) if self._schedule.body \
+                else 0
+            flops = self._flops_per_step * nsteps + self._static_flops
+            points = self._points_per_step * nsteps
+            traffic = self._traffic_per_step * nsteps
+            summary = PerformanceSummary(
+                device=torch.cuda.get_device_name(device) if on_cuda
+                else 'cpu')
+            plat = summary.platform = get_platform(device)
+            plan = self._stream_plan
+            if plan is None:
+                trace_dir = configuration['profile-dir']
+                measured = configuration['profiling'] == 'measured'
+                tmp = None
+                if measured and not trace_dir:
+                    tmp = trace_dir = tempfile.mkdtemp(
+                        prefix='dtpu_torch_prof_')
+                self._measured_cats = None
+                self._measured_secs, self._measured_other = None, 0.0
+                self._measured_unattributed = 0
+                loop_bufs, sync = bufs, None
+                if hr is not None:
+                    # the shards, cut from the whole tensors; their
+                    # interiors are written back below
+                    loop_bufs, runner = hr.prepare_buffers(bufs), hr.runner
+                    sync = hr.synchronize
+                    copies0, bytes0 = hr.exchange['copies'], \
+                        hr.exchange['bytes']
 
         def roof(nbytes, seconds, fmt):
             r = roofline_fraction(plat, nbytes, seconds)
             return fmt.format(100 * r, plat.name) if r is not None else ''
 
-        plan = self._stream_plan
         if plan is not None:
             elapsed = self._apply_streamed(plan, bufs, params, time_m,
                                            time_M, bound, runner, hr)
-            summary.add('section0', elapsed, flops=flops, points=points,
-                        traffic=traffic)
-            summary.add_glb(elapsed, flops=flops, points=points,
+            with span('dtpu::apply.finish'):
+                summary.add('section0', elapsed, flops=flops, points=points,
                             traffic=traffic)
-            e = summary['section0']
-            log_perf(f"Operator `{self._name}` ran in {elapsed:.4f} s on "
-                     f"{summary.device} (host-streamed save) "
-                     f"[{e.gpointss:.2f} GPts/s"
-                     + roof(traffic, elapsed, ", {:.0f}% of {} HBM roofline")
-                     + "]")
+                summary.add_glb(elapsed, flops=flops, points=points,
+                                traffic=traffic)
+                e = summary['section0']
+                log_perf(f"Operator `{self._name}` ran in {elapsed:.4f} s "
+                         f"on {summary.device} (host-streamed save) "
+                         f"[{e.gpointss:.2f} GPts/s"
+                         + roof(traffic, elapsed,
+                                ", {:.0f}% of {} HBM roofline")
+                         + "]")
             return summary
 
-        trace_dir = configuration['profile-dir']
-        measured = configuration['profiling'] == 'measured'
-        tmp = None
-        if measured and not trace_dir:
-            tmp = trace_dir = tempfile.mkdtemp(prefix='dtpu_torch_prof_')
-        self._measured_cats = None
-        self._measured_secs, self._measured_other = None, 0.0
-        self._measured_unattributed = 0
-        loop_bufs, sync = bufs, None
-        if hr is not None:
-            # the shards, cut from the whole tensors; their interiors are
-            # written back below
-            loop_bufs, runner = hr.prepare_buffers(bufs), hr.runner
-            sync = hr.synchronize
-            copies0, bytes0 = hr.exchange['copies'], hr.exchange['bytes']
         if trace_dir:
             from torch.profiler import profile, ProfilerActivity
             acts = [ProfilerActivity.CPU] + (
@@ -1121,72 +1145,79 @@ class Operator:
             with profile(activities=acts) as prof:
                 elapsed, halted = self._timed_loop(runner, loop_bufs, params,
                                                    time_m, time_M, on_cuda,
-                                                   tags=True, sync=sync)
-            os.makedirs(trace_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(
-                trace_dir, f'{self._name}.{_time.time_ns()}.pt.trace.json'))
-            if measured:
-                self._read_trace(trace_dir)
-            if tmp:
-                shutil.rmtree(tmp, ignore_errors=True)
+                                                   sync=sync)
         else:
             elapsed, halted = self._timed_loop(runner, loop_bufs, params,
                                                time_m, time_M, on_cuda,
                                                sync=sync)
-        if hr is not None:
-            for name in self._writes:
-                hr.restore(name, [b[name] for b in loop_bufs], bufs[name])
-            self.last_exchange = {
-                'copies': hr.exchange['copies'] - copies0,
-                'bytes': hr.exchange['bytes'] - bytes0}
-            del loop_bufs
-            log_perf(f"Operator `{self._name}`: sharded over the mesh "
-                     f"{self._grid.distributor.topology} "
-                     f"({len(hr.shards)} shards on "
-                     f"{sorted({str(sh.device) for sh in hr.shards})}); the "
-                     f"exchange moved {self.last_exchange['bytes']} bytes in "
-                     f"{self.last_exchange['copies']} copies")
+        with span('dtpu::apply.finish'):
+            if trace_dir:
+                os.makedirs(trace_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(
+                    trace_dir,
+                    f'{self._name}.{_time.time_ns()}.pt.trace.json'))
+                if measured:
+                    self._read_trace(trace_dir)
+                if tmp:
+                    shutil.rmtree(tmp, ignore_errors=True)
+            if hr is not None:
+                for name in self._writes:
+                    hr.restore(name, [b[name] for b in loop_bufs],
+                               bufs[name])
+                self.last_exchange = {
+                    'copies': hr.exchange['copies'] - copies0,
+                    'bytes': hr.exchange['bytes'] - bytes0}
+                del loop_bufs
+                log_perf(f"Operator `{self._name}`: sharded over the mesh "
+                         f"{self._grid.distributor.topology} "
+                         f"({len(hr.shards)} shards on "
+                         f"{sorted({str(sh.device) for sh in hr.shards})});"
+                         f" the exchange moved {self.last_exchange['bytes']}"
+                         f" bytes in {self.last_exchange['copies']} copies")
 
-        # the tensors were updated in place: the device copy is now the
-        # authoritative one
-        for name in self._writes:
-            bound[name]._set_device_array(bufs[name])
-        if halted is not None:
-            raise ExecutionError(
-                f"Stability check failed at step {halted}: non-finite "
-                f"values in {list(self._errctl)} (errctl='max')")
-        if configuration['develop-mode']:
+            # the tensors were updated in place: the device copy is now the
+            # authoritative one
             for name in self._writes:
-                if not bool(torch.isfinite(bufs[name]).all()):
-                    raise ExecutionError(
-                        f"Detected nan/inf in `{name}` output")
+                bound[name]._set_device_array(bufs[name])
+            if halted is not None:
+                raise ExecutionError(
+                    f"Stability check failed at step {halted}: non-finite "
+                    f"values in {list(self._errctl)} (errctl='max')")
+            if configuration['develop-mode']:
+                for name in self._writes:
+                    if not bool(torch.isfinite(bufs[name]).all()):
+                        raise ExecutionError(
+                            f"Detected nan/inf in `{name}` output")
 
-        self._add_sections(summary, elapsed, nsteps)
-        summary.add_glb(elapsed, flops=flops, points=points, traffic=traffic)
-        g = summary.globals['fdlike']
-        log_perf(f"Operator `{self._name}` ran in {elapsed:.4f} s on "
-                 f"{summary.device} [{g.gpointss:.2f} GPts/s, "
-                 f"{g.gflopss:.2f} GFlops/s"
-                 + roof(traffic, elapsed, ", {:.0f}% of {} HBM roofline")
-                 + "]")
-        for name, e in summary.items():
-            log_perf(f"  {name} ({summary.labels.get(name, '')}): "
-                     f"{e.time:.4f} s, {e.gflopss:.2f} GFlops/s, "
-                     f"{e.gpointss:.2f} GPts/s"
-                     + roof(self._section_traffic.get(name, 0), e.time,
-                            ", {:.0f}% roofline"))
+            self._add_sections(summary, elapsed, nsteps)
+            summary.add_glb(elapsed, flops=flops, points=points,
+                            traffic=traffic)
+            g = summary.globals['fdlike']
+            log_perf(f"Operator `{self._name}` ran in {elapsed:.4f} s on "
+                     f"{summary.device} [{g.gpointss:.2f} GPts/s, "
+                     f"{g.gflopss:.2f} GFlops/s"
+                     + roof(traffic, elapsed,
+                            ", {:.0f}% of {} HBM roofline")
+                     + "]")
+            for name, e in summary.items():
+                log_perf(f"  {name} ({summary.labels.get(name, '')}): "
+                         f"{e.time:.4f} s, {e.gflopss:.2f} GFlops/s, "
+                         f"{e.gpointss:.2f} GPts/s"
+                         + roof(self._section_traffic.get(name, 0), e.time,
+                                ", {:.0f}% roofline"))
         return summary
 
     @staticmethod
     def _timed_loop(runner, bufs, params, time_m, time_M, on_cuda,
-                    tags=False, sync=None):
+                    sync=None):
         """``runner``'s loop over ``[time_m, time_M]``: (its seconds, CUDA
         events around it on the card, the host clock elsewhere; the step
         whose stability check failed, or None). ``sync``, if given, runs
-        before the closing stamp: a sharded run's other devices finish."""
+        before the closing stamp: a sharded run's other devices finish.
+        The runner's call alone is the span ``dtpu::apply.loop``."""
         a = _stamp(on_cuda)
-        halted = runner(bufs, params, time_m, time_M, tags=True) if tags \
-            else runner(bufs, params, time_m, time_M)
+        with span('dtpu::apply.loop'):
+            halted = runner(bufs, params, time_m, time_M)
         if sync is not None:
             sync()
         b = _stamp(on_cuda)
@@ -1255,11 +1286,11 @@ class Operator:
                                 b[name] = t
                     params2[f'__save_base_{name}__'] = base
                 a = _stamp(on_cuda)
+                with span('dtpu::apply.loop'):
+                    halted = runner(bufs, params2, c0, c1) if hr is None \
+                        else hr.runner(sbufs, params2, c0, c1)
                 if hr is not None:
-                    halted = hr.runner(sbufs, params2, c0, c1)
                     hr.synchronize()
-                else:
-                    halted = runner(bufs, params2, c0, c1)
                 split.append(('compute', a, _stamp(on_cuda), 0))
                 for name, fn in names.items():
                     if name in self._writes:

@@ -4,14 +4,18 @@ Reference parity: devito/tools (frozendict, as_tuple, filter_ordered,
 memoization, Tag, DAG toposort). Only what this package needs.
 """
 
-import numpy as np
+import contextlib
 from collections import OrderedDict
 from functools import wraps
+
+import numpy as np
+from torch._C._autograd import _profiler_enabled
+from torch.profiler import record_function
 
 __all__ = ['as_tuple', 'as_list', 'filter_ordered', 'flatten', 'frozendict',
            'memoized_meth', 'memoized_func', 'Tag', 'prod', 'humanbytes',
            'dtype_of', 'is_integer', 'toposort', 'split', 'powerset',
-           'ceil_div', 'round_up']
+           'ceil_div', 'round_up', 'span']
 
 
 def as_tuple(item, length=None):
@@ -79,6 +83,25 @@ def prod(iterable, initial=1):
     for i in iterable:
         out *= i
     return out
+
+
+#: what ``span`` returns while no profiler records: one shared, reentrant
+#: context that does nothing
+_CLOSED = contextlib.nullcontext()
+
+
+def span(name):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    records, else a context that does nothing: a range costs host time
+    even when no profiler runs, and the time loop opens several a step.
+    The program's spans go into the profiler's own trace, on the clock of
+    the device's events: ``dtpu::solver.<entry>``, ``dtpu::apply`` and its
+    ``.prepare``, ``.loop`` and ``.finish``, the executor's ``dtpu_secN``
+    and ``dtpu_exchange``, ``dtpu::sparse.inject`` and ``.interp``,
+    ``dtpu::k1.launch`` and ``dtpu::nvcc``."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _CLOSED
 
 
 def ceil_div(a, b):

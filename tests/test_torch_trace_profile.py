@@ -1,8 +1,9 @@
 """Measured per-section profiling through devito_tpu_torch
 (``configuration['profiling'] = 'measured'``, ``profile-dir``): the
 reader of torch.profiler's Chrome trace (operator/trace_profile.py), the
-runner's ``dtpu_secN`` ranges, and the measured branch of
-``Operator._add_sections`` against devito_tpu's (tests/test_trace_profile.py).
+runner's ``dtpu_secN`` ranges (opened only while a profiler records), and
+the measured branch of ``Operator._add_sections`` against devito_tpu's
+(tests/test_trace_profile.py).
 """
 
 import json
@@ -12,14 +13,15 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.profiler import profile, ProfilerActivity
 
 import jax
 jax.config.update("jax_enable_x64", True)
 
 import devito_tpu as dj  # noqa: E402
 import devito_tpu_torch as dt  # noqa: E402
-from devito_tpu_torch.compiler import executor as E  # noqa: E402
 from devito_tpu_torch.logger import logger  # noqa: E402
+from devito_tpu_torch.utils import tools as T  # noqa: E402
 from devito_tpu_torch.operator.trace_profile import (  # noqa: E402
     attribute, categorize_ops, device_events, device_op_durations,
     section_durations)
@@ -118,6 +120,19 @@ class TestReader:
         assert device_events(path) is None and attribute(path) is None
 
 
+def _spy_gate(monkeypatch):
+    """The names of the ranges the program's span gate opens from now on
+    (``utils/tools.py`` ``span``)."""
+    calls = []
+    rf = T.record_function
+
+    def spy(name):
+        calls.append(name)
+        return rf(name)
+    monkeypatch.setattr(T, 'record_function', spy)
+    return calls
+
+
 def _diffusion(pkg, n=32):
     grid = pkg.Grid(shape=(n, n), extent=(1., 1.))
     u = pkg.TimeFunction(name='u', grid=grid, space_order=2)
@@ -171,27 +186,24 @@ class TestMeasuredMode:
         assert times[1] == pytest.approx(times[0], rel=1e-12)
 
     def test_tagged_runner_under_torch_profiler(self):
-        from torch.profiler import profile, ProfilerActivity
+        """Under a profiler the runner tags each body item a step."""
         op = _diffusion(dt)
         bufs, params, tm, tM, _, _ = op._prepare({'dt': 1e-5, 'time_M': 2})
         with profile(activities=[ProfilerActivity.CPU]) as prof:
-            op._runner(bufs, params, tm, tM, tags=True)
-        names = [e.key for e in prof.key_averages()]
-        assert 'dtpu_sec0' in names and 'dtpu_sec1' not in names
+            op._runner(bufs, params, tm, tM)
+        counts = {e.key: e.count for e in prof.key_averages()}
+        assert counts['dtpu_sec0'] == 3 and 'dtpu_sec1' not in counts
 
     def test_basic_opens_no_range(self, monkeypatch):
-        calls = []
-
-        def spy(name):
-            calls.append(name)
-            return torch.profiler.record_function(name)
-        monkeypatch.setattr(E, 'record_function', spy)
+        """With no profiler recording an apply opens no range; measured
+        profiling records the loop's span and a section a step."""
+        calls = _spy_gate(monkeypatch)
         op = _diffusion(dt)
         op.apply(time_M=3, dt=1e-5)
         assert calls == []
         with dt.switchconfig(profiling='measured'):
             op.apply(time_M=3, dt=1e-5)
-        assert calls == ['dtpu_sec0'] * 4
+        assert calls == ['dtpu::apply.loop'] + ['dtpu_sec0'] * 4
 
     def test_profile_dir_gets_a_trace(self, tmp_path):
         op = _diffusion(dt)
@@ -212,13 +224,8 @@ class TestMeasuredMode:
                           dt.Eq(v.forward, v + 1)])
         run = op._bounded_runner({'x': (10, None)})
         assert len(op._runner.plans) == 2 and len(run.plans) == 1
-        calls = []
-        rf = E.record_function
-
-        def spy(name):
-            calls.append(name)
-            return rf(name)
-        monkeypatch.setattr(E, 'record_function', spy)
+        calls = _spy_gate(monkeypatch)
         bufs, params, *_ = op._prepare({'time_M': 0})
-        run(bufs, params, 0, 0, tags=True)
+        with profile(activities=[ProfilerActivity.CPU]):
+            run(bufs, params, 0, 0)
         assert calls == ['dtpu_sec1']
