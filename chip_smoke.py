@@ -2946,21 +2946,44 @@ def tti_drive(label, fn, kinds, steps, device):
     return out, by_kind, wall
 
 
-def check_tti_plans(label, kinds, design='point'):
+def tti_streams(so):
+    """The CIRE temporaries of a centred TTI forward at ``so`` (with or
+    without hoist-trig-taps) that K1 streams: cire3 reads u at radius
+    so/2 and cire2 its groups at so/4, each with more than FEW_STAGED
+    staged groups, so each streams once its widest reach is WIDE_RADIUS.
+    Every other dense equation runs on the point design."""
+    from devito_tpu_torch.kernels import stencil as K
+    return {name for name, r in (('cire2', so // 4), ('cire3', so // 2))
+            if K.WIDE_RADIUS <= r <= K.MAX_RADIUS}
+
+
+def point_alts(kinds):
+    """{id(plan): the same equation's point-design plan} of every
+    streaming plan of ``kinds``, for ``launch_ms``'s comparison."""
+    from devito_tpu_torch.kernels import stencil as K
+    return {id(p): K.plan_for(eq, _design='point') for _, eq, p in kinds
+            if p is not None and p.design == 'stream'}
+
+
+def check_tti_plans(label, kinds, streams=frozenset()):
     """Log every K1 decline on the path with its reason; raise when a
-    dense equation runs in the translator, or off ``design`` (None: any
-    design)."""
+    dense equation runs in the translator, or when the targets on the
+    streaming design are not ``streams`` (a set of target names; every
+    other equation on the point design; None: any design)."""
     from devito_tpu_torch.kernels import stencil as K
     bad = [(k, eq.target.name, K.decline_reason(eq)) for k, eq, p in kinds
            if p is None]
     for k, name, why in bad:
         log(f"[tti] {label}: {k} {name} declined: {why}")
-    off = [(k, eq.target.name, p.design) for k, eq, p in kinds
-           if p is not None and design not in (None, p.design)]
+    off = [(k, eq.target.name, p.design, p.design_reason)
+           for k, eq, p in kinds if p is not None and streams is not None
+           and p.design != ('stream' if eq.target.name in streams
+                            else 'point')]
     if bad or off:
         raise AssertionError(f"{label}: a dense equation runs in the "
-                             f"translator ({bad}) or off K1's {design} "
-                             f"design ({off})")
+                             f"translator ({bad}) or off the design K1 "
+                             f"should take, the streaming one for "
+                             f"{sorted(streams or ())} ({off})")
 
 
 def halo_cases(device, ops, gen):
@@ -3002,10 +3025,11 @@ def halo_cases(device, ops, gen):
     return rows
 
 
-def tti_profile(solver, kinds, k, device, gen):
+def tti_profile(solver, kinds, k, device, gen, alts=None):
     """Device time of ``k`` warm steps of ``solver``'s forward by kernel
     (torch.profiler, the prologue in), the idle share of the loop's
-    time, and ``launch_ms`` of its forward."""
+    time, and ``launch_ms`` of its forward (with ``alts``, each streaming
+    unit's point design beside it)."""
     out = {}
 
     def run():
@@ -3020,7 +3044,7 @@ def tti_profile(solver, kinds, k, device, gen):
                          for n, m, c in rows[:12]],
                 per_equation=launch_ms(solver.op_fwd(None), kinds,
                                        dict(u=u, v=v), solver.dt, device,
-                                       gen))
+                                       gen, alts))
 
 
 def tti_gather_ms(solver, kinds, u, v, device):
@@ -3076,10 +3100,13 @@ def tti(device, sizes, record, gen):
     """Phase 10, the TTI path: (1) K1's point design on halo-extended
     regions against its plain version; (2) the centered forward at the
     canonical shape, driven with every count at 0 just before and read
-    just after, profiled, and again with hoist-trig-taps forced the other
-    way; (3) the forward at tti_cmp_n^3 against the plain version on the
-    CPU; (4) the staggered kernel's forward; (5) the fp64 dot tests F and
-    J. Adds the canonical forward's launches to K1's ``record``."""
+    just after (``tti_streams`` on the streaming design, every other
+    equation on the point design, the streaming launches counted a step),
+    profiled with each unit timed beside its point design, and again with
+    hoist-trig-taps forced the other way; (3) the forward at tti_cmp_n^3
+    against the plain version on the CPU; (4) the staggered kernel's
+    forward; (5) the fp64 dot tests F and J. Adds the canonical forward's
+    launches, by design, to K1's ``record``."""
     from devito_tpu_torch import switchconfig
     from devito_tpu_torch.builtins import inner, norm
     from devito_tpu_torch.experiments import bound_ms
@@ -3135,10 +3162,15 @@ def tti(device, sizes, record, gen):
     ops.update(halo_ops)
     lower_s = time.perf_counter() - tic
     kinds = {lab: tti_kinds(op) for lab, op in ops.items()}
-    for lab in ('forward', 'forward, trig taps forced', f'{cn}^3 forward'):
-        check_tti_plans(lab, kinds[lab])
+    for lab, o in (('forward', so), ('forward, trig taps forced', so),
+                   (f'{cn}^3 forward', cso)):
+        check_tti_plans(lab, kinds[lab], tti_streams(o))
     check_tti_plans('staggered forward', kinds['staggered forward'], None)
+    # each streaming unit of the canonical forward beside its point design
+    alts = {lab: point_alts(kinds[lab])
+            for lab in ('forward', 'forward, trig taps forced')}
     plans = [p for ks in kinds.values() for _, _, p in ks if p is not None]
+    plans += [p for a in alts.values() for p in a.values()]
     uniq = list({p.key: p for p in plans}.values())
     nvcc_s = 0.
     if on_card:
@@ -3182,8 +3214,14 @@ def tti(device, sizes, record, gen):
         raise AssertionError("TTI forward: the shot record is not finite "
                              "and non-zero")
     del rec
+    designs = by_design(fk)
+    nstream = len(tti_streams(so))
+    if designs['stream'] != nstream * loop_steps(fop) * on_card:
+        raise AssertionError(f"TTI forward: {designs['stream']} streaming "
+                             f"launches, not {nstream} a step")
     record['launches'] += sum(by_kind.values())
-    record['launches_by_design']['point'] += sum(by_kind.values())
+    for d, c in designs.items():
+        record['launches_by_design'][d] += c
     record['launches_main_path'] = record['launches']
     record.setdefault('launches_by_path', {})['tti forward'] = by_kind
     cold = fsum.globals['fdlike'].time * 1e3 / steps, host['s'] * 1e3 / steps
@@ -3191,7 +3229,8 @@ def tti(device, sizes, record, gen):
         'TTI forward, trig taps forced', forced.forward, k2, loop_steps(fop2),
         device)
     forced_eqs = launch_ms(forced.op_fwd(None), k2, dict(u=u2, v=v2),
-                           forced.dt, device, gen)
+                           forced.dt, device, gen,
+                           alts['forward, trig taps forced'])
     gather = tti_gather_ms(forced, k2, u2, v2, device)
     del u2, v2
     r2 = np.array(rec2.data)
@@ -3216,7 +3255,8 @@ def tti(device, sizes, record, gen):
         hoist_trig_taps_auto=auto_on, loop_ms_per_step=loop,
         host_ms_per_step=hms[auto_on], cold_loop_ms_per_step=cold[0],
         cold_host_ms_per_step=cold[1], wall_s=wall,
-        launches_by_kind=by_kind, launches_per_step=nbody,
+        launches_by_kind=by_kind, launches_by_design=designs,
+        launches_per_step=nbody, stream_launches_per_step=nstream,
         bound_ms=bound, bound_by=bound_by, bound_bytes=nbytes,
         bound_flops=flops, share_of_bound=bound / loop,
         schedule_bytes=sbytes, schedule_bound_ms=sbound,
@@ -3236,8 +3276,9 @@ def tti(device, sizes, record, gen):
         f"{flops / 1e9:.1f} GFlop a step) = {100 * bound / loop:.1f} % of "
         f"the warm step; this schedule's own floor, its temporaries' round "
         f"trips included, {sbound:.3f} ms/step ({sbytes / 1e9:.2f} GB); K1 "
-        f"launches by kind {by_kind} ({nbody} a step, all "
-        f"on the point design, no equation in the translator); peak device "
+        f"launches by kind {by_kind} ({nbody} a step, {nstream} of them "
+        f"on the streaming design ({sorted(tti_streams(so))}), by design "
+        f"{designs}, no equation in the translator); peak device "
         f"memory " + (f"{peak / 1e9:.2f} GB" if peak else "not measured")
         + f"; rec norm {np.linalg.norm(r):.6g}")
     log(f"[tti] hoist-trig-taps, warm, in turns ('auto' = {auto_on}, "
@@ -3248,7 +3289,8 @@ def tti(device, sizes, record, gen):
         f"ms/step; launches by kind with it forced {by2}; rec max|diff| "
         f"between the two {diff:.3e}; a launch by equation with it forced "
         f"(CUDA events): " + '; '.join(
-            f"{e['kind']} {e['target']} {e['ms']:.3f} ms"
+            f"{e['kind']} {e['target']} {e['design']} {e['ms']:.3f} ms"
+            + (f" (point {e['point_ms']:.3f})" if 'point_ms' in e else '')
             for e in forced_eqs))
     if gather:
         log(f"[tti] the receivers' interpolation, {gather['npoint']} "
@@ -3263,18 +3305,20 @@ def tti(device, sizes, record, gen):
     del forced, fop2, turns, k2
     ops.pop('forward, trig taps forced')
     kinds.pop('forward, trig taps forced')
+    alts.pop('forward, trig taps forced')
     release(device)
     prof = res['forward']['profile'] = tti_profile(
-        main, fk, sizes['tti_prof_steps'], device, gen)
+        main, fk, sizes['tti_prof_steps'], device, gen, alts['forward'])
     log(f"[tti-profile] {prof['steps']} warm steps: loop "
         f"{prof['loop_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
         f"idle share {100 * (prof['idle_share'] or 0):.1f} %; by kernel: "
         + '; '.join(f"{m['ms']:.3f} ms x{m['calls']}: {m['name'][:60]}"
                     for m in prof['kernels'][:8]))
     log("[tti-profile] a launch by equation (CUDA events): " + '; '.join(
-        f"{e['kind']} {e['target']} {e['ms']:.3f} ms"
+        f"{e['kind']} {e['target']} {e['design']} {e['ms']:.3f} ms"
+        + (f" (point {e['point_ms']:.3f})" if 'point_ms' in e else '')
         for e in prof['per_equation']))
-    del r, main, fop, sv, op_
+    del r, main, fop, sv, op_, alts
     ops.pop('forward')
     release(device)
 

@@ -16,10 +16,12 @@ equation's shape alone, records it on the plan (``plan.design`` and
   groups -- those read off their centre, u[t] in the acoustic update --
   are read along the axes only (a star), at most ``MAX_STAGED`` of them
   and none beyond ``MAX_RADIUS`` per axis, the reach the card tests
-  check. Each CTA streams a (TY, TZ) tile along x: the staged planes, and
-  with them the other groups' tiles, arrive by TMA into a small ring in
-  shared memory, and the x taps live in per-thread register queues.
-  ``stream_tile`` checks that the tile lets two or more CTAs share an SM.
+  check; more than ``FEW_STAGED`` of them only when the widest reaches
+  ``WIDE_RADIUS``. Each CTA streams a (TY, TZ) tile along x: the staged
+  planes, each group's at its own tap shape, and with them the other
+  groups' tiles, arrive by TMA into small rings in shared memory, and the
+  x taps live in per-thread register queues. ``stream_tile`` picks the
+  first tile of ``STREAM_TILES`` that lets two or more CTAs share an SM.
 - ``'point'`` (``csrc/stencil.cuh``): one thread per point, every tap
   through the read-only cache. Every other equation: 2-D regions, taps
   off the axes (cross derivatives), wider stars, windows the tile does
@@ -101,17 +103,19 @@ class StencilPlan:
     right-hand side, in first-read order: ``{'fn', 'tk', 'toff', 'key'}``.
     ``design``: ``'stream'`` or ``'point'``, with ``design_reason``.
     ``staged`` and ``centre``: the indices into ``groups`` of the groups
-    read off their centre and of those read at offset 0 only; ``radii``:
-    the staged taps' reach per axis; ``tile``: ``stream_tile``'s choice
-    (stream design only). ``source``: the generated CUDA translation unit;
-    ``key`` hashes it with every ``csrc/`` header it includes.
+    read off their centre and of those read at offset 0 only;
+    ``group_radii``: each staged group's own reach per axis (x, y, z), in
+    ``staged`` order; ``radii``: their union; ``tile``: ``stream_tile``'s
+    choice (stream design only). ``source``: the generated CUDA
+    translation unit; ``key`` hashes it with every ``csrc/`` header it
+    includes.
     ``launches``: this plan's kernel launches (``stencil_update``).
     ``storage``: the torch dtype of each row, the target's first, then
     each group's: the compute dtype, or a narrow one (``narrow``).
     """
 
     def __init__(self, eq, groups, param_names, design, reason, staged,
-                 centre, radii, tile, storage, space=None):
+                 centre, group_radii, tile, storage, space=None):
         self.eq = eq
         # each row's halo'd extent per space axis: the function's own, or
         # a shard's local layout (parallel/halo.py ShardedRunner.local_space)
@@ -125,7 +129,9 @@ class StencilPlan:
         self.design_reason = reason
         self.staged = staged
         self.centre = centre
-        self.radii = radii
+        self.group_radii = group_radii
+        self.radii = tuple(max(r[d] for r in group_radii) for d in range(3)) \
+            if design == 'stream' else None
         self.tile = tile
         self.launches = 0
         self.dtype = np.dtype(eq.target.dtype)
@@ -277,12 +283,12 @@ def _plan_or_reason(eq, storage=None, _design=None, _tile=None, space=None):
     storage = storage or {}
     rows = [storage.get(f.name) or torch_dtype(f.dtype)
             for f in [fn] + [g['fn'] for g in groups]]
-    design, reason, staged, centre, radii, tile = _choose_design(
+    design, reason, staged, centre, group_radii, tile = _choose_design(
         eq, groups, [offsets[g['key']] for g in groups], _design, _tile,
         rows)
     try:
         plan = StencilPlan(eq, groups, param_names, design, reason, staged,
-                           centre, radii, tile, rows, space)
+                           centre, group_radii, tile, rows, space)
     except CompilationError as e:
         return None, str(e)
     return plan, reason
@@ -295,59 +301,107 @@ def _plan_or_reason(eq, storage=None, _design=None, _tile=None, space=None):
 SM_SMEM, BLOCK_SMEM, CTA_RESERVED, SM_THREADS = 233472, 232448, 1024, 2048
 #: 32-bit registers a thread may spend on its register queues. The kernel
 #: asks for two CTAs per SM (__launch_bounds__), which caps a 256-thread
-#: CTA at 128 registers, and the expression needs the rest.
-QUEUE_REGS = 48
-#: The streaming design's tile (TY, TZ, PY, STAGES, TX) by element size.
-#: fp32: within 2 % of the fastest tile of chip_smoke.py's sweep at 512^3
-#: SO=8 on an H100; fp64: half the points a thread and two stages, so its
-#: queues and ring take what fp32's take (PERF.md §6).
-STREAM_TILE = {4: (16, 64, 4, 3, 32), 8: (8, 64, 2, 2, 32)}
+#: CTA at 128 registers, and the expression needs the rest: TTI's widest
+#: CIRE temporary (139 flops, queues of 72 registers at two points a
+#: thread) built in 128 without spills on the H100.
+QUEUE_REGS = 72
+#: The streaming design's tiles (TY, TZ, PY, STAGES, TX) by element size,
+#: in the order ``stream_tile`` tries them. fp32's first: within 2 % of
+#: the fastest tile of chip_smoke.py's sweep at 512^3 SO=8 on an H100;
+#: fp64's first: half the points a thread and two stages, so its queues
+#: and ring take what fp32's take (PERF.md §6). The later ones give up
+#: points a thread and tile width for the rings and queues of an equation
+#: of many or wide staged groups, and walk longer x-chunks: a wide group
+#: primes its queue over 2rx planes a chunk (TTI's widest CIRE temporary
+#: ran 7 % faster at 64 planes than at 32 on the H100).
+STREAM_TILES = {4: ((16, 64, 4, 3, 32), (16, 32, 2, 2, 64),
+                    (8, 32, 1, 3, 64)),
+                8: ((8, 64, 2, 2, 32), (8, 32, 1, 2, 32), (4, 32, 1, 2, 32))}
+STREAM_TILE = {k: v[0] for k, v in STREAM_TILES.items()}
 #: The most staged groups, and the largest radius per axis, the streaming
 #: design takes: what its card tests (tests/test_torch_stencil_stream.py)
 #: build and check, spills and CTAs per SM included.
-MAX_STAGED, MAX_RADIUS = 2, 4
+MAX_STAGED, MAX_RADIUS = 6, 6
+#: An equation of more than FEW_STAGED staged groups streams only when its
+#: widest reach is WIDE_RADIUS or more. Below it the point design's caches
+#: hold each group's few taps: on the H100 at 512^3 the streaming design
+#: ran 2-43 % slower than the point design on the radius-2 stars of three
+#: to five groups of the elastic, visco-elastic and visco-acoustic
+#: solvers, and 25-66 % faster on TTI's and the self-adjoint solver's of
+#: radius 3 to 6 (PERF.md §6).
+FEW_STAGED, WIDE_RADIUS = 2, 3
 
 
 def _round_up(v, m):
     return -(-v // m) * m
 
 
-def stream_tile(dtype, radii, nstaged=1, ncentre=0, tile=None):
-    """``STREAM_TILE``'s tile of ``dtype`` -- or ``tile``, a (TY, TZ, PY,
-    STAGES, TX) tuple -- for ``nstaged`` staged groups read up to
-    ``radii`` = (rx, ry, rz) off their centre and ``ncentre`` centre
-    groups, if its ring of shared memory lets two or more CTAs share an SM
-    and its queues fit ``QUEUE_REGS``. Returns a dict of the tile (``ty,
-    tz, py, stages, tx``), its threads, TMA box (``box``: rows, elements a
-    row; ``box_row_bytes``), plane pitch, ``smem_bytes``, ``ctas_per_sm``
-    (from shared memory and threads; the registers cannot lower it below
-    2, see QUEUE_REGS) and ``queue_regs``; or None when it does not fit.
-    Mirrors ``csrc/stencil_stream.cuh`` ``StreamTile``."""
+def stream_tile(dtype, radii, nstaged=1, ncentre=0, tile=None,
+                arithmetic=False):
+    """The first tile of ``STREAM_TILES[dtype]`` -- or ``tile``, a (TY,
+    TZ, PY, STAGES, TX) tuple -- whose rings of shared memory let two or
+    more CTAs share an SM and whose queues fit ``QUEUE_REGS``, for staged
+    groups of reach ``radii`` per axis (x, y, z): one (rx, ry, rz), that
+    of each of ``nstaged`` groups, or a list of them, one a group (then
+    ``nstaged`` is their number), and ``ncentre`` centre groups. With
+    ``arithmetic`` (a point expression bound by its arithmetic, not by its
+    bytes) the tiles of one point a thread go first: their fewer
+    registers leave room for more CTAs an SM. Returns a
+    dict of the tile (``ty, tz, py, stages, tx``), its threads, the
+    union's TMA box (``box``: rows, elements a row; ``box_row_bytes``) and
+    ``pitch``, each group's (``boxes``, ``pitches``, ``slots``: its ring's
+    planes, ``queues``: its queue's length, ``lags``: the stages it starts
+    late), ``smem_bytes``, ``ctas_per_sm`` (from shared memory and
+    threads; the registers cannot lower it below 2, see QUEUE_REGS) and
+    ``queue_regs``; or None when no tile fits. Mirrors
+    ``csrc/stencil_stream.cuh`` ``StreamTile``."""
     size = np.dtype(dtype).itemsize
-    rx, ry, rz = radii
-    ty, tz, py, stages, tx = tile or STREAM_TILE[size]
+    groups = ([tuple(radii)] * nstaged if np.ndim(radii) == 1
+              else [tuple(r) for r in radii])
+    tiles = sorted(STREAM_TILES[size], key=lambda t: arithmetic and t[2] > 1)
+    for t in [tile] if tile else tiles:
+        fit = _tile_fit(size, groups, ncentre, t)
+        if fit is not None:
+            return fit
+    return None
+
+
+def _tile_fit(size, groups, ncentre, tile):
+    """``stream_tile``'s dict for one tile, or None."""
+    ty, tz, py, stages, tx = tile
+    rx, ry, rz = (max(g[d] for g in groups) for d in range(3))
     al = 16 // size        # boxes start and end on 16-byte boundaries
-    by, bz = ty + 2 * ry, _round_up(tz + 2 * rz + al - 1, al)
-    nslot = rx + stages
-    # barriers, the staged planes' ring, the centre tiles of each stage
-    smem = (128 + _round_up(8 * nslot, 128)
-            + nslot * nstaged * _round_up(by * bz * size, 128)
+
+    def box(ry, rz):
+        return ty + 2 * ry, _round_up(tz + 2 * rz + al - 1, al)
+
+    boxes = [box(g[1], g[2]) for g in groups]
+    slots = [g[0] + stages for g in groups]
+    # barriers, each group's ring of planes, the centre tiles of each stage
+    smem = (128 + _round_up(8 * (rx + stages), 128)
+            + sum(n * _round_up(by * bz * size, 128)
+                  for n, (by, bz) in zip(slots, boxes))
             + stages * ncentre * _round_up(ty * (tz + al) * size, 128))
     threads = tz * (ty // py)
     ctas = min(SM_SMEM // (smem + CTA_RESERVED), SM_THREADS // threads,
                32) if smem <= BLOCK_SMEM else 0
-    qregs = py * nstaged * (2 * rx + 1) * size // 4
-    if ctas < 2 or qregs > QUEUE_REGS or by > 256 or bz > 256:
+    queues = [2 * g[0] + 1 for g in groups]
+    qregs = py * sum(queues) * size // 4
+    if ctas < 2 or qregs > QUEUE_REGS or \
+            max(max(b) for b in boxes) > 256:
         return None
+    by, bz = box(ry, rz)
     return dict(ty=ty, tz=tz, py=py, stages=stages, tx=tx, threads=threads,
                 box=(by, bz), box_row_bytes=bz * size, pitch=bz,
+                boxes=boxes, pitches=[b[1] for b in boxes], slots=slots,
+                queues=queues, lags=[2 * (rx - g[0]) for g in groups],
                 smem_bytes=smem, ctas_per_sm=ctas, queue_regs=qregs)
 
 
 def _choose_design(eq, groups, offsets, force=None, tile=None, rows=()):
-    """(design, reason, staged, centre, radii, tile) for ``eq``, whose
-    groups are read at the sets of space offsets ``offsets`` and whose
-    rows (target first) are stored as ``rows``."""
+    """(design, reason, staged, centre, group radii, tile) for ``eq``,
+    whose groups are read at the sets of space offsets ``offsets`` and
+    whose rows (target first) are stored as ``rows``."""
     centred = {(0,) * len(eq.region)}
     staged = [k for k, o in enumerate(offsets) if o != centred]
     centre = [k for k, o in enumerate(offsets) if o == centred]
@@ -375,22 +429,42 @@ def _choose_design(eq, groups, offsets, force=None, tile=None, rows=()):
             if sum(1 for v in o if v) > 1:
                 return point(f"{groups[k]['fn'].name} is read at {o}, off "
                              f"the axes")
-    radii = tuple(max(abs(o[d]) for k in staged for o in offsets[k])
-                  for d in range(3))
+    group_radii = [tuple(max(abs(o[d]) for o in offsets[k])
+                         for d in range(3)) for k in staged]
+    radii = tuple(max(r[d] for r in group_radii) for d in range(3))
     if len(staged) > MAX_STAGED or max(radii) > MAX_RADIUS:
         return point(f"{len(staged)} staged groups, radii {radii}: the "
                      f"streaming design takes up to {MAX_STAGED}, of radius "
                      f"up to {MAX_RADIUS}")
-    fit = stream_tile(eq.target.dtype, radii, len(staged), len(centre),
-                      tile)
+    if len(staged) > FEW_STAGED and max(radii) < WIDE_RADIUS:
+        return point(f"{len(staged)} staged groups, radii {radii}: the "
+                     f"streaming design takes more than {FEW_STAGED} only "
+                     f"at a radius of {WIDE_RADIUS} or more")
+    # transcendental calls (TTI's trig taps unhoisted) make the kernel
+    # bound by its arithmetic, not by its bytes
+    arithmetic = any(not isinstance(a, AbstractFunction) for a in
+                     sympy.sympify(eq.rhs).atoms(sympy.Function))
+    if not arithmetic and all(sum(1 for v in r if v) == 1
+                              for r in group_radii):
+        # on the H100 at 512^3 the streaming design ran 19-58 % slower
+        # than the point design on the elastic and visco-elastic solvers'
+        # lines of radius 2 (PERF.md §6)
+        return point(f"each staged group is read along one axis "
+                     f"({', '.join(groups[k]['fn'].name for k in staged)}): "
+                     f"the point design's caches hold a line of taps")
+    fit = stream_tile(eq.target.dtype, group_radii, ncentre=len(centre),
+                      tile=tile, arithmetic=arithmetic)
     if fit is None:
-        return point(f"{len(staged)} staged groups, radii {radii}: the tile "
-                     f"does not fit two CTAs per SM and {QUEUE_REGS} queue "
+        return point(f"{len(staged)} staged groups, radii {radii}: no tile "
+                     f"fits two CTAs per SM and {QUEUE_REGS} queue "
                      f"registers")
     names = ', '.join(groups[k]['fn'].name for k in staged)
-    return ('stream', f"3-D star of {names}, radii {radii}, tile "
+    shapes = '' if len(set(group_radii)) == 1 else ' (' + ', '.join(
+        f"{groups[k]['fn'].name} {r}" for k, r in zip(staged, group_radii)
+    ) + ')'
+    return ('stream', f"3-D star of {names}, radii {radii}{shapes}, tile "
             f"{fit['ty']}x{fit['tz']}x{fit['tx']}, {fit['ctas_per_sm']} "
-            f"CTAs/SM", staged, centre, radii, fit)
+            f"CTAs/SM", staged, centre, group_radii, fit)
 
 
 def _halo_extended(eq):
@@ -498,15 +572,16 @@ extern "C" int dtpu_stencil_launch(void* const* ptrs, const long long* strides,
 
 class _StreamCtx(_CudaCtx):
     """cuda_expr context of the streaming design: a staged group's x taps
-    read its register queue ``q[s]``, its y and z taps the current plane
-    in shared memory at ``sp[s]``; a centre group is the value ``cv[c]``
-    the kernel loaded from global memory for the point."""
+    read its register queue ``q[s]``, centred on its own x reach, its y
+    and z taps the current plane in shared memory at ``sp[s]``, at its own
+    pitch ``PZ<s>``; a centre group is the value ``cv[c]`` the kernel
+    loaded from global memory for the point."""
 
     def __init__(self, plan, ctype):
         super().__init__(plan.groups, plan.param_names, ctype)
         self.staged = {k: s for s, k in enumerate(plan.staged)}
         self.centre = {k: c for c, k in enumerate(plan.centre)}
-        self.rx = plan.radii[0]
+        self.rx = [r[0] for r in plan.group_radii]
 
     def access(self, e):
         k = self.index[_access_key(e)]
@@ -515,22 +590,27 @@ class _StreamCtx(_CudaCtx):
         s = self.staged[k]
         dx, dy, dz = space_offsets_of(e)
         if dy:
-            return f'sp[{s}][{dy} * PZ]'
+            return f'sp[{s}][{dy} * PZ{s}]'
         if dz:
             return f'sp[{s}][{dz}]'
-        return f'q[{s}][{self.rx + dx}]'
+        return f'q[{s}][{self.rx[s] + dx}]'
 
 
 def _generate_stream(plan):
     """The streaming design's translation unit of ``plan``: the template
-    at the plan's radii and tile, the point expression, and C entry
-    points for ctypes."""
+    at the plan's radii (each staged group's own, ``dtpu::Radii``) and
+    tile, each group's pitch, the point expression, and C entry points for
+    ctypes. The unit asserts that ``stream_tile``'s shared memory is the
+    template's."""
     eq, t = plan.eq, plan.tile
     ctype = _CTYPE[plan.dtype]
     expr = cuda_expr(eq.rhs, _StreamCtx(plan, ctype))
     names = [', '.join(_label_name(plan.groups[k]['fn']) for k in ks) or '-'
              for ks in (plan.staged, plan.centre)]
     rx, ry, rz = plan.radii
+    shapes = ', '.join(str(v) for r in plan.group_radii for v in r)
+    pitches = '\n'.join(f'constexpr int PZ{s} = Tile::pz({s});'
+                        for s in range(len(plan.staged)))
     return f"""// Generated for: {_unit_label(eq)}
 #include "stencil_stream.cuh"
 
@@ -538,10 +618,14 @@ using T = {ctype};
 constexpr int NS = {len(plan.staged)};  // staged groups: {names[0]}
 constexpr int NC = {len(plan.centre)};  // centre groups: {names[1]}
 constexpr int NP = {len(plan.param_names)};
+// each staged group's reach (rx, ry, rz), in the order above
+using Radii = dtpu::Radii<{shapes}>;
 using Tile = dtpu::StreamTile<T, NS, NC, {rx}, {ry}, {rz}, {t['ty']}, \
-{t['tz']}, {t['py']}, {t['stages']}>;
+{t['tz']}, {t['py']}, {t['stages']}, Radii>;
 using Args = dtpu::StreamArgs<T, NS, NC, NP>;
-constexpr int PZ = Tile::PZ;
+{pitches}
+static_assert(Tile::SMEM == {t['smem_bytes']}, "kernels/stencil.py stream_tile \
+mirrors the layout");
 
 // In an unnamed namespace, so that the kernel and the launch template
 // instantiated with it have internal linkage: another equation's library

@@ -296,7 +296,12 @@ def test_tti_solver_runs_the_steps_asked_for():
         assert s.geometry.nt - 2 == 7 and s.geometry.rec.npoint == 5
     assert {k for k, _, _ in kinds} == {
         'body update', 'CIRE temporary', 'hoisted prologue item'}
-    assert all(p.design == 'point' for _, _, p in kinds)
+    # at SO=8 cire3 reads u at radius 4 and streams; cire2's radius-2
+    # groups, and every other equation, take the point design
+    assert {eq.target.name for _, eq, p in kinds
+            if p.design == 'stream'} == C.tti_streams(8) == {'cire3'}
+    assert all(p.design == 'point' for _, eq, p in kinds
+               if eq.target.name != 'cire3')
     assert not C.trig_taps_on(s.op_fwd(None))
 
 
@@ -481,9 +486,13 @@ def test_solvers_phase_runs_on_the_cpu():
                                         for d in res['dot'].values())
     assert [r[0] for r in res['receivers']['sinc']['sparse']][-2:] == [
         'interp rec1', 'interp rec2']
-    # a streaming equation is held and timed beside its point design
+    # a streaming equation is held and timed beside its point design (the
+    # self-adjoint update; elastic's lines of radius 2 take the point
+    # design)
     assert any(e['design'] == 'stream' and 'point_ms' in e and
                e['point_max_abs_err'] <= e['tol']
+               for e in res['self-adjoint forward']['per_equation'])
+    assert all(e['design'] == 'point'
                for e in res['elastic forward']['per_equation'])
     # every launch at full width, forwards and adjoints, held against its
     # plain version; each loop split into its calls

@@ -321,8 +321,9 @@ def _solver_3d(dtype=np.float64, shape=(20, 22, 24)):
 def test_inverse_update_designs(dtype):
     """The adjoint's and the gradient's v.backward and Born's u.forward
     stream; Born's U.forward reads seven centre groups, whose tiles do not
-    fit two streaming CTAs on an SM, so it takes the point design; the
-    gradient's increment is declined and runs in the torch translator."""
+    fit two streaming CTAs on an SM at the first tile, so it streams on a
+    later one; the gradient's increment is declined and runs in the torch
+    translator."""
     solver = _solver_3d(dtype)
     (adj_eq, adj), = solver.op_adj().kernel_plans
     assert adj.design == 'stream' and adj_eq.time_off == -1
@@ -337,12 +338,14 @@ def test_inverse_update_designs(dtype):
     (u_eq, u_plan), (U_eq, U_plan) = solver.op_born().kernel_plans
     assert (u_eq.target.name, U_eq.target.name) == ('u', 'U')
     assert u_plan.design == 'stream'
-    assert U_plan.design == 'point'
+    assert U_plan.design == 'stream'
     assert len(U_plan.centre) == 7 and len(U_plan.staged) == 1
-    assert U_plan.design_reason == (
-        "1 staged groups, radii (4, 4, 4): the tile does not fit two CTAs "
-        "per SM and 48 queue registers")
-    assert K.stream_tile(dtype, (4, 4, 4), 1, 7) is None
+    first = K.STREAM_TILES[np.dtype(dtype).itemsize][0]
+    assert K.stream_tile(dtype, (4, 4, 4), 1, 7, first) is None
+    t = U_plan.tile
+    assert (t['ty'], t['tz'], t['py'], t['stages'], t['tx']) != first
+    assert U_plan.design_reason.startswith(
+        "3-D star of U, radii (4, 4, 4), tile ")
 
 
 # -- on the card ----------------------------------------------------------------

@@ -64,6 +64,19 @@ def _two_staged_plan(shape, so, dtype=np.float32):
     return _plan_of(dt.Eq(u.forward, dt.solve(pde, u.forward)), g)
 
 
+def _many_staged_plan(shape, so, nfields, dtype=np.float32):
+    """The plan of an update that reads u[t] and ``nfields`` more fields,
+    each as a whole star of its Laplacian: 1 + nfields staged groups, all
+    of radius so/2."""
+    g = dt.Grid(shape=shape, extent=tuple(10. * (s - 1) for s in shape),
+                dtype=dtype)
+    u = dt.TimeFunction(name='u', grid=g, space_order=so)
+    ws = [dt.Function(name=f'w{i}', grid=g, space_order=so)
+          for i in range(nfields)]
+    return _plan_of(dt.Eq(u.forward, u + 0.1 * (u.laplace + sum(
+        w.laplace for w in ws))), g)
+
+
 def _plan(shape, so, dtype=np.float32, **kw):
     g, e = _acoustic(dt, shape, so, dtype)
     (it,) = _dense(lower_t([e], subs=g.spacing_map))
@@ -101,12 +114,20 @@ def test_cross_derivative_stays_on_the_point_design():
 
 @pytest.mark.parametrize('dtype', [np.float32, np.float64])
 def test_over_budget_window_stays_on_the_point_design(dtype):
-    # two staged groups at radius 4: 2 x 4 x 9 floats of queue a thread
-    plan = _two_staged_plan((8, 9, 10), 8, dtype)
+    # six staged groups, each a whole star of radius 6: at one point a
+    # thread 6 x 13 values of queue, and rings past a CTA's shared memory
+    # on every tile
+    plan = _many_staged_plan((8, 9, 10), 12, 5, dtype)
     assert plan.design == 'point' and plan.tile is None
     assert plan.design_reason == \
-        ('2 staged groups, radii (4, 4, 4): the tile does not fit two CTAs '
-         'per SM and 48 queue registers')
+        ('6 staged groups, radii (6, 6, 6): no tile fits two CTAs per SM '
+         'and 72 queue registers')
+    # two staged groups at radius 4 (2 x 4 x 9 floats of queue at the
+    # first tile) fit a later tile
+    two = _two_staged_plan((8, 9, 10), 8, dtype)
+    size = np.dtype(dtype).itemsize
+    assert two.design == 'stream' and two.tile['py'] < \
+        K.STREAM_TILES[size][0][2]
 
 
 @pytest.mark.parametrize('dtype', [np.float32, np.float64])
@@ -114,10 +135,17 @@ def test_over_budget_window_stays_on_the_point_design(dtype):
 def test_wide_star_stays_on_the_point_design(so, dtype):
     plan = _plan((8, 9, 10), so, dtype)
     r = so // 2
+    if r <= K.MAX_RADIUS:
+        # SO=12: radius 6, within the card tests' reach, on a tile of
+        # fewer points a thread than the first
+        size = np.dtype(dtype).itemsize
+        assert plan.design == 'stream' and plan.radii == (r, r, r)
+        assert plan.tile['py'] < K.STREAM_TILES[size][0][2]
+        return
     assert plan.design == 'point' and plan.tile is None
     assert plan.design_reason == \
         (f'1 staged groups, radii ({r}, {r}, {r}): the streaming design '
-         f'takes up to 2, of radius up to 4')
+         f'takes up to 6, of radius up to 6')
 
 
 def test_three_staged_groups_stay_on_the_point_design():
@@ -127,7 +155,12 @@ def test_three_staged_groups_stay_on_the_point_design():
     plan = _plan_of(dt.Eq(u.forward, u + 0.1 * (u.laplace + v.laplace
                                                  + w.laplace)), g)
     assert plan.design == 'point'
-    assert plan.design_reason.startswith('3 staged groups, radii (1, 1, 1)')
+    assert plan.design_reason == (
+        '3 staged groups, radii (1, 1, 1): the streaming design takes more '
+        'than 2 only at a radius of 3 or more')
+    # the same three groups as radius-3 stars stream, each at its own shape
+    wide = _many_staged_plan((8, 9, 10), 6, 2)
+    assert wide.design == 'stream' and wide.group_radii == [(3, 3, 3)] * 3
 
 
 @pytest.mark.parametrize('dtype', [np.float32, np.float64])
@@ -140,6 +173,34 @@ def test_two_staged_groups_stream(so, dtype):
     assert f'constexpr int NS = 2;  // staged groups: {", ".join(names)}' \
         in plan.source
     assert 'q[1][' in plan.source and 'sp[1][' in plan.source
+
+
+@pytest.mark.parametrize('trig', [False, True])
+def test_lines_of_taps_stay_on_the_point_design(trig):
+    """Groups each read along one axis (elastic's stress updates) take the
+    point design unless the expression is bound by its arithmetic (TTI's
+    unhoisted trig taps): then they stream on a tile of one point a
+    thread."""
+    from devito_tpu_torch.finite_differences.derivative import Derivative
+    from devito_tpu_torch.finite_differences.elementary import sin
+    g = dt.Grid(shape=(10, 11, 12), extent=(9., 10., 11.))
+    x, y, _ = g.dimensions
+    u = dt.TimeFunction(name='u', grid=g, space_order=4)
+    v, w = (dt.Function(name=n, grid=g, space_order=4) for n in 'vw')
+    f = sin if trig else (lambda e: e)
+    plan = _plan_of(dt.Eq(u.forward, u + 0.1 * Derivative(
+        f(v), (x, 1), fd_order=4) + 0.2 * Derivative(f(w), (y, 1),
+                                                     fd_order=4)), g)
+    names = sorted(plan.groups[k]['fn'].name for k in plan.staged)
+    assert names == ['v', 'w']
+    if not trig:
+        assert plan.design == 'point'
+        assert plan.design_reason == (
+            "each staged group is read along one axis (v, w): the point "
+            "design's caches hold a line of taps")
+        return
+    assert plan.design == 'stream' and plan.tile['py'] == 1
+    assert sorted(plan.group_radii) == [(0, 2, 0), (2, 0, 0)]
 
 
 def test_centre_only_equation_stays_on_the_point_design():
@@ -227,11 +288,147 @@ def test_stream_tile_centre_tiles_take_shared_memory():
 
 def test_stream_tile_declines_what_does_not_fit():
     assert K.stream_tile(np.float32, (16, 16, 16)) is None
-    # rx = 16 in fp64: even one point's queue, 33 doubles, passes
+    # rx = 18 in fp64: even one point's queue, 37 doubles, passes
     # QUEUE_REGS
-    assert K.stream_tile(np.float64, (16, 4, 4)) is None
+    assert K.stream_tile(np.float64, (18, 4, 4)) is None
     assert K.stream_tile(np.float32, (4, 4, 4), 1, 0,
                          (16, 64, 4, 40, 64)) is None
+
+
+# -- each staged group at its own tap shape -----------------------------------
+
+#: TTI's widest CIRE temporary at SO=12 (cire3): u[t] at radius 6, CIRE's
+#: cire1 at radius 3, and the four hoisted trig fields, each along its own
+#: axes at radius 3 (r0 along z, r1 along x, r2 along x and y, r3 along y).
+CIRE3_RADII = [(6, 6, 6), (3, 3, 3), (0, 0, 3), (3, 0, 0), (3, 3, 0),
+               (0, 3, 0)]
+
+
+def _header_layout(size, groups, ncentre, tile):
+    """The shared memory and queue registers of csrc/stencil_stream.cuh's
+    StreamTile for ``groups`` (per group (rx, ry, rz)), written out group
+    by group as the header lays them out: the barriers (one a stage slot of
+    the widest group's ring), each group's ring of rx + STAGES planes of
+    (TY + 2ry) x (TZ + 2rz + 16 B - 1, rounded to 16 B), each rounded to
+    128 B, then the centre tiles."""
+    ty, tz, py, stages, _ = tile
+    al = 16 // size
+    rx = max(g[0] for g in groups)
+    ring = 0
+    for gx, gy, gz in groups:
+        bz = -(-(tz + 2 * gz + al - 1) // al) * al
+        ring += (gx + stages) * -(-(ty + 2 * gy) * bz * size // 128) * 128
+    bars = -(-8 * (rx + stages) // 128) * 128
+    ctile = -(-ty * (tz + al) * size // 128) * 128
+    qregs = py * sum(2 * g[0] + 1 for g in groups) * size // 4
+    return 128 + bars + ring + stages * ncentre * ctile, qregs
+
+
+@pytest.mark.parametrize('groups,ncentre', [
+    (CIRE3_RADII, 0), (CIRE3_RADII[1:], 0),
+    ([(2, 0, 0), (0, 2, 0), (0, 0, 2)], 1), ([(0, 0, 2), (0, 2, 0)], 0),
+    ([(4, 4, 4), (4, 0, 0), (0, 4, 0), (0, 0, 4)], 4)])
+def test_stream_tile_lays_out_each_group_at_its_own_shape(groups, ncentre):
+    t = K.stream_tile(np.float32, groups, ncentre=ncentre)
+    assert t is not None
+    tile = (t['ty'], t['tz'], t['py'], t['stages'], t['tx'])
+    assert tile in K.STREAM_TILES[4]
+    assert (t['smem_bytes'], t['queue_regs']) == \
+        _header_layout(4, groups, ncentre, tile)
+    al = 4
+    for (gx, gy, gz), (by, bz), pz, n, q, lag in zip(
+            groups, t['boxes'], t['pitches'], t['slots'], t['queues'],
+            t['lags']):
+        assert by == t['ty'] + 2 * gy and pz == bz
+        assert bz == -(-(t['tz'] + 2 * gz + al - 1) // al) * al
+        assert (n, q) == (gx + t['stages'], 2 * gx + 1)
+        assert lag == 2 * (max(g[0] for g in groups) - gx)
+    # the union's box is the widest group's, whatever the others'
+    union = tuple(max(g[d] for g in groups) for d in range(3))
+    assert t['box'] == (t['ty'] + 2 * union[1],
+                        -(-(t['tz'] + 2 * union[2] + al - 1) // al) * al)
+    # every earlier tile of the list does not fit
+    for earlier in K.STREAM_TILES[4][:K.STREAM_TILES[4].index(tile)]:
+        assert K.stream_tile(np.float32, groups, ncentre=ncentre,
+                             tile=earlier) is None
+
+
+def test_stream_tile_of_equal_groups_is_the_union_layout():
+    """Groups all of one shape lay out as the union's: a list of equal
+    radii and (radii, nstaged) give one answer."""
+    for r, n, c in [((4, 4, 4), 1, 3), ((2, 2, 2), 2, 2), ((1, 1, 1), 2, 0)]:
+        assert K.stream_tile(np.float32, [r] * n, ncentre=c) == \
+            K.stream_tile(np.float32, r, n, c)
+
+
+def test_cire3_layout_fits_only_at_its_own_shapes():
+    """At the union's shape (six groups of radius 6) no tile fits; staged
+    each at its own shape, TTI's widest temporary fits two CTAs an SM."""
+    assert K.stream_tile(np.float32, (6, 6, 6), 6) is None
+    t = K.stream_tile(np.float32, CIRE3_RADII)
+    assert t is not None and t['ctas_per_sm'] >= 2
+    assert t['queue_regs'] <= K.QUEUE_REGS
+    assert t['slots'] == [r[0] + t['stages'] for r in CIRE3_RADII]
+
+
+def _tti_plans(shape=(24, 22, 26), so=12, dtype=np.float32):
+    """(kind, lowered eq, plan) of every dense item of the centred TTI
+    forward at ``so`` with hoist-trig-taps True, as 'auto' picks at the
+    canonical size."""
+    from devito_tpu_torch.models.seismic import tti_setup
+    s = tti_setup(shape=shape, spacing=(20.,) * 3, tn=10., space_order=so,
+                  nbl=4, dtype=dtype,
+                  opt=('advanced', {'hoist-trig-taps': True}))
+    op = s.op_fwd(None)
+    plans = {id(eq): p for eq, p in op.kernel_plans}
+    out = {}
+    for sec in ('prologue', 'body'):
+        for it in getattr(op.schedule, sec):
+            if hasattr(it, 'region'):
+                out[it.target.name] = (it, plans[id(it)])
+    return out
+
+
+def test_generated_source_prints_each_groups_pitch():
+    (eq, plan) = _tti_plans()['cire3']
+    src = plan.source
+    assert plan.design == 'stream' and len(plan.staged) == 6
+    assert 'using Radii = dtpu::Radii<' + ', '.join(
+        str(v) for r in plan.group_radii for v in r) + '>;' in src
+    for s, pz in enumerate(plan.tile['pitches']):
+        assert f'constexpr int PZ{s} = Tile::pz({s});' in src
+    assert f"static_assert(Tile::SMEM == {plan.tile['smem_bytes']}," in src
+    body = src.split('return', 1)[1].split(';', 1)[0]
+    names = [plan.groups[k]['fn'].name for k in plan.staged]
+    radii = dict(zip(names, plan.group_radii))
+    for s, name in enumerate(names):
+        rx, ry, rz = radii[name]
+        # y taps at the group's own pitch; x taps centred on its own reach
+        assert (f'* PZ{s}]' in body) == (ry > 0), name
+        assert all(f'q[{s}][{i}]' not in body for i in range(2 * rx + 1,
+                                                            13)), name
+        assert f'q[{s}][{rx}]' in body or f'sp[{s}][' in body, name
+    assert ' * PZ]' not in body
+    assert K.point_flops(plan) == K.point_flops(
+        K.plan_for(eq, _design='point')) == 139
+
+
+def test_acoustic_plan_is_todays():
+    """A single staged group's own shape is the union's: the acoustic
+    SO=8 plan keeps its tile, its groups, its radii and its layout."""
+    plan = _plan((16, 24, 32), 8)
+    t = plan.tile
+    assert (len(plan.staged), len(plan.centre)) == (1, 3)
+    assert plan.radii == (4, 4, 4) and plan.group_radii == [(4, 4, 4)]
+    assert (t['ty'], t['tz'], t['py'], t['stages'], t['tx']) == \
+        (16, 64, 4, 3, 32)
+    # the layout of the design before per-group shapes: a (24, 76) box,
+    # 7 slots, three centre tiles a stage
+    assert t['box'] == (24, 76) and t['slots'] == [7]
+    assert t['smem_bytes'] == 128 + 128 + 7 * 7296 + 3 * 3 * 4352
+    assert (t['queue_regs'], t['ctas_per_sm'], t['lags']) == (36, 2, [0])
+    assert 'dtpu::StreamTile<T, NS, NC, 4, 4, 4, 16, 64, 4, 3, Radii>' in \
+        plan.source
 
 
 # -- launch geometry ----------------------------------------------------------
@@ -290,13 +487,14 @@ def test_generated_stream_source():
     assert 'namespace {\nstruct Point {' in src
     assert 'constexpr int NS = 1;  // staged groups: u' in src
     assert 'constexpr int NC = 3;  // centre groups: ' in src
-    assert 'dtpu::StreamTile<T, NS, NC, 4, 4, 4, 16, 64, 4, 3>' in src
+    assert 'using Radii = dtpu::Radii<4, 4, 4>;' in src
+    assert 'dtpu::StreamTile<T, NS, NC, 4, 4, 4, 16, 64, 4, 3, Radii>' in src
     body = src.split('return', 1)[1].split(';', 1)[0]
     # x taps: the register queue; y and z taps: the plane in shared memory
     for i in range(9):
         assert f'q[0][{i}]' in body
     for d in (-4, -3, -2, -1, 1, 2, 3, 4):
-        assert f'sp[0][{d} * PZ]' in body and f'sp[0][{d}]' in body
+        assert f'sp[0][{d} * PZ0]' in body and f'sp[0][{d}]' in body
     # centre groups: values the kernel loaded from global memory for the
     # point (here from their tiles, which TMA brought with the plane)
     assert {'cv[0]', 'cv[1]', 'cv[2]'} <= set(
@@ -309,7 +507,7 @@ def test_generated_stream_source():
 def test_generated_stream_source_fp64():
     plan = _plan((8, 9, 10), 4, np.float64)
     assert 'using T = double;' in plan.source
-    assert 'dtpu::StreamTile<T, NS, NC, 2, 2, 2, 8, 64, 2, 2>' in \
+    assert 'dtpu::StreamTile<T, NS, NC, 2, 2, 2, 8, 64, 2, 2, Radii>' in \
         plan.source
 
 
@@ -540,3 +738,74 @@ def test_libraries_of_one_tile_keep_their_own_kernels_on_card():
         got, pnt, ref = _three_ways(plan, seed=k)
         tol = TOL[np.float32] * ref.abs().max().item()
         assert (got - ref).abs().max().item() <= tol
+
+
+def _tiles_for(plan, count=2):
+    """The first ``count`` tiles of STREAM_TILES, then of smaller x-chunks,
+    that ``plan``'s equation fits."""
+    size = plan.dtype.itemsize
+    cands = list(K.STREAM_TILES[size]) + [t[:4] + (16,)
+                                          for t in K.STREAM_TILES[size]]
+    fits = [t for t in cands if K.stream_tile(
+        plan.dtype, plan.group_radii, ncentre=len(plan.centre),
+        tile=t) is not None]
+    return fits[:count]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+@pytest.mark.parametrize('unit', ['cire2', 'cire3'])
+@pytest.mark.parametrize('shape', [(61, 37, 45), (40, 70, 29)])
+def test_cire_stars_on_card(shape, unit, dtype):
+    """TTI's CIRE temporaries of several staged groups at their own
+    shapes (SO=12, hoist-trig-taps True), on ragged extents, through the
+    streaming kernel on two or more tiles, against the plain version and
+    the point design on the same seeded rows; no spills, two or more CTAs
+    an SM."""
+    _card()
+    with dt.switchconfig(device='cuda'):
+        eq, plan = _tti_plans(shape, dtype=dtype)[unit]
+        tiles = _tiles_for(K.plan_for(eq, _tile=(8, 32, 1, 2, 16))
+                           if plan.design != 'stream' else plan)
+        assert len(tiles) >= 2
+        plans = [K.plan_for(eq, _tile=t) for t in tiles]
+    for k, p in enumerate(plans):
+        assert p.design == 'stream' and len(p.group_radii) >= 5
+        got, pnt, ref = _three_ways(p, seed=k)
+        tol = TOL[dtype] * ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= tol
+        assert (got - pnt).abs().max().item() <= tol
+        _built_clean(p)
+
+
+@pytest.mark.cuda
+def test_tti_forward_streams_and_matches_the_plain_version_on_card():
+    """The centred TTI forward at 96^3 SO=12 fp32 with hoist-trig-taps
+    True: cire2 and cire3 launch the streaming design each step, and the
+    shot record matches the plain version's on the CPU to 1e-4 of its
+    largest value (the tolerance of the TTI forward on the card since
+    it was ported)."""
+    _card()
+    from devito_tpu_torch.models.seismic import tti_setup
+
+    def shot(device):
+        with dt.switchconfig(device=device):
+            s = tti_setup(shape=(96, 96, 96), spacing=(20.,) * 3, tn=60.,
+                          space_order=12, nbl=10, dtype=np.float32,
+                          opt=('advanced', {'hoist-trig-taps': True}))
+            before = dict(K.launches_by_design)
+            rec = np.array(s.forward()[0].data)
+            plans = {eq.target.name: p
+                     for eq, p in s.op_fwd(None).kernel_plans}
+            steps = s.geometry.nt - 2
+        return rec, plans, before, steps
+
+    rec, plans, before, steps = shot('cuda')
+    assert {n for n, p in plans.items() if p.design == 'stream'} == \
+        {'cire2', 'cire3'}
+    assert K.launches_by_design['stream'] - before['stream'] == \
+        2 * plans['cire3'].launches
+    assert plans['cire3'].launches == plans['cire2'].launches >= steps
+    want = shot('cpu')[0]
+    assert np.abs(want).max() > 0
+    assert np.abs(rec - want).max() <= 1e-4 * np.abs(want).max()

@@ -119,3 +119,46 @@ def test_canonical_2d_drive():
                      space_order=8, nbl=10)
     rec = s.forward()[0]
     assert abs(np.linalg.norm(rec.data) - 1179.9) < 0.5
+
+
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+def test_so12_schedule_streams_its_wide_cire_stars(dtype):
+    """The centred TTI forward at SO=12 with hoist-trig-taps True (the
+    setting 'auto' picks at the canonical size): cire2 and cire3 run on
+    K1's streaming design, each staged group at its own reach; the
+    halo-extended items (cire0, cire1, the hoisted trig fields) and the
+    updates of u and v, whose groups are read at their centre only, run on
+    the point design, each with its reason."""
+    from devito_tpu_torch.kernels import stencil as K
+    s = tt.tti_setup(shape=(24, 22, 26), spacing=(20.,) * 3, tn=10.,
+                     space_order=12, nbl=4, dtype=dtype,
+                     opt=('advanced', {'hoist-trig-taps': True}))
+    plans = {eq.target.name: (eq, p) for eq, p in s.op_fwd(None).kernel_plans}
+    stream = {n for n, (_, p) in plans.items() if p.design == 'stream'}
+    assert stream == {'cire2', 'cire3'}
+    trig = [n for n, (eq, _) in plans.items()
+            if getattr(eq.target, '_hoisted', False)]
+    assert len(trig) == 4
+    radii = {n: {p.groups[k]['fn'].name: r
+                 for k, r in zip(p.staged, p.group_radii)}
+             for n, (_, p) in plans.items() if n in stream}
+    r0, r1, r2, r3 = sorted(trig, key=lambda n: int(n[1:]))
+    assert radii['cire3'] == {'u': (6, 6, 6), 'cire1': (3, 3, 3),
+                              r0: (0, 0, 3), r1: (3, 0, 0), r2: (3, 3, 0),
+                              r3: (0, 3, 0)}
+    assert radii['cire2'] == {'cire0': (3, 3, 3), r0: (0, 0, 3),
+                              r1: (3, 0, 0), r2: (3, 3, 0), r3: (0, 3, 0)}
+    for n in stream:
+        _, p = plans[n]
+        assert p.radii == max(radii[n].values())
+        assert p.design_reason.startswith("3-D star of ")
+    for n, (eq, p) in plans.items():
+        if n in stream:
+            continue
+        assert p.design == 'point'
+        if n in ('u', 'v', 'rec_itmp'):
+            assert p.design_reason == 'no group is read off its centre'
+        else:
+            assert p.design_reason.startswith('halo-extended region')
+    # the trig fields are read along their own axes only
+    assert K.point_flops(plans['cire3'][1]) == 139
