@@ -514,14 +514,22 @@ class _CudaCtx:
 
 
 def _label_name(fn):
-    """``fn``'s name in a unit's comments. A temporary of CIRE or of the
-    hoisting pass is named by its kind alone: the hoisting pass numbers
-    its temporaries from a counter that every lowering advances, and the
-    same equation lowered again must keep its unit's key."""
+    """``fn``'s name in a unit's comments and its point struct's name. A
+    temporary of CIRE, of the hoisting pass or of an interpolation is named
+    by its kind alone: the hoisting pass numbers its temporaries from a
+    counter that every lowering advances, and the same equation lowered
+    again must keep its unit's key."""
     if getattr(fn, '_compiler_temp', False) or getattr(fn, '_hoisted',
                                                        False):
         return 'temporary'
     return fn.name
+
+
+def _point_name(eq):
+    """The name of a unit's point struct: ``Point_<target>``, so that a
+    device trace names the equation each K1 event ran (the struct is the
+    kernel template's last argument)."""
+    return 'Point_' + re.sub(r'\W', '_', _label_name(eq.target))
 
 
 def _unit_label(eq):
@@ -541,6 +549,7 @@ def _generate(eq, groups, param_names, storage):
     expr = cuda_expr(eq.rhs, _CudaCtx(groups, param_names, ctype))
     ptrs = '\n'.join(f'    const auto* g{k} = dtpu::at<{st}>(a, o, {k});'
                      for k, st in enumerate(stypes[1:]))
+    point = _point_name(eq)
     return f"""// Generated for: {_unit_label(eq)}
 #include "stencil.cuh"
 
@@ -552,7 +561,7 @@ constexpr int NP = {len(param_names)};
 using Args = dtpu::StencilArgs<T, NG, NP>;
 
 namespace {{
-struct Point {{
+struct {point} {{
   static __device__ __forceinline__ T eval(const long long* o,
                                            const Args& a) {{
 {ptrs}
@@ -564,8 +573,8 @@ struct Point {{
 extern "C" int dtpu_stencil_launch(void* const* ptrs, const long long* strides,
                                    const int* n, const double* params,
                                    void* stream) {{
-  return dtpu::launch<T, SO, NDIM, NG, NP, Point>(ptrs, strides, n, params,
-                                                  stream);
+  return dtpu::launch<T, SO, NDIM, NG, NP, {point}>(ptrs, strides, n,
+                                                    params, stream);
 }}
 """
 
@@ -611,6 +620,7 @@ def _generate_stream(plan):
     shapes = ', '.join(str(v) for r in plan.group_radii for v in r)
     pitches = '\n'.join(f'constexpr int PZ{s} = Tile::pz({s});'
                         for s in range(len(plan.staged)))
+    point = _point_name(eq)
     return f"""// Generated for: {_unit_label(eq)}
 #include "stencil_stream.cuh"
 
@@ -632,7 +642,7 @@ mirrors the layout");
 // in the same process instantiates the same names, and a local static of
 // an inline template would otherwise be one object for all of them.
 namespace {{
-struct Point {{
+struct {point} {{
   static __device__ __forceinline__ T eval(const T (&q)[NS][Tile::Q],
                                            const T* const (&sp)[NS],
                                            const T (&cv)[NC > 0 ? NC : 1],
@@ -646,12 +656,12 @@ extern "C" int dtpu_stream_launch(void* const* ptrs, const long long* dims,
                                   const int* org, const int* n,
                                   const double* params, int tx,
                                   void* stream) {{
-  return dtpu::stream_launch<Tile, NP, Point>(ptrs, dims, org, n, params, tx,
-                                              stream);
+  return dtpu::stream_launch<Tile, NP, {point}>(ptrs, dims, org, n, params,
+                                                tx, stream);
 }}
 
 extern "C" int dtpu_stream_occupancy(int* ctas) {{
-  return dtpu::stream_occupancy<Tile, NP, Point>(ctas);
+  return dtpu::stream_occupancy<Tile, NP, {point}>(ctas);
 }}
 """
 

@@ -6,13 +6,17 @@ Reference parity: examples/seismic/elastic/operators.py (velocity update
 stress diagonal, receivers on tau_zz and div(v)) and wavesolver.py
 (ElasticWaveSolver, bcs='mask' damping).
 
-On the card each dense equation runs in K1 (kernels/stencil.py). In 3-D
-at SO=4 the three normal-stress updates, each a star of one velocity
-component, take the streaming design; the velocity updates (five staged
-groups), the shear-stress updates (damp and the hoisted averages of mu
-read off the axes), CIRE's div(v) temporary and the hoisted averages take
-the point design. With 4096 or more receiver corners, rec2's div(v) is
-first computed into a dense temporary, also on K1.
+On the card each dense equation runs in K1 (kernels/stencil.py), and in
+3-D at SO=4 every one takes the point design: the velocity updates (five
+staged groups of radius 2), CIRE's div(v) temporary (three), the
+normal-stress updates (each a line of one velocity component along one
+axis, which the point design's caches hold), the shear-stress updates
+and the hoisted harmonic means of mu (read off the axes). With 4096 or
+more receiver corners, rec2's div(v) is first computed into a dense
+temporary, ``rec2_itmp``, also on K1's point design. Each unit's point
+struct is named after its target (``Point_v_x``, ``Point_tau_xy``,
+``Point_temporary`` for CIRE's, the hoisted ones and ``rec2_itmp``), so a
+device trace tells the fields' units apart.
 """
 
 from ...types import Eq

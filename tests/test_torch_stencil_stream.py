@@ -483,8 +483,10 @@ def test_generated_stream_source():
     assert '#include "stencil_stream.cuh"' in src
     # the point expression's struct, and so the kernel and its launch
     # template, have internal linkage: two equations' libraries loaded in
-    # one process keep their own kernels and their own local statics
-    assert 'namespace {\nstruct Point {' in src
+    # one process keep their own kernels and their own local statics; it
+    # is named after the equation's target, so a device trace says which
+    # equation ran
+    assert 'namespace {\nstruct Point_u {' in src
     assert 'constexpr int NS = 1;  // staged groups: u' in src
     assert 'constexpr int NC = 3;  // centre groups: ' in src
     assert 'using Radii = dtpu::Radii<4, 4, 4>;' in src
