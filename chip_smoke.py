@@ -2846,6 +2846,19 @@ def tti_kinds(op):
     return out
 
 
+def units(kinds):
+    """The entries of ``kinds`` (tti_kinds' triples) that launch a K1
+    unit: every one but the later equations of a fused unit
+    (kernels/stencil.py ``plan_run``), whose unit launches at its first
+    equation, once for all of them; a declined equation's too."""
+    return [(k, eq, p) for k, eq, p in kinds if p is None or p.eq is eq]
+
+
+def unit_name(plan):
+    """A unit's targets: one, or a fused unit's, joined by ``+``."""
+    return '+'.join(e.target.name for e in plan.eqs)
+
+
 def trig_taps_on(op):
     """True when ``op``'s time loop reads no sin or cos of a field: its
     transcendentals of the tilt fields were hoisted (hoist-trig-taps)."""
@@ -2897,7 +2910,7 @@ def tti_bound(op, kinds):
         if kind == 'body update':
             reads.update(set(user_reads(eq, set())) - rows)
             writes.add(eq.target.name)
-        flops += K.point_flops(plan) * int(np.prod(plan.extents))
+        flops += K.point_flops(plan, eq) * int(np.prod(plan.extents))
     npts = int(np.prod(op._grid.shape))
     size = np.dtype(op._grid.dtype).itemsize
     return ((len(reads) + len(writes)) * npts * size, flops,
@@ -2913,8 +2926,10 @@ def loop_steps(op):
 def tti_drive(label, fn, kinds, steps, device):
     """``fn()`` with every count at 0 just before it and read just after;
     raises unless each body plan launched its design ``steps`` times and
-    each prologue plan once, and no other kernel launched. Returns fn's
-    result, the launches by kind and the wall seconds."""
+    each prologue plan once -- a fused unit's plan once a step for all its
+    equations -- and no other kernel launched. Returns fn's result, the
+    launches by kind (of each unit's first equation) and the wall
+    seconds."""
     from devito_tpu_torch.kernels import stencil as K
     on_card = int(device.type == 'cuda')
     for _, _, p in kinds:
@@ -2934,6 +2949,7 @@ def tti_drive(label, fn, kinds, steps, device):
         if p.launches != want:
             raise AssertionError(f"{label}: {eq!r} launched {p.launches} "
                                  f"times, not {want}")
+    for kind, eq, p in units(kinds):
         by_kind[kind] += p.launches
         by_design[p.design] += p.launches
     if K.launches_by_design != by_design or \
@@ -3001,24 +3017,16 @@ def halo_cases(device, ops, gen):
                               dtype=b.dtype)
                 if b.is_floating_point() and not n.endswith('_coords')
                 else b for n, b in bufs.items()}
-        for kind, eq, plan in tti_kinds(op):
+        for kind, eq, plan in units(tti_kinds(op)):
             if eq.region[0][0] >= 0:
                 continue
             t = None if kind == 'hoisted prologue item' else 1
             out, ins = plan_rows(plan, bufs, t, params)
-            ref = out.clone()
-            K.stencil_update(plan, (out, ins), params)
-            K.stencil_update_reference(plan, (ref, ins), params)
-            sync(device)
-            err = (out - ref).abs().max().item()
-            tol = TOL[plan.dtype.type] * ref.abs().max().item()
-            if not (err <= tol and ref.abs().max().item() > 0):
-                raise AssertionError(f"halo-extended {label} {eq!r}: "
-                                     f"max|kernel - plain| {err:.3e} > "
-                                     f"{tol:.3e}")
-            rows.append(dict(case=label, item=f'{kind} {eq.target.name}',
+            err, tol = held(f"halo-extended {label}", plan, (out, ins),
+                            params, device)
+            rows.append(dict(case=label, item=f'{kind} {unit_name(plan)}',
                              region=eq.region, max_abs_err=err, tol=tol))
-            log(f"[tti-halo] {label}: {kind} {eq.target.name} over "
+            log(f"[tti-halo] {label}: {kind} {unit_name(plan)} over "
                 f"{eq.region}: max|kernel - plain| {err:.3e} (tolerance "
                 f"{tol:.3e})")
         del bufs
@@ -3484,16 +3492,20 @@ def records_of(out):
 
 def held(label, plan, rows, params, device):
     """K1 of ``plan`` on ``rows`` against its plain version on the same
-    rows (the plain one first, into a copy of the target row); raises
-    beyond TOL x max |plain|. Returns (max |kernel - plain|, tolerance)."""
+    rows (the plain one first, into a copy of the target row, or of each
+    of a fused unit's); raises beyond TOL x max |plain|, over every
+    target. Returns (max |kernel - plain|, tolerance)."""
     from devito_tpu_torch.kernels import stencil as K
     out, ins = rows
-    ref = out.clone()
-    K.stencil_update_reference(plan, (ref, ins), params)
+    outs = [out] if plan.nt == 1 else list(out)
+    refs = [o.clone() for o in outs]
+    K.stencil_update_reference(plan, (refs[0] if plan.nt == 1 else refs,
+                                      ins), params)
     K.stencil_update(plan, rows, params)
     sync(device)
-    top = ref.abs().max().item()
-    err, tol = (out - ref).abs().max().item(), TOL[plan.dtype.type] * top
+    top = max(r.abs().max().item() for r in refs)
+    err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+    tol = TOL[plan.dtype.type] * top
     if not (err <= tol and 0 < top < float('inf')):
         raise AssertionError(f"{label}: {plan.eq!r} on the {plan.design} "
                              f"design: max|kernel - plain| {err:.3e} > "
@@ -3501,7 +3513,7 @@ def held(label, plan, rows, params, device):
     return err, tol
 
 
-def launch_ms(op, kinds, fields, dt, device, gen, alts=None):
+def launch_ms(op, kinds, fields, dt, device, gen, alts=None, apart=None):
     """Each K1 launch of ``op``, by equation, at the shapes its loop gives
     it (the rows of step 1; ``fields`` stand in for the operator's own
     wavefields, which are then not allocated): the wavefields' rows and
@@ -3513,12 +3525,16 @@ def launch_ms(op, kinds, fields, dt, device, gen, alts=None):
     launches after a warm-up). A row read and written is one seeded row.
     With ``alts`` ({id(plan): the same equation's point-design plan}), a
     streaming equation's point design is held and timed beside it
-    (``point_max_abs_err``, ``point_ms``)."""
+    (``point_max_abs_err``, ``point_ms``). A fused unit is one launch, a
+    row of its targets (``target``: joined by ``+``); with ``apart``
+    ({id(plan): its equations' own plans}) each of those is held and timed
+    beside it, one launch each on the same rows (``apart_max_abs_err``,
+    ``apart_ms``: their sum)."""
     from devito_tpu_torch.compiler.executor import plan_rows
     from devito_tpu_torch.kernels import stencil as K
     bufs, params = op.arguments(time_M=1, dt=dt, **fields)
     out = []
-    for kind, eq, plan in kinds:
+    for kind, eq, plan in units(kinds):
         t = None if kind == 'hoisted prologue item' else 1
         seeded = {}
 
@@ -3531,17 +3547,29 @@ def launch_ms(op, kinds, fields, dt, device, gen, alts=None):
                 seeded[key] = r.clone().uniform_(1, 2, generator=gen)
             return seeded[key]
         dst, ins = plan_rows(plan, bufs, t, params)
-        rows = (seed(dst, None), [seed(r, g['fn'])
-                                  for r, g in zip(ins, plan.groups)])
-        row = dict(kind=kind, target=eq.target.name, design=plan.design,
+        dst = seed(dst, None) if plan.nt == 1 else [seed(r, None)
+                                                     for r in dst]
+        rows = (dst, [seed(r, g['fn']) for r, g in zip(ins, plan.groups)])
+        shape = tuple((dst if plan.nt == 1 else dst[0]).shape)
+        row = dict(kind=kind, target=unit_name(plan), design=plan.design,
                    groups=len(plan.groups))
         for pre, p in (('', plan), ('point_', (alts or {}).get(id(plan)))):
             if p is None:
                 continue
             row[f'{pre}max_abs_err'], row['tol'] = held(
-                f'{op.name} at {tuple(dst.shape)}', p, rows, params, device)
+                f'{op.name} at {shape}', p, rows, params, device)
             row[f'{pre}ms'] = time_ms(
                 lambda: K.stencil_update(p, rows, params), 3, device)
+        mine = {g['key']: r for g, r in zip(plan.groups, rows[1])}
+        alone = [(p, (d, [mine[g['key']] for g in p.groups])) for p, d in
+                 zip((apart or {}).get(id(plan), ()),
+                     dst if plan.nt > 1 else [dst])]
+        if alone:
+            row['apart_max_abs_err'] = max(
+                held(f'{op.name} at {shape}', p, r, params, device)[0]
+                for p, r in alone)
+            row['apart_ms'] = time_ms(lambda: [
+                K.stencil_update(p, r, params) for p, r in alone], 3, device)
         out.append(row)
         del seeded, rows
     return out
@@ -3603,7 +3631,7 @@ def loop_split(fn, steps, device):
             f(*args)
             spans.append((label(*args), a, stamp()))
         return call
-    E.stencil_update = timed(lambda p, *_: f'K1 {p.eq.target.name}',
+    E.stencil_update = timed(lambda p, *_: f'K1 {unit_name(p)}',
                              wrapped[0])
     E._exec_sparse = timed(lambda it, *_: f'{it.kind} {it.sparse.name}',
                            wrapped[1])
@@ -3658,9 +3686,10 @@ def log_units(label, ops, kinds):
 
 
 def by_design(kinds):
-    """Launches by design of the plans of ``kinds`` (their counts)."""
+    """Launches by design of the plans of ``kinds`` (their counts), a fused
+    unit's once."""
     out = {'point': 0, 'stream': 0}
-    for _, _, p in kinds:
+    for _, _, p in units(kinds):
         out[p.design] += p.launches
     return out
 
@@ -3770,9 +3799,12 @@ def solvers(device, sizes, record, gen):
     # beside it
     alts = {id(p): K.plan_for(eq, _design='point') for k in SOLVERS
             for _, eq, p in kinds[f'{k} forward'] if p.design == 'stream'}
+    # each fused unit's equations on their own units, timed beside it
+    apart = {id(p): [K.plan_for(e) for e in p.eqs] for k in SOLVERS
+             for _, _, p in units(kinds[f'{k} forward']) if p.nt > 1}
     uniq = list({p.key: p for p in [p for ks in kinds.values()
                                     for _, _, p in ks] + list(alts.values())
-                 }.values())
+                 + [q for ps in apart.values() for q in ps]}.values())
     nvcc_s, build_wall = 0., 0.
     if on_card:
         tic = time.perf_counter()
@@ -3813,6 +3845,7 @@ def solvers(device, sizes, record, gen):
             ops.pop(lab)
             for _, _, p in kinds.pop(lab):
                 alts.pop(id(p), None)
+                apart.pop(id(p), None)
         release(device)
 
     # -- (2) the full-width runs, and (5) sinc and precomputed receivers --
@@ -3849,7 +3882,8 @@ def solvers(device, sizes, record, gen):
         # the profiled run's wavefields: the rows each launch is timed on
         fields = dict(wavefields(pout), **wavefields(ex.values()))
         del pout, ex
-        per_eq = launch_ms(fop, fk, fields, s.dt, device, gen, alts)
+        per_eq = launch_ms(fop, fk, fields, s.dt, device, gen, alts,
+                           apart)
         # the prologue's launches are in the profile, not in the loop
         pro = sum(e['ms'] for e in per_eq
                   if e['kind'] == 'hoisted prologue item')
@@ -3868,7 +3902,7 @@ def solvers(device, sizes, record, gen):
             rec_norms={nm: float(np.linalg.norm(r))
                        for nm, r in recs.items()},
             launches_per_step=sum(kd != 'hoisted prologue item'
-                                  for kd, _, _ in fk),
+                                  for kd, _, _ in units(fk)),
             per_equation=per_eq, split=split,
             unrounded_share=float(np.prod(f.shape_with_halo) /
                                   np.prod(f._allocated_space())),
@@ -5903,7 +5937,9 @@ def examples_on_card(device, sizes, count, record):
                     sizes['p15_shards']))
             wall = time.perf_counter() - tic
             plans = [pl for op in b.ops for pl in all_plans(op)]
-            planned = sum(p.launches for _, p in plans if p is not None)
+            # a fused unit's plan is each of its equations' (its count once)
+            planned = sum(p.launches for p in {
+                id(p): p for _, p in plans if p is not None}.values())
             launches = sum(by.values())
             # on the card an applied operator with a plan launches K1
             due = device.type == 'cuda' and any(
@@ -6118,8 +6154,9 @@ def override_runs(device, sizes, count):
             ('written u', written_override, 8, 2,
              rng.standard_normal((dn,) * 2))):
         (got, op), by = count(lambda: fn(sizes, relaid_so, data))
-        relaid = sum(p.launches for rel in op._layout_ops.values()
-                     for _, p in rel.kernel_plans if p is not None)
+        relaid = sum(p.launches for p in {
+            id(p): p for rel in op._layout_ops.values()
+            for _, p in rel.kernel_plans if p is not None}.values())
         own, _ = fn(sizes, own_so, data)
         with switchconfig(device='cpu'):
             plain, _ = fn(sizes, relaid_so, data)

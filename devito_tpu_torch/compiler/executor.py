@@ -12,7 +12,9 @@ own (nslots, ...) tensors; ``u[t + k]`` is row ``(t + k) % nslots``
 - a dense equation the stencil kernel accepts (kernels/stencil.py
   ``plan_for``, decided once per equation when the runner is built) goes
   to ``stencil_update``, which launches the CUDA kernel on CUDA tensors
-  and runs its plain PyTorch version on CPU tensors;
+  and runs its plain PyTorch version on CPU tensors; consecutive body
+  equations that K1 fuses (``plan_run``) share one plan, launched once at
+  the first of them;
 - any other dense equation is evaluated by the torch translator
   (compiler/translate.py) into a fresh tensor, then copied into the
   target row;
@@ -45,7 +47,7 @@ import torch
 
 from ..ir.lowering import LoweredEq, LoweredSparse
 from ..exceptions import CompilationError
-from ..kernels.stencil import plan_for, stencil_update
+from ..kernels.stencil import plan_for, plan_run, stencil_update
 from ..types.dense import widen
 from ..utils import span
 
@@ -248,9 +250,11 @@ def _finalize_val(eq, val, cur, ctx):
 
 def plan_rows(plan, bufs, t, params):
     """The rows a stencil-kernel update of ``plan`` reads and writes at
-    step ``t``: ``(target row, [row per access group])``, all views of
-    the tensors in ``bufs``."""
-    return (_target_row(plan.eq, bufs, t, params),
+    step ``t``: ``(target row, [row per access group])`` -- a fused unit's
+    target rows as a list, one an equation -- all views of the tensors in
+    ``bufs``."""
+    outs = [_target_row(eq, bufs, t, params) for eq in plan.eqs]
+    return (outs if plan.nt > 1 else outs[0],
             [_resolve_time_indexed(bufs, g['fn'], g['tk'], g['toff'], t,
                                    params) for g in plan.groups])
 
@@ -563,7 +567,10 @@ def build_runner(schedule, storage=None, errctl=None, sections=None,
     for sparse coordinates, ``<name>_sep`` for a factorised geometry) in
     place. The stencil-kernel decision is taken here, once per dense
     equation, with ``storage`` ({function name: torch dtype} of the narrow
-    ones); ``run.plans`` lists ``(eq, plan or None)``. With ``errctl``
+    ones): each run of consecutive dense items of the body goes to K1's
+    ``plan_run``, which may fuse some of them into one unit, the others
+    to ``plan_for``. ``run.plans`` lists ``(eq, plan or None)``, a fused
+    unit's plan beside each of its equations. With ``errctl``
     (names of written stepping functions) ``run`` returns the step whose
     stability check failed, else None.
 
@@ -571,8 +578,9 @@ def build_runner(schedule, storage=None, errctl=None, sections=None,
     ``sections`` (one name a body item; by default ``dtpu_sec<i>``,
     numbered as Operator._estimate_flops numbers its sections), which
     operator/trace_profile.py reads back: a ``torch.profiler`` range while
-    a profiler records, nothing otherwise. The prologue and epilogue run
-    outside the sections.
+    a profiler records, nothing otherwise. A fused unit launches in its
+    first equation's section; the others' sections stay, empty. The
+    prologue and epilogue run outside the sections.
 
     With ``shard_spec`` (a parallel/halo.py ShardedRunner) the schedule is
     its local schedule and ``run`` takes one dict of tensors a shard
@@ -582,7 +590,15 @@ def build_runner(schedule, storage=None, errctl=None, sections=None,
         return _build_sharded(schedule, storage, errctl, sections,
                               shard_spec)
     plans = OrderedDict()
-    for it in schedule.all_items:
+    body = {id(it) for it in schedule.body}
+    run_ = []       # consecutive dense items of the body; None ends the last
+    for it in schedule.all_items + [None]:
+        if isinstance(it, LoweredEq) and id(it) in body:
+            run_.append(it)
+            continue
+        for eq, plan in zip(run_, plan_run(run_, storage=storage)):
+            plans[id(eq)] = (eq, plan)
+        run_ = []
         if isinstance(it, LoweredEq):
             plans[id(it)] = (it, plan_for(it, storage=storage))
     direction = schedule.direction
@@ -592,7 +608,10 @@ def build_runner(schedule, storage=None, errctl=None, sections=None,
 
     def _exec_item(it, bufs, params, t, geom_cache):
         if isinstance(it, LoweredEq):
-            _exec_dense(it, plans[id(it)][1], bufs, params, t)
+            plan = plans[id(it)][1]
+            # a fused unit's later equations ran in its first one's launch
+            if plan is None or plan.eq is it:
+                _exec_dense(it, plan, bufs, params, t)
         elif isinstance(it, LoweredSparse):
             with span(SPARSE_SPANS[it.kind]):
                 _exec_sparse(it, bufs, params, t, geom_cache)

@@ -1,6 +1,9 @@
-// Dense-stencil update for NVIDIA Hopper (sm_90a): evaluates one lowered
-// dense equation's right-hand side over its write region and stores it in
-// place into the target's time row.
+// Dense-stencil update for NVIDIA Hopper (sm_90a): evaluates the
+// right-hand sides of NT lowered dense equations over their one write
+// region and stores each in place into its target's time row. NT is 1 for
+// a single equation; a fused unit (kernels/stencil.py `plan_run`) takes a
+// run of mutually independent equations of one region, and reads each
+// access group they share through one pointer, once a point.
 //
 // Replaces the TPU kernel experiments/pallas_backend.py `execute_plan`
 // (with `plan_for`, `_plan_for` and `_TileCtxV2`). That kernel copied
@@ -9,10 +12,10 @@
 // hand-written part is this template: index arithmetic from the block and
 // thread indices, one base pointer and stride set per access group, the
 // bounds mask of the ragged edge, 64-bit offsets and the store. The
-// per-equation part is one point expression generated from the sympy
-// right-hand side (compiler/translate.py `cuda_expr`), passed in as
+// per-equation part is one point expression a target generated from the
+// sympy right-hand side (compiler/translate.py `cuda_expr`), passed in as
 // `Point`, which loads each access at fixed offsets from its group's
-// pointer.
+// pointer and writes the NT values of the point.
 //
 // Storage and compute: `T` is the equation's compute type (float or
 // double) and every group, and the target, has its own storage type S: T
@@ -41,11 +44,11 @@ namespace dtpu {
 // By value: the launch copies it into the kernel's parameter space, so a
 // step costs no host-to-device copy and no synchronisation. The rows are
 // untyped: each load and the store name their storage type.
-template <typename T, int NG, int NP>
+template <typename T, int NG, int NP, int NT = 1>
 struct StencilArgs {
-  void* out;                             // target row at the region's first point
+  void* out[NT];                         // target rows at the region's first point
   const void* in[NG > 0 ? NG : 1];       // access-group rows at the region's first point
-  long long out_stride[2];               // target row strides of the outer axes
+  long long out_stride[NT][2];           // target row strides of the outer axes
   long long stride[NG > 0 ? NG : 1][2];  // group row strides of the outer axes
   int n[3];                              // region extents, axis 0 outermost
   T p[NP > 0 ? NP : 1];                  // scalar parameters (dt, spacings, ...)
@@ -53,7 +56,8 @@ struct StencilArgs {
 
 // The element at p of a row stored as S, through the read-only data
 // cache, in T. Rows read in a launch are never written by it (plan_for
-// declines equations that read their target row).
+// declines equations that read their target row, and plan_run fuses no
+// equation that reads a row another of the unit writes).
 template <typename T, typename S>
 __device__ __forceinline__ T ld(const S* p) {
   const S v = __ldg(p);
@@ -83,64 +87,98 @@ __device__ __forceinline__ void st(void* row, long long i, T v) {
 
 // The pointer of group k, stored as S, at the point whose offset in the
 // group's row is o[k]: the generated point declares one for each group.
-template <typename S, typename T, int NG, int NP>
-__device__ __forceinline__ const S* at(const StencilArgs<T, NG, NP>& a,
+template <typename S, typename T, int NG, int NP, int NT>
+__device__ __forceinline__ const S* at(const StencilArgs<T, NG, NP, NT>& a,
                                        const long long* o, int k) {
   return static_cast<const S*>(a.in[k]) + o[k];
 }
 
-template <typename T, typename SO, int NDIM, int NG, int NP, typename Point>
+// Every target row is stored as SO (kernels/stencil.py fuses only
+// equations whose targets share a storage type).
+template <typename T, typename SO, int NDIM, int NG, int NP, int NT,
+          typename Point>
 __global__ void __launch_bounds__(256)
-stencil_kernel(const StencilArgs<T, NG, NP> a) {
+stencil_kernel(const StencilArgs<T, NG, NP, NT> a) {
   static_assert(NDIM == 2 || NDIM == 3, "2-D or 3-D regions only");
   // The innermost (z) axis is contiguous and runs along threadIdx.x.
   const int iz = blockIdx.x * blockDim.x + threadIdx.x;
-  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
-  long long off_out;
+  long long off_out[NT];
   long long o[NG > 0 ? NG : 1];
   if (NDIM == 3) {
-    const int ix = blockIdx.z;
+    // grid.z walks the x planes of one chunk of grid.y row blocks, then
+    // the next chunk's (see `launch`); one chunk needs no division
+    const bool one = gridDim.z == a.n[0];
+    const int ix = one ? blockIdx.z : blockIdx.z % a.n[0];
+    const int iy = ((one ? 0 : blockIdx.z / a.n[0]) * gridDim.y +
+                    blockIdx.y) * blockDim.y + threadIdx.y;
     if (iy >= a.n[1] || iz >= a.n[2]) return;
-    off_out = ix * a.out_stride[0] + iy * a.out_stride[1] + iz;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      off_out[j] = ix * a.out_stride[j][0] + iy * a.out_stride[j][1] + iz;
 #pragma unroll
     for (int k = 0; k < NG; ++k)
       o[k] = ix * a.stride[k][0] + iy * a.stride[k][1] + iz;
   } else {
+    const int iy = blockIdx.y * blockDim.y + threadIdx.y;
     if (iy >= a.n[0] || iz >= a.n[1]) return;
-    off_out = iy * a.out_stride[0] + iz;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) off_out[j] = iy * a.out_stride[j][0] + iz;
 #pragma unroll
     for (int k = 0; k < NG; ++k) o[k] = iy * a.stride[k][0] + iz;
   }
-  st<SO>(a.out, off_out, Point::eval(o, a));
+  T v[NT];
+  Point::eval(o, a, v);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) st<SO>(a.out[j], off_out[j], v[j]);
 }
 
-// Host side: packs the arguments and launches on `stream`. Returns the
-// cudaError_t of the launch (0 on success); the caller raises otherwise.
-template <typename T, typename SO, int NDIM, int NG, int NP, typename Point>
+// Host side: packs the arguments and launches on `stream`. `ptrs` and
+// `strides` hold the NT targets' rows first, then the NG groups'; `n` the
+// region's three extents, then the rows (axis 1) of a chunk of a 3-D
+// region: its blocks run the chunk's rows of every x plane before the
+// next chunk's, so that the planes an x tap reads stay in L2 while the
+// planes beside them run (0: one chunk, every x plane whole in turn).
+// Returns the cudaError_t of the launch (0 on success); the caller raises
+// otherwise.
+template <typename T, typename SO, int NDIM, int NG, int NP, int NT,
+          typename Point>
 int launch(void* const* ptrs, const long long* strides, const int* n,
            const double* params, void* stream) {
-  StencilArgs<T, NG, NP> a;
-  a.out = ptrs[0];
-  a.out_stride[0] = strides[0];
-  a.out_stride[1] = strides[1];
+  StencilArgs<T, NG, NP, NT> a;
+  for (int j = 0; j < NT; ++j) {
+    a.out[j] = ptrs[j];
+    a.out_stride[j][0] = strides[2 * j];
+    a.out_stride[j][1] = strides[2 * j + 1];
+  }
   for (int k = 0; k < NG; ++k) {
-    a.in[k] = ptrs[1 + k];
-    a.stride[k][0] = strides[2 * (1 + k)];
-    a.stride[k][1] = strides[2 * (1 + k) + 1];
+    a.in[k] = ptrs[NT + k];
+    a.stride[k][0] = strides[2 * (NT + k)];
+    a.stride[k][1] = strides[2 * (NT + k) + 1];
   }
   for (int j = 0; j < 3; ++j) a.n[j] = n[j];
   for (int i = 0; i < NP; ++i) a.p[i] = static_cast<T>(params[i]);
   for (int j = 0; j < NDIM; ++j)
     if (n[j] <= 0) return 0;  // empty region: nothing to do
+  // 64 z points by 4 rows: within 1 % of 128 by 2 or faster on every
+  // unit of the elastic and TTI cells on the H100, 5 % faster on the
+  // fused velocities (PERF.md §6)
   const int nz = n[NDIM - 1];
   int bx = 32;
-  while (bx < nz && bx < 128) bx *= 2;
+  while (bx < nz && bx < 64) bx *= 2;
   const int by = 256 / bx;
   const dim3 block(bx, by, 1);
-  const dim3 grid = NDIM == 3
-      ? dim3((n[2] + bx - 1) / bx, (n[1] + by - 1) / by, n[0])
-      : dim3((n[1] + bx - 1) / bx, (n[0] + by - 1) / by, 1);
-  stencil_kernel<T, SO, NDIM, NG, NP, Point>
+  dim3 grid((n[NDIM - 1] + bx - 1) / bx, (n[NDIM - 2] + by - 1) / by, 1);
+  if (NDIM == 3) {
+    // row blocks of the region and of a chunk; grid.z: the chunks' planes
+    const int blocks = grid.y;
+    int chunk = n[3] > 0 ? (n[3] + by - 1) / by : blocks;
+    while (chunk < blocks &&
+           (long long)n[0] * ((blocks + chunk - 1) / chunk) > 65535)
+      chunk *= 2;
+    grid.y = chunk < blocks ? chunk : blocks;
+    grid.z = n[0] * ((blocks + grid.y - 1) / grid.y);
+  }
+  stencil_kernel<T, SO, NDIM, NG, NP, NT, Point>
       <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,15 @@ equation's shape alone, records it on the plan (``plan.design`` and
   take. Every tap, and the write, must stay inside its function's
   allocation.
 
+``plan_run`` plans a run of consecutive equations of a time loop's body:
+``plan_for``'s plan for each, except that consecutive equations that
+would each take the point design, write one region every step and read
+no row another of them writes share one point unit (``_fusible``), when
+the access groups they share make its union smaller than theirs apart.
+The unit evaluates every target at each point, in one launch, and reads
+each shared group once; each target's expression is printed as its own
+unit prints it, so each value is its own launch's, bit for bit.
+
 On a CUDA tensor the chosen design launches or raises; nothing falls back
 to the other design or to the plain version. At its first CUDA launch the
 generated source is written to ``devito_tpu_torch/_build/`` under the hash
@@ -69,9 +78,10 @@ from ..types.dense import torch_dtype, widen
 from ..types.dimension import Dimension
 from ..utils import span
 
-__all__ = ['StencilPlan', 'plan_for', 'decline_reason', 'build',
-           'point_flops', 'stream_tile', 'stream_occupancy', 'stencil_update',
-           'stencil_update_reference', 'validate_backend',
+__all__ = ['StencilPlan', 'plan_for', 'plan_run', 'decline_reason',
+           'build',
+           'point_flops', 'stream_tile', 'stream_occupancy',
+           'stencil_update', 'stencil_update_reference', 'validate_backend',
            'selftest_window_sum', 'selftest_window_sum_reference']
 
 #: Kernel launches since import (or since the caller last reset it).
@@ -82,6 +92,9 @@ launches_by_design = {'point': 0, 'stream': 0}
 designs = {'point': 0, 'stream': 0}
 #: Equations ``plan_for`` declined since import.
 declines = 0
+#: Fused units ``plan_run`` made since import: the units of more than one
+#: equation, and the equations in them.
+fused = {'units': 0, 'equations': 0}
 #: Self-test kernel (K2) launches.
 selftest_launches = 0
 #: Self-tests run (``validate_backend``), passed or not.
@@ -97,10 +110,13 @@ _STYPE = {torch.float32: 'float', torch.float64: 'double',
 
 
 class StencilPlan:
-    """What the kernel needs to know about one dense equation.
+    """What the kernel needs to know about one dense equation, or about
+    the equations of a fused unit.
 
+    ``eqs``: the equations the unit writes, in schedule order (one, unless
+    ``plan_run`` fused them); ``eq`` is the first, ``nt`` their number.
     ``groups``: one entry per (function, time access) read by the
-    right-hand side, in first-read order: ``{'fn', 'tk', 'toff', 'key'}``.
+    right-hand sides, in first-read order: ``{'fn', 'tk', 'toff', 'key'}``.
     ``design``: ``'stream'`` or ``'point'``, with ``design_reason``.
     ``staged`` and ``centre``: the indices into ``groups`` of the groups
     read off their centre and of those read at offset 0 only;
@@ -110,13 +126,20 @@ class StencilPlan:
     translation unit; ``key`` hashes it with every ``csrc/`` header it
     includes.
     ``launches``: this plan's kernel launches (``stencil_update``).
-    ``storage``: the torch dtype of each row, the target's first, then
+    ``storage``: the torch dtype of each row, the targets' first, then
     each group's: the compute dtype, or a narrow one (``narrow``).
+    ``origins``: each row's element offset, per axis, of the region's
+    first point, in the same order. ``reach``: each group's largest
+    offset per axis, in ``groups`` order; ``chunk_rows``: the rows of a
+    chunk of the point design's 3-D launch (``_chunk_rows``; 0: one).
     """
 
     def __init__(self, eq, groups, param_names, design, reason, staged,
-                 centre, group_radii, tile, storage, space=None):
-        self.eq = eq
+                 centre, group_radii, tile, storage, space=None, eqs=None,
+                 reach=None):
+        self.eqs = list(eqs or [eq])
+        self.eq = eq = self.eqs[0]
+        self.nt = len(self.eqs)
         # each row's halo'd extent per space axis: the function's own, or
         # a shard's local layout (parallel/halo.py ShardedRunner.local_space)
         self.space = space or _own_space
@@ -130,6 +153,7 @@ class StencilPlan:
         self.staged = staged
         self.centre = centre
         self.group_radii = group_radii
+        self.reach = reach
         self.radii = tuple(max(r[d] for r in group_radii) for d in range(3)) \
             if design == 'stream' else None
         self.tile = tile
@@ -137,17 +161,20 @@ class StencilPlan:
         self.dtype = np.dtype(eq.target.dtype)
         self.ndim = len(eq.region)
         self.extents = tuple(b - a for a, b in eq.region)
-        # element offset, per axis, of the region's first point in each
-        # row: the target's, then each group's
-        self.origins = [_origin(eq, eq.target)] + [
+        self.origins = [_origin(eq, e.target) for e in self.eqs] + [
             _origin(eq, g['fn']) for g in groups]
         self.source = (_generate_stream(self) if design == 'stream'
-                       else _generate(eq, groups, param_names, storage))
+                       else _generate(self.eqs, groups, param_names,
+                                      storage))
         self.key = _nvcc.unit_key(self.source)
-        n = len(groups) + 1
+        n = len(groups) + self.nt
         self._ptrs = (ctypes.c_void_p * n)()
         self._strides = (ctypes.c_longlong * (2 * n))()
-        self._n = (ctypes.c_int * 3)(*(self.extents + (1,) * (3 - self.ndim)))
+        self.chunk_rows = _chunk_rows(self)
+        # the extents, then the rows of a chunk of the point design's
+        # launch (csrc/stencil.cuh ``launch``), set at each launch
+        self._n = (ctypes.c_int * 4)(*(self.extents + (1,) * (3 - self.ndim)),
+                                     0)
         self._params = (ctypes.c_double * max(len(param_names), 1))()
         if design == 'stream':
             # rows in the launch's order: target, staged, centre
@@ -204,6 +231,134 @@ def decline_reason(eq):
     and logs nothing."""
     plan, reason = _plan_or_reason(eq)
     return None if plan is not None else reason
+
+
+#: The most access groups a fused unit reads: its arguments hold a pointer
+#: and two strides a group, and each thread an offset a group. The widest
+#: union timed on the H100, elastic's six stresses (15 groups, 80
+#: registers, no spill), ran 30 % faster than its equations apart.
+MAX_FUSED_GROUPS = 16
+#: The most operations a byte of its own rows an equation may make to join
+#: a fused unit: one that makes more is bound by its arithmetic, not by
+#: its bytes, and the union's registers only cost it occupancy. On the
+#: H100 at 512^3 the members that gained fused made 0.3-1.9 (elastic's
+#: 1.2, TTI's 0.9-1.7, the CIRE temporaries of the self-adjoint and
+#: visco-acoustic solvers'), and the visco-elastic shear stresses, 4.2
+#: with 14 divisions each, ran 17 % slower fused than apart (PERF.md §6).
+FUSE_FLOPS_PER_BYTE = 3
+#: The H100's L2 cache; a point unit whose x taps keep more than
+#: LIVE_SHARE of it live runs in chunks of POINT_CHUNK_ROWS rows
+#: (``_chunk_rows``).
+L2_BYTES, LIVE_SHARE, POINT_CHUNK_ROWS = 50 * 2 ** 20, 2 / 3, 64
+
+
+def plan_run(eqs, storage=None):
+    """One plan for each equation of ``eqs``, consecutive dense items of a
+    time loop's body with nothing between them: ``plan_for``'s (counted and
+    logged as it counts and logs them), except that each maximal run of
+    consecutive equations that may share a launch (``_joins``) shares one
+    point unit of them all. The runner launches such a unit once, in place
+    of its equations' launches; ``fused`` counts it and its equations."""
+    plans = [plan_for(eq, storage=storage) for eq in eqs]
+    out, run = list(plans), []
+
+    def close():
+        if len(run) > 1:
+            unit = _fuse([plans[k] for k in run])
+            if unit is not None:
+                for k in run:
+                    out[k] = unit
+        run.clear()
+
+    for k, plan in enumerate(plans):
+        if run and _joins([plans[j] for j in run], plan):
+            run.append(k)
+            continue
+        close()
+        if _fusible(plan):
+            run.append(k)
+    close()
+    return out
+
+
+def _fusible(plan):
+    """True when ``plan`` may join a fused unit: the point design, on the
+    function's own rows, for an equation that writes every step and makes
+    at most ``FUSE_FLOPS_PER_BYTE`` operations a byte of its rows."""
+    return plan is not None and plan.design == 'point' and \
+        plan.space is _own_space and plan.eq.time_kind != 'cond' and \
+        point_flops(plan) <= FUSE_FLOPS_PER_BYTE * plan.dtype.itemsize * (
+            len(plan.groups) + 1)
+
+
+def _joins(run, plan):
+    """True when ``plan``'s equation may join the fused unit of the plans
+    ``run``: it is ``_fusible``, with their region, compute dtype and
+    target storage; it reads no row one of them writes, and they read none
+    it writes; it shares an access group with them, and their union stays
+    within ``MAX_FUSED_GROUPS``."""
+    if not _fusible(plan):
+        return False
+    eq, first = plan.eq, run[0]
+    if eq.region != first.eq.region or plan.dtype != first.dtype or \
+            plan.storage[0] != first.storage[0]:
+        return False
+    for p in run:
+        if _overlaps(p, plan) or _overlaps(plan, p):
+            return False
+    keys = {g['key'] for p in run for g in p.groups}
+    new = [g for g in plan.groups if g['key'] not in keys]
+    return len(new) < len(plan.groups) and \
+        len(keys) + len(new) <= MAX_FUSED_GROUPS
+
+
+def _overlaps(writer, reader):
+    """True when ``reader``'s equation reads, or writes, a row that
+    ``writer``'s writes, or may: rows ``_distinct_rows`` cannot tell
+    apart count as one."""
+    eq, fn = writer.eq, writer.eq.target
+    rows = [(g['tk'], g['toff']) for g in reader.groups
+            if g['fn'].name == fn.name]
+    if reader.eq.target.name == fn.name:
+        rows.append((reader.eq.time_kind, reader.eq.time_off))
+    return any(not _distinct_rows(eq, tk, toff) for tk, toff in rows)
+
+
+def _fuse(plans):
+    """The point unit of the equations of ``plans`` (``_joins`` let each
+    join the ones before it), logged and counted in ``fused``; or None when
+    it cannot be built (then each keeps its own)."""
+    groups, rows, staged, reach = OrderedDict(), {}, set(), {}
+    for p in plans:
+        for k, g in enumerate(p.groups):
+            groups.setdefault(g['key'], g)
+            rows.setdefault(g['key'], p.storage[1 + k])
+            reach[g['key']] = tuple(max(a, b) for a, b in zip(
+                reach.get(g['key'], p.reach[k]), p.reach[k]))
+            if k in p.staged:
+                staged.add(g['key'])
+    keys = list(groups)
+    storage = [p.storage[0] for p in plans] + [rows[k] for k in keys]
+    apart = sum(len(p.groups) + 1 for p in plans)
+    names = ', '.join(_label_name(p.eq.target) for p in plans)
+    reason = (f"{len(plans)} independent equations of one region fused "
+              f"({names}): {len(keys)} access groups and {len(plans)} "
+              f"targets, {apart} rows apart")
+    try:
+        unit = StencilPlan(
+            plans[0].eq, list(groups.values()),
+            sorted({n for p in plans for n in p.param_names}), 'point',
+            reason, [j for j, k in enumerate(keys) if k in staged],
+            [j for j, k in enumerate(keys) if k not in staged], None, None,
+            storage, eqs=[p.eq for p in plans], reach=[reach[k] for k in keys])
+    except CompilationError as e:
+        debug(f"stencil kernel: {names} stay apart ({e})")
+        return None
+    fused['units'] += 1
+    fused['equations'] += len(plans)
+    debug(f"stencil kernel: {names} run in one point unit ({len(keys)} "
+          f"groups in their union, {apart - len(plans)} apart)")
+    return unit
 
 
 def _plan_or_reason(eq, storage=None, _design=None, _tile=None, space=None):
@@ -286,9 +441,12 @@ def _plan_or_reason(eq, storage=None, _design=None, _tile=None, space=None):
     design, reason, staged, centre, group_radii, tile = _choose_design(
         eq, groups, [offsets[g['key']] for g in groups], _design, _tile,
         rows)
+    reach = [tuple(max(abs(o[d]) for o in offsets[g['key']])
+                   for d in range(ndim)) for g in groups]
     try:
         plan = StencilPlan(eq, groups, param_names, design, reason, staged,
-                           centre, group_radii, tile, rows, space)
+                           centre, group_radii, tile, rows, space,
+                           reach=reach)
     except CompilationError as e:
         return None, str(e)
     return plan, reason
@@ -476,6 +634,28 @@ def _halo_extended(eq):
         eq.region, fn.origin_offset, fn.shape[-len(eq.region):]))
 
 
+def _chunk_rows(plan):
+    """The rows of a chunk of ``plan``'s point launch: POINT_CHUNK_ROWS
+    when the x planes its point reads keep live -- 2 rx + 1 of each
+    group's, one of each target's -- would fill more than LIVE_SHARE of the
+    L2 (the launch runs each x plane whole, in turn, so an x tap reads a
+    plane back that many planes later); else 0, one chunk of every row. On
+    the H100 at 512^3 chunks of 64 rows ran the fused units of 38-56 MB of
+    live planes 6-10 % faster (elastic's velocities and stresses, TTI's
+    cire0 and cire1), and units of 18-31 MB 0-7 % slower (a chunk reads its
+    y taps' rows beyond it again; PERF.md §6)."""
+    if plan.design != 'point' or plan.ndim != 3:
+        return 0
+    size = plan.dtype.itemsize
+
+    def plane(fn):
+        return size * int(np.prod(plan.space(fn)[1:]))
+    live = sum((2 * r[0] + 1) * plane(g['fn'])
+               for g, r in zip(plan.groups, plan.reach)) + sum(
+                   plane(e.target) for e in plan.eqs)
+    return POINT_CHUNK_ROWS if live > LIVE_SHARE * L2_BYTES else 0
+
+
 def _distinct_rows(eq, tk, toff):
     """True when a read of the target at time access (tk, toff) provably
     touches another row than the one ``eq`` writes."""
@@ -525,47 +705,59 @@ def _label_name(fn):
     return fn.name
 
 
-def _point_name(eq):
-    """The name of a unit's point struct: ``Point_<target>``, so that a
-    device trace names the equation each K1 event ran (the struct is the
-    kernel template's last argument)."""
-    return 'Point_' + re.sub(r'\W', '_', _label_name(eq.target))
+def _point_name(*eqs):
+    """The name of a unit's point struct: ``Point_<target>``, or the
+    targets of a fused unit's equations joined by ``__``
+    (``Point_v_x__v_y__v_z``), so that a device trace names the equations
+    each K1 event ran (the struct is the kernel template's last
+    argument)."""
+    return 'Point_' + '__'.join(re.sub(r'\W', '_', _label_name(e.target))
+                                for e in eqs)
 
 
-def _unit_label(eq):
-    """The equation a unit is generated for, without its region: the
+def _unit_label(*eqs):
+    """The equations a unit is generated for, without their region: the
     region reaches the kernel as launch arguments, so one unit serves every
-    region of the same equation (spatial apply bounds)."""
-    tk = '' if eq.time_off is None else f"[{eq.time_kind}{eq.time_off:+d}]"
-    return f"{_label_name(eq.target)}{tk} = ..."
+    region of the same equations (spatial apply bounds)."""
+    def one(eq):
+        tk = '' if eq.time_off is None else \
+            f"[{eq.time_kind}{eq.time_off:+d}]"
+        return f"{_label_name(eq.target)}{tk} = ..."
+    return '; '.join(one(eq) for eq in eqs)
 
 
-def _generate(eq, groups, param_names, storage):
-    """The CUDA translation unit of one equation: the template plus its
-    point expression and a C entry point for ctypes. ``storage``: the
-    torch dtype of each row, the target's first."""
+def _generate(eqs, groups, param_names, storage):
+    """The CUDA translation unit of the point design: the template plus
+    the point expression of each equation of ``eqs`` (one, or a fused
+    unit's), each printed as its own unit prints it, and a C entry point
+    for ctypes. ``storage``: the torch dtype of each row, the targets'
+    first (one type: ``_joins``), then the groups'."""
+    eq, nt = eqs[0], len(eqs)
     ctype = _CTYPE[np.dtype(eq.target.dtype)]
     stypes = [_STYPE[s] for s in storage]
-    expr = cuda_expr(eq.rhs, _CudaCtx(groups, param_names, ctype))
+    ctx = _CudaCtx(groups, param_names, ctype)
     ptrs = '\n'.join(f'    const auto* g{k} = dtpu::at<{st}>(a, o, {k});'
-                     for k, st in enumerate(stypes[1:]))
-    point = _point_name(eq)
-    return f"""// Generated for: {_unit_label(eq)}
+                     for k, st in enumerate(stypes[nt:]))
+    body = '\n'.join(f'    v[{j}] = {cuda_expr(e.rhs, ctx)};'
+                     for j, e in enumerate(eqs))
+    point = _point_name(*eqs)
+    return f"""// Generated for: {_unit_label(*eqs)}
 #include "stencil.cuh"
 
 using T = {ctype};
-using SO = {stypes[0]};  // the target row's storage type
+using SO = {stypes[0]};  // the target rows' storage type
 constexpr int NDIM = {len(eq.region)};
+constexpr int NT = {nt};  // targets
 constexpr int NG = {len(groups)};
 constexpr int NP = {len(param_names)};
-using Args = dtpu::StencilArgs<T, NG, NP>;
+using Args = dtpu::StencilArgs<T, NG, NP, NT>;
 
 namespace {{
 struct {point} {{
-  static __device__ __forceinline__ T eval(const long long* o,
-                                           const Args& a) {{
+  static __device__ __forceinline__ void eval(const long long* o,
+                                              const Args& a, T (&v)[NT]) {{
 {ptrs}
-    return {expr};
+{body}
   }}
 }};
 }}  // namespace
@@ -573,8 +765,8 @@ struct {point} {{
 extern "C" int dtpu_stencil_launch(void* const* ptrs, const long long* strides,
                                    const int* n, const double* params,
                                    void* stream) {{
-  return dtpu::launch<T, SO, NDIM, NG, NP, {point}>(ptrs, strides, n,
-                                                    params, stream);
+  return dtpu::launch<T, SO, NDIM, NG, NP, NT, {point}>(
+      ptrs, strides, n, params, stream);
 }}
 """
 
@@ -694,23 +886,42 @@ def stream_occupancy(plan):
     return ctas.value
 
 
-def point_flops(plan):
+def point_flops(plan, eq=None):
     """Operations per point of ``plan``'s kernel: the binary +, -, * and /
-    of its generated point expression, outside the loads' index
-    arithmetic."""
-    body = plan.source.split('return', 1)[1].split(';', 1)[0]
+    of its generated point expressions, outside the loads' index
+    arithmetic; of ``eq``'s alone when given (one equation of a fused
+    unit)."""
+    if plan.design == 'stream':
+        exprs = [plan.source.split('return', 1)[1].split(';', 1)[0]]
+    else:
+        exprs = re.findall(r'^    v\[\d+\] = (.*);$', plan.source, re.M)
+        if eq is not None:
+            exprs = [exprs[next(j for j, e in enumerate(plan.eqs)
+                                if e is eq)]]
     body = re.sub(r'DTPU_LD\([^()]*\)|sp\[\d+\]\[[^]]*\]|cv\[\d+\]|'
-                  r'q\[\d+\]\[\d+\]', 'v', body)
+                  r'q\[\d+\]\[\d+\]', 'v', ' '.join(exprs))
     return sum(body.count(f' {op} ') for op in '+-*/')
 
 
+def _outs(plan, out):
+    """The target rows of ``stencil_update``'s ``rows[0]``: the row, or a
+    fused unit's sequence of rows, one a target."""
+    if plan.nt == 1:
+        return [out]
+    if isinstance(out, torch.Tensor) or len(out) != plan.nt:
+        raise ValueError(f"a fused unit of {plan.nt} equations takes a "
+                         f"sequence of {plan.nt} target rows")
+    return list(out)
+
+
 def _check_rows(plan, rows):
-    out, ins = rows
+    outs, ins = _outs(plan, rows[0]), rows[1]
     if len(ins) != len(plan.groups):
         raise ValueError(f"{len(ins)} input rows for {len(plan.groups)} "
                          f"access groups")
-    fns = [plan.eq.target] + [g['fn'] for g in plan.groups]
-    for r, f, want in zip([out] + list(ins), fns, plan.storage):
+    out = outs[0]
+    fns = [e.target for e in plan.eqs] + [g['fn'] for g in plan.groups]
+    for r, f, want in zip(outs + list(ins), fns, plan.storage):
         if not isinstance(r, torch.Tensor):
             raise TypeError(f"row of {f.name} is a {type(r).__name__}")
         if r.dtype != want:
@@ -728,17 +939,19 @@ def _check_rows(plan, rows):
 
 def stencil_update(plan, rows, params):
     """Write ``plan.eq``'s right-hand side over its region into the target
-    row, in place. ``rows`` is ``(target row, [one row per group])``,
+    row, in place: each of a fused unit's ``plan.eqs`` into its own, in one
+    launch. ``rows`` is ``(target row, [one row per group])`` -- a fused
+    unit's first item is a sequence of target rows, one an equation --
     each a halo'd row tensor of its function; ``params`` maps symbol names
     to values. CUDA tensors go through the kernel, each launch from the
     rows' checks to the kernel's return in the span ``dtpu::k1.launch``
     (utils/tools.py ``span``); CPU tensors through
     ``stencil_update_reference``."""
-    out = rows[0]
+    out = _outs(plan, rows[0])[0]
     if isinstance(out, torch.Tensor) and out.device.type == 'cuda':
         with span('dtpu::k1.launch'):
             _check_rows(plan, rows)
-            _launch(plan, out, rows[1], params)
+            _launch(plan, _outs(plan, rows[0]), rows[1], params)
         return
     _check_rows(plan, rows)
     if out.device.type == 'cpu':
@@ -746,15 +959,18 @@ def stencil_update(plan, rows, params):
     raise ValueError(f"no stencil kernel for device {out.device}")
 
 
-def _launch(plan, out, ins, params):
+def _launch(plan, outs, ins, params):
     """``stencil_update``'s launch of ``plan``'s unit on CUDA rows that
-    ``_check_rows`` passed."""
+    ``_check_rows`` passed: ``outs`` the target rows, ``ins`` the
+    groups'."""
     global launches
+    out = outs[0]
     if out.device not in validated:
         validate_backend(out.device)
     entry = build(plan)
     for i, name in enumerate(plan.param_names):
         plan._params[i] = float(params[name])
+    plan._n[3] = plan.chunk_rows
     if plan.design == 'stream':
         rows = [out] + list(ins)
         for i, r in enumerate(plan._rows):
@@ -779,7 +995,7 @@ def _launch(plan, out, ins, params):
         launches_by_design['stream'] += 1
         plan.launches += 1
         return
-    for i, (r, org) in enumerate(zip([out] + list(ins), plan.origins)):
+    for i, (r, org) in enumerate(zip(outs + list(ins), plan.origins)):
         st = r.stride()
         plan._ptrs[i] = r.data_ptr() + r.element_size() * sum(
             o * s for o, s in zip(org, st))
@@ -804,7 +1020,7 @@ class _RowsCtx:
     def __init__(self, plan, ins, params):
         self.plan = plan
         self.rows = {g['key']: (r, org) for g, r, org
-                     in zip(plan.groups, ins, plan.origins[1:])}
+                     in zip(plan.groups, ins, plan.origins[plan.nt:])}
         self.params = params
 
     def symbol(self, sym):
@@ -821,16 +1037,19 @@ class _RowsCtx:
 def stencil_update_reference(plan, rows, params):
     """The plain PyTorch version of ``stencil_update``: the same
     right-hand side through the torch translator, over the same region,
-    written into the same row. A narrow row is widened to the compute
-    dtype where it is read, and the value rounds to the target row's
-    dtype (to nearest even) where it is written."""
-    out, ins = rows
-    val = translate(plan.eq.rhs, _RowsCtx(plan, ins, params))
-    dst = out[tuple(slice(s, s + n)
-                    for s, n in zip(plan.origins[0], plan.extents))]
-    val = torch.as_tensor(val, dtype=torch_dtype(plan.dtype),
-                          device=out.device)
-    dst.copy_(val.to(out.dtype).expand(dst.shape))
+    written into the same row; a fused unit's each into its own, after
+    all are evaluated. A narrow row is widened to the compute dtype where
+    it is read, and the value rounds to the target row's dtype (to nearest
+    even) where it is written."""
+    outs, ins = _outs(plan, rows[0]), rows[1]
+    ctx = _RowsCtx(plan, ins, params)
+    vals = [translate(e.rhs, ctx) for e in plan.eqs]
+    for out, org, val in zip(outs, plan.origins, vals):
+        dst = out[tuple(slice(s, s + n)
+                        for s, n in zip(org, plan.extents))]
+        val = torch.as_tensor(val, dtype=torch_dtype(plan.dtype),
+                              device=out.device)
+        dst.copy_(val.to(out.dtype).expand(dst.shape))
 
 
 # -- K2: the self-test ------------------------------------------------------

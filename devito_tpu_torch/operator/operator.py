@@ -489,7 +489,8 @@ class Operator:
         reference Devito's ``op.ccode`` shows its C (devito_tpu's
         counterparts are ``jaxpr``/``hlo``): for each dense item, K1's
         design and why, then the CUDA translation unit nvcc builds for it
-        (``StencilPlan.source``, with its point expression); for an item K1
+        (``StencilPlan.source``, with its point expression), once for the
+        equations of a fused unit, at its first; for an item K1
         declines, the reason, and its equation, which the torch translator
         runs; for each sparse item its path: an interpolation separable
         (the contraction, operations/separable.py) or gathered, an
@@ -516,6 +517,10 @@ class Operator:
                     out.append(f"//    K1 declines it ({decline_reason(it)}"
                                f"); the torch translator runs "
                                f"{it.target.name} = {it.rhs}")
+                    continue
+                if plan.eq is not it:
+                    out.append(f"//    K1, in the fused unit of "
+                               f"{plan.eq.target.name} above")
                     continue
                 out.append(f"//    K1, {plan.design} design "
                            f"({plan.design_reason})")

@@ -405,13 +405,18 @@ def test_launch_ms_raises_on_a_kernel_that_disagrees(monkeypatch):
         op = s.op_fwd(None)
         kinds = C.tti_kinds(op)
         rows = C.launch_ms(op, kinds, {}, s.dt, torch.device('cpu'), gen)
-        assert len(rows) == len(kinds)
+        # a fused unit is one launch (its CIRE temporaries)
+        assert len(rows) == len(C.units(kinds)) < len(kinds)
         assert all(r['max_abs_err'] <= r['tol'] for r in rows)
         right = K.stencil_update
 
+        def first(rows):
+            return rows[0] if isinstance(rows[0], torch.Tensor) else \
+                rows[0][0]
+
         def off(plan, rows, params):
             right(plan, rows, params)
-            rows[0].view(-1)[rows[0].numel() // 2] += 1.
+            first(rows).view(-1)[first(rows).numel() // 2] += 1.
         monkeypatch.setattr(K, 'stencil_update', off)
         with pytest.raises(AssertionError, match='max.kernel - plain'):
             C.launch_ms(op, kinds, {}, s.dt, torch.device('cpu'), gen)
@@ -420,7 +425,7 @@ def test_launch_ms_raises_on_a_kernel_that_disagrees(monkeypatch):
 
         def overflows(plan, rows, params):
             plain(plan, rows, params)
-            rows[0].view(-1)[rows[0].numel() // 2] = float('inf')
+            first(rows).view(-1)[first(rows).numel() // 2] = float('inf')
         monkeypatch.setattr(K, 'stencil_update', overflows)
         monkeypatch.setattr(K, 'stencil_update_reference', overflows)
         with pytest.raises(AssertionError, match='max.kernel - plain'):
@@ -439,7 +444,10 @@ def test_loop_split_covers_every_call_of_the_loop():
         steps = C.loop_steps(op)
         sp = C.loop_split(s.forward, steps, torch.device('cpu'))
     assert (E.stencil_update, E._exec_sparse) == wrapped
-    targets = {f'K1 {eq.target.name}' for _, eq, _ in C.tti_kinds(op)}
+    # a span a K1 unit: a fused unit's (its CIRE temporaries) once
+    targets = {f'K1 {C.unit_name(p)}' for _, _, p in C.units(
+        C.tti_kinds(op))}
+    assert 'K1 cire0+cire1+cire2' in targets
     assert targets | {'inject src', 'interp rec'} == set(sp['ms'])
     assert set(sp['first_ms']) == {'inject src', 'interp rec'}
     assert sp['rest_ms'] >= 0 and sp['loop_ms'] >= sum(sp['ms'].values())
@@ -458,8 +466,9 @@ def test_solvers_phase_runs_on_the_cpu():
     with switchconfig(device='cpu'):
         res = C.solvers(torch.device('cpu'), SOL_TINY, record,
                         torch.Generator().manual_seed(1))
-        neqs = {k: len(C.tti_kinds(C.solver_for(k, (8,) * 3, so, 4, 4, 10.)
-                                   .op_fwd(None)))
+        # the K1 units a step launches: a fused unit once
+        neqs = {k: len(C.units(C.tti_kinds(C.solver_for(
+            k, (8,) * 3, so, 4, 4, 10.).op_fwd(None))))
                 for k, so in C.SOLVERS.items()}
     json.dumps(res)      # the kernels line carries it
     assert record['launches'] == 0 and res is record['solvers']
@@ -494,6 +503,13 @@ def test_solvers_phase_runs_on_the_cpu():
                for e in res['self-adjoint forward']['per_equation'])
     assert all(e['design'] == 'point'
                for e in res['elastic forward']['per_equation'])
+    # elastic's velocities and stresses, each a fused unit, held and timed
+    # beside their equations' own units
+    fused = [e for e in res['elastic forward']['per_equation']
+             if 'apart_ms' in e]
+    assert {e['target'] for e in fused} == {
+        'v_x+v_y+v_z', 'tau_xx+tau_xy+tau_xz+tau_yy+tau_yz+tau_zz'}
+    assert all(e['apart_max_abs_err'] <= e['tol'] for e in fused)
     # every launch at full width, forwards and adjoints, held against its
     # plain version; each loop split into its calls
     for lab in ('elastic forward', 'viscoelastic forward',

@@ -336,7 +336,7 @@ def test_trig_prologue_source_keeps_fp32():
                 if hasattr(it, 'region')]
         if dtype == np.float32:
             calls = set(re.findall(r'\b([a-z]+[0-9]*)\(', ' '.join(
-                s.split('return', 1)[1] for s in srcs + body)))
+                s.split('eval(', 1)[1] for s in srcs + body)))
             assert not calls & {'sin', 'cos', 'sqrt', 'rsqrt', 'pow', 'exp'}
 
 
@@ -369,3 +369,107 @@ def test_halo_extended_kernel_matches_reference_on_card(shape, so, dtype):
         assert K.launches == before + 1
         tol = (1e-5 if dtype == np.float32 else 1e-12) * ref.abs().max()
         assert (out - ref).abs().max() <= tol
+
+
+# -- fused units (kernels/stencil.py plan_run) on the card ------------------
+
+def _fused_units(solver, dtype):
+    """The fused units of the elastic SO=4 or the TTI SO=12 forward
+    (hoist-trig-taps True, as 'auto' picks at the benchmark's size) at
+    about 64^3, built on the card, and their operator."""
+    from devito_tpu_torch.models.seismic import elastic_setup, tti_setup
+    with dt.switchconfig(device='cuda'):
+        if solver == 'elastic':
+            s = elastic_setup(shape=(64, 60, 56), spacing=(10.,) * 3, tn=20.,
+                              nbl=6, space_order=4, dtype=dtype)
+        else:
+            s = tti_setup(shape=(60, 56, 64), spacing=(15.,) * 3, tn=20.,
+                          space_order=12, nbl=4, dtype=dtype,
+                          opt=('advanced', {'hoist-trig-taps': True}))
+        op = s.op_fwd(None)
+    units = list({id(p): p for _, p in op.kernel_plans
+                  if p is not None and p.nt > 1}.values())
+    return s, op, units
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [np.float32, np.float64])
+@pytest.mark.parametrize('solver', ['elastic', 'tti'])
+def test_fused_units_equal_their_members_on_card(solver, dtype):
+    """Each fused unit writes, bit for bit, what its equations' own units
+    write one launch each, on the same seeded rows, in one launch; its
+    build spills nothing (ptxas's report, when it ran in this process)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card)")
+    _, _, units = _fused_units(solver, dtype)
+    assert len(units) == 2
+    tdt = torch.from_numpy(np.empty(0, dtype)).dtype
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    for unit in units:
+        ins = [1 + torch.rand(g['fn']._allocated_space(), generator=gen,
+                              device='cuda', dtype=tdt) for g in unit.groups]
+        outs = [torch.rand(e.target._allocated_space(), generator=gen,
+                           device='cuda', dtype=tdt) for e in unit.eqs]
+        rows = {g['key']: r for g, r in zip(unit.groups, ins)}
+        alone = [K.plan_for(e) for e in unit.eqs]
+        got = [o.clone() for o in outs]
+        want = [o.clone() for o in outs]
+        before = K.launches
+        K.stencil_update(unit, (got, ins), {n: 0.7 for n in
+                                            unit.param_names})
+        assert K.launches == before + 1
+        for p, w in zip(alone, want):
+            K.stencil_update(p, (w, [rows[g['key']] for g in p.groups]),
+                             {n: 0.7 for n in p.param_names})
+        torch.cuda.synchronize()
+        for e, g, w, o in zip(unit.eqs, got, want, outs):
+            assert torch.equal(g, w), e.target.name
+            assert not torch.equal(g, o)
+        log = K.build_log.get(unit.key)
+        if log is not None:
+            assert ' 0 bytes spill stores' in log and \
+                ' 0 bytes spill loads' in log, log
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('solver', ['elastic', 'tti'])
+def test_fused_units_launch_once_a_step_on_card(solver):
+    """The forward launches each fused unit once a step, in place of its
+    equations' launches: K1's launches are the distinct units' counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card)")
+    s, op, units = _fused_units(solver, np.float32)
+    plans = list({id(p): p for _, p in op.kernel_plans}.values())
+    before = K.launches
+    with dt.switchconfig(device='cuda'):
+        s.forward()
+    steps = units[0].launches
+    assert steps >= 10 and all(u.launches == steps for u in units)
+    assert K.launches - before == sum(p.launches for p in plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('chunk', [10, 30])
+def test_chunked_launch_equals_the_whole_on_card(chunk):
+    """A point unit run in chunks of rows (``chunk_rows``; the last chunk
+    short) writes what its launch of one chunk writes, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run on the card)")
+    _, _, units = _fused_units('elastic', np.float32)
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    for unit in units:
+        assert unit.chunk_rows == 0 and unit.extents[1] % chunk
+        ins = [1 + torch.rand(g['fn']._allocated_space(), generator=gen,
+                              device='cuda') for g in unit.groups]
+        outs = [torch.rand(e.target._allocated_space(), generator=gen,
+                           device='cuda') for e in unit.eqs]
+        whole = [o.clone() for o in outs]
+        params = {n: 0.7 for n in unit.param_names}
+        K.stencil_update(unit, (whole, ins), params)
+        unit.chunk_rows = chunk
+        try:
+            K.stencil_update(unit, (outs, ins), params)
+        finally:
+            unit.chunk_rows = 0
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, whole))

@@ -128,7 +128,8 @@ def test_so12_schedule_streams_its_wide_cire_stars(dtype):
     K1's streaming design, each staged group at its own reach; the
     halo-extended items (cire0, cire1, the hoisted trig fields) and the
     updates of u and v, whose groups are read at their centre only, run on
-    the point design, each with its reason."""
+    the point design, each with its reason; cire0 with cire1, and u with
+    v, share a fused point unit (kernels/stencil.py ``plan_run``)."""
     from devito_tpu_torch.kernels import stencil as K
     s = tt.tti_setup(shape=(24, 22, 26), spacing=(20.,) * 3, tn=10.,
                      space_order=12, nbl=4, dtype=dtype,
@@ -156,9 +157,16 @@ def test_so12_schedule_streams_its_wide_cire_stars(dtype):
         if n in stream:
             continue
         assert p.design == 'point'
+        alone = K.plan_for(eq)
+        assert alone.design == 'point'
         if n in ('u', 'v', 'rec_itmp'):
-            assert p.design_reason == 'no group is read off its centre'
+            assert alone.design_reason == 'no group is read off its centre'
         else:
-            assert p.design_reason.startswith('halo-extended region')
+            assert alone.design_reason.startswith('halo-extended region')
+    for pair in (('cire0', 'cire1'), ('u', 'v')):
+        unit = plans[pair[0]][1]
+        assert [e.target.name for e in unit.eqs] == list(pair)
+        assert plans[pair[1]][1] is unit
+        assert unit.design_reason.startswith('2 independent equations')
     # the trig fields are read along their own axes only
     assert K.point_flops(plans['cire3'][1]) == 139
