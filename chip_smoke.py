@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py
 
+The speed of the paths that the benchmark's cells run (gpubench/; PERF.md)
+is the benchmark's to measure: here those paths are held correct on the
+card, and only the paths that no cell runs are timed. Every profile taken
+here is read back through operator/trace_profile.py (``trace_of``).
+
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. Build: nvcc builds every stencil kernel the phases below need.
 3. K2, the self-test (TMA boxes through a two-slot mbarrier ring), bit-
@@ -24,13 +29,11 @@
    step and the point kernel never.
 5. The seismic forward model, AcousticWaveSolver.forward, on a 512^3
    layered model: a finite, non-zero shot record and one streaming launch
-   per step, with the loop's host time beside its device time, and the
-   same shot again, warm; then the
-   same forward at 96^3 through the kernel and, on the CPU, through the
-   plain version, compared; then a profile of a short warm forward at
-   512^3 (device time by kernel, idle share). Phases 4 and 5 start as a
-   new process would, with no device self-tested: the first K1 launch
-   runs K2, the self-test, once for both.
+   per step, no kernel built and no probe kernel launched; then the same
+   forward at 96^3 through the kernel and, on the CPU, through the plain
+   version, compared. Phases 4 and 5 start as a new process would, with
+   no device self-tested: the first K1 launch runs K2, the self-test,
+   once for both. The benchmark's acoustic.shots cell times this path.
 6. The probe entry points (devito_tpu_torch/experiments): stencil_probe9's
    main (K15, the sliding-ring step) at N=256, TX=32, and stencil_probe6's
    main (P1 copy bandwidth, K8 window copies, K9 the in-place step) at
@@ -82,12 +85,15 @@
    read just after: (a) AcousticWaveSolver.adjoint of the forward shot's
    record, one streaming launch a step; (b) builtins.smooth of vp, then
    Born (jacobian) of a seeded dm about the smoothed model, with each
-   update's design and the launches its plan implies; (c) the
-   checkpointed gradient (jacobian_adjoint, checkpointing=True) of Born's
-   record, with the Revolver's snapshots and forward steps (the optimal
-   count + 1), the peak device memory, the cost of a reverse step and of
-   each apply, and the device time of the gradient's increment (torch
-   translator) under torch.profiler; (d) at 64^3 + nbl 10 in fp64: the F
+   update's design and the launches its plan implies; the adjoint and
+   Born each with their loop ms a step and a short run under
+   profiling='measured' (each item's device ms, the device's wait for the
+   host, the kernels); (c) the checkpointed gradient (jacobian_adjoint,
+   checkpointing=True) of Born's record, with the Revolver's snapshots
+   and forward steps (the optimal count + 1), the peak device memory, the
+   time of its two sweeps, and the device time of the gradient's
+   increment (torch translator) and of a reverse step under
+   torch.profiler; (d) at 64^3 + nbl 10 in fp64: the F
    and J dot tests, the checkpointed gradient against the full-save one,
    and the adjoint and the gradient against the plain versions on the
    CPU.
@@ -102,14 +108,16 @@
    the canonical shape, 512x402x890 + nbl 10, SO=12, fp32, through
    tti_setup's model and AnisotropicWaveSolver.forward with a Ricker and
    a line of 512 receivers, every count at 0 just before it and read just
-   after: every dense equation on K1's point design, CIRE's temporaries
-   included, each body plan launched once a step and each hoisted item
-   once, no equation in the translator; its loop and host time a step,
-   its bound, peak device memory, a torch.profiler window of warm steps
-   (device time by kernel, idle share) and each equation's launch at that
-   shape held against its plain version on seeded rows (TOL x max) and
-   timed alone; hoist-trig-taps' 'auto' setting at that size, and the same
-   forward with it forced the other way, timed and with the same record;
+   after: every dense equation on K1, CIRE's temporaries included, each
+   unit's design and why logged, each body unit launched once a step and
+   each hoisted item once, no equation in the translator; each unit's
+   launch at that shape held against its plain version on seeded rows
+   (TOL x max) and timed alone, a streaming unit also on the point
+   design; the same forward with hoist-trig-taps forced the other way,
+   with the same record, its units held likewise and the receivers'
+   gather both ways agreeing; and the two settings timed warm in turns
+   (ir/optimize.py's 'auto' rule). The benchmark's tti.shots cell times
+   the forward;
    (3) the same forward at 96^3 (+nbl 10) SO=8 through the kernels against
    the plain version on the CPU (RUN_TOL); (4) the staggered kernel's
    forward at 256^3 (+nbl 10) SO=8, finite and non-zero, each plan's
@@ -126,14 +134,14 @@
    and self-adjoint forward and adjoint at SO=8, each at 512^3 + nbl 10
    through its *_setup's layered model with setup_geometry's receivers
    (512 x 512 at the surface) over 100 steps or more, every count at 0
-   just before and read just after, each plan launched once a step: loop
-   and host time a step, its bound and this schedule's floor, peak device
-   memory, finite non-zero records, each equation's launch at that shape
-   held against its plain version on seeded rows (TOL x max) and timed
-   alone, a torch.profiler window of warm steps (device time by kernel,
-   idle share), and a warm run with CUDA events around every K1 launch
-   and every sparse operation (the loop's time in each, and outside all
-   of them); (3) each of them and the other five viscoacoustic kernels,
+   just before and read just after, each plan launched once a step: peak
+   device memory, finite non-zero records, each equation's launch at that
+   shape held against its plain version on seeded rows (TOL x max) and
+   timed alone; but for the elastic forward, which the benchmark's
+   elastic.shots cell times, the warm loop ms a step and a run under
+   profiling='measured': each body item's device ms a step, the union of
+   the device's events, the time the device waited for the host and the
+   kernels; (3) each of them and the other five viscoacoustic kernels,
    forward and adjoint, and the elastic forward with sinc and with
    precomputed receivers, at 48^3 + nbl 10 through the kernels against
    the plain versions on the CPU (RUN_TOL); (4) the fp64 dot tests of
@@ -141,8 +149,8 @@
    tests/test_self_adjoint.py (41x41, SO=8) through the kernels, atol
    1e-11; (5) the elastic forward at full width
    with sinc (r=4) and with precomputed receivers, driven as (2), each
-   sparse operation timed alone beside linear's, and its loop split as
-   (2) splits it.
+   sparse operation timed alone beside linear's, and a run of each under
+   profiling='measured' as in (2).
 12. Narrow storage, separable interpolation and the Operator's options:
    (1) the phase's new K1 units built at once, each with its nvcc
    seconds, registers and spills; (2) K1 on narrow rows, bench.py's
@@ -155,7 +163,8 @@
    its drift from the fp32 operator; (4) the elastic forward at 512^3 +
    nbl 10 with 262,144 surface receivers, linear and sinc (r=4), with the
    separable path and with it off: the records within 1e-5 x max, each
-   way's sparse, loop and _prepare ms; (5) the superstep wave equation at
+   way's separable set-up ms and, under profiling='measured', its sparse
+   and loop ms; (5) the superstep wave equation at
    512^3 SO=4, k = 2 and 4, against k single steps (RUN_TOL); (6) spatial
    bounds on the headline operator (an interior box as x_m/x_M, y_m/y_M,
    z_m/z_M and as the bare x=) against the plain version, the outside
@@ -182,7 +191,7 @@
    the checkpointed one (TOL x max), host RSS; (3) 50 steps of the shot
    under profiling='measured' with a profile-dir: the Chrome trace parsed,
    every body section's device time > 0, the busy time within 1.02 x the
-   loop's CUDA-event time, the unattributed events and the loop split;
+   loop's CUDA-event time, the unattributed events;
    (4) get_platform's row for the card's name, the apply's roofline
    line, and the bounds read from the nvidia-h100-sxm row. Every drive
    has K1's counts at 0 just before it and read just after, its
@@ -197,7 +206,7 @@
    launches equal to the shard-local items K1 plans times the steps; the
    exchange's copies and bytes a step equal to the halo plan's slabs;
    the design of each shard-local item and why; the first and warm loop
-   and the host ms a step, peak device memory; then the (2, 2, 1) shot
+   ms a step, peak device memory; then the (2, 2, 1) shot
    under profiling='measured': K1's and the exchange's device ms a step
    and whether the exchange's copies overlap K1's launches. (2) The
    checkpointed gradient at (2, 2, 1), 100 steps, against the unsharded
@@ -257,6 +266,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from devito_tpu_torch.experiments import time_ms
+
 SEED = 1234
 TOL = {np.float32: 1e-5, np.float64: 1e-12}
 #: Kernel against plain version over a whole run of many steps, x max
@@ -270,7 +281,7 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
                     'acoustic')],
             head_n=512, head_steps=100, head_compare=4,
             fwd_n=512, fwd_compare_n=96, fwd_nbl=10, fwd_tn=500.,
-            fwd_nrec=512, prof_tn=72., reps=20, plain_reps=3,
+            fwd_nrec=512, reps=20, plain_reps=3,
             # the streaming design's (TY, TZ, PY, STAGES, TX) swept at
             # head_n (the chosen tile is timed as the record)
             sweep=[(16, 64, 4, 2, 32), (16, 64, 4, 3, 48), (16, 64, 2, 2, 32),
@@ -294,11 +305,11 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
             # profiled over
             inv_n=64, inv_tn=100., inv_nrec=64, inc_steps=10,
             # phase 10: the canonical TTI shape (+nbl), space order, grid
-            # spacing, steps and the steps profiled; the 96^3 comparison,
-            # the staggered forward, the halo-extended K1 cases and the
-            # fp64 dot tests' model
+            # spacing and steps; the 96^3 comparison, the staggered
+            # forward, the halo-extended K1 cases and the fp64 dot tests'
+            # model
             tti_shape=(512, 402, 890), tti_nbl=10, tti_so=12,
-            tti_spacing=20., tti_steps=100, tti_prof_steps=5,
+            tti_spacing=20., tti_steps=100,
             tti_nrec=512, tti_cmp_n=96, tti_cmp_so=8, tti_cmp_steps=60,
             tti_stag_n=256, tti_stag_so=8, tti_stag_steps=60,
             tti_2d_shape=(600, 500), tti_dot_shape=(24, 26, 28),
@@ -308,7 +319,7 @@ FULL = dict(cases=[('2-D SO=4 diffusion', (1024, 1024), 4, 'diffusion'),
             # comparison with the CPU; the fp64 dot tests' models
             # (tests/test_viscoacoustic.py, tests/test_self_adjoint.py)
             sol_n=512, sol_nbl=10, sol_spacing=10., sol_steps=100,
-            sol_prof_steps=5, sol_cmp_n=48, sol_cmp_steps=40,
+            sol_cmp_n=48, sol_cmp_steps=40,
             sol_dot_shape=(21, 25), sol_dot_tn=250., sa_dot_shape=(41, 41),
             sa_dot_tn=250.,
             # phase 12: the headline size, bench.py's second row's steps;
@@ -538,90 +549,105 @@ def host_us_per_call(fn, device, calls=20):
     return host / calls * 1e6
 
 
-def time_host(op):
-    """Wrap ``op``'s time loop so that the host seconds it takes to
-    return -- to enqueue every step, before Operator.apply waits for the
-    device -- land in the returned dict's ``'s'``."""
-    runner, out = op._runner, {}
-
-    def timed(*args):
-        tic = time.perf_counter()
-        halted = runner(*args)
-        out['s'] = time.perf_counter() - tic
-        op._runner = runner
-        return halted
-
-    timed.plans = runner.plans
-    op._runner = timed
-    return out
-
-
-def forward_profile(device, sizes):
-    """Device time of a short warm forward at fwd_n (+nbl), tn=prof_tn,
-    by kernel, and the device's idle share, from torch.profiler; the
-    second of two runs is profiled. Only device events count (kernels,
-    copies, fills): a torch op and the kernel it launches would otherwise
-    both carry the kernel's time. Logs the table and returns it."""
-    from torch.profiler import profile, ProfilerActivity
-    solver = forward_solver(sizes['fwd_n'], sizes['fwd_nbl'],
-                            sizes['prof_tn'], sizes['fwd_nrec'])
-    solver.forward()
-    sync(device)
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if device.type == 'cuda' else [])
-    with profile(activities=acts) as prof:
-        tic = time.perf_counter()
-        summary = solver.forward()[2]
-        sync(device)
-        wall = time.perf_counter() - tic
-    nsteps = solver.geometry.nt - 2
-    rows = [(k, ms / nsteps, c) for k, ms, c in device_rows(prof)]
-    busy = sum(r[1] for r in rows)
-    loop = summary.globals['fdlike'].time * 1e3 / nsteps
-    res = dict(steps=nsteps, wall_ms_per_step=wall * 1e3 / nsteps,
-               loop_ms_per_step=loop, busy_ms_per_step=busy,
-               idle_share=1 - busy / loop if loop else None,
-               kernels=[dict(name=k[:120], ms_per_step=m, calls=c)
-                        for k, m, c in rows[:12]])
-    log(f"[profile] warm forward, {nsteps} steps: loop {loop:.3f} ms/step, "
-        f"device busy {busy:.3f} ms/step, idle share "
-        f"{100 * (res['idle_share'] or 0):.1f} % of the loop; by kernel:")
-    for k, m, c in rows[:12]:
-        log(f"[profile]   {m:.4f} ms/step ({100 * m / (busy or 1):.1f} %), "
-            f"{c} calls: {k[:100]}")
-    del solver
-    if device.type == 'cuda':
-        torch.cuda.empty_cache()
-    return res
-
-
-def device_rows(prof):
-    """(name, device ms, calls) of every device event (kernels, copies,
-    fills) of a torch.profiler run, longest first. Only device events
-    count: a torch op and the kernel it launches would otherwise both
-    carry the kernel's time."""
-    from torch.autograd import DeviceType
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, 'self_device_time_total', None)
-        if dev_us is None:
-            dev_us = getattr(e, 'self_cuda_time_total', 0)
-        if dev_us > 0:
-            rows.append((e.key, dev_us / 1e3, e.count))
-    return sorted(rows, key=lambda r: -r[1])
+def trace_of(trace_dir):
+    """(rows, busy ms) of the newest torch.profiler Chrome trace under
+    ``trace_dir``, read by operator/trace_profile.py: ``rows``, (name,
+    device ms, calls) of every device event name (kernels, copies, fills),
+    longest first; ``busy``, the union of the device events' intervals, in
+    which events that overlap (two streams) count once. Only device events
+    count: the program's ranges that torch.profiler draws on the device's
+    timeline (``dtpu::k1.launch``, ``dtpu_secN``) and the host's ops are
+    none. A trace with no device event (a CPU run) gives ([], 0.0)."""
+    from collections import Counter
+    from devito_tpu_torch.operator import trace_profile as TP
+    calls = Counter(n for n, _, _ in TP.device_events(trace_dir) or ())
+    rows = sorted(((n, secs * 1e3, calls[n]) for n, secs in
+                   (TP.device_op_durations(trace_dir) or {}).items()),
+                  key=lambda r: -r[1])
+    busy, end = 0.0, None
+    for _, _, a, b, _, _ in sorted(TP.section_events(trace_dir) or (),
+                                   key=lambda e: e[2]):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return rows, busy * 1e-3
 
 
 def profiled(fn, device):
-    """``device_rows`` of one call of ``fn`` under torch.profiler."""
+    """``trace_of`` one call of ``fn`` under torch.profiler, its trace
+    written into a temporary directory."""
+    import os
+    import tempfile
     from torch.profiler import profile, ProfilerActivity
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == 'cuda' else [])
-    with profile(activities=acts) as prof:
-        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=acts) as prof:
+            fn()
+            sync(device)
+        prof.export_chrome_trace(os.path.join(tmp, 'fn.pt.trace.json'))
+        return trace_of(tmp)
+
+
+def item_label(op, it):
+    """The label of a body item of ``op``: ``K1 <unit>`` for a dense item
+    that launches its unit (None for a fused unit's later equations, which
+    launch in the first one's), ``translator <target>`` for one K1
+    declined, ``<kind> <sparse function>`` for a sparse one."""
+    if hasattr(it, 'region'):
+        plan = next(p for e, p in op.kernel_plans if e is it)
+        if plan is None:
+            return f'translator {it.target.name}'
+        return f'K1 {unit_name(plan)}' if plan.eq is it else None
+    return f'{it.kind} {it.sparse.name}'
+
+
+def measured(fn, op, steps, device):
+    """``fn()``, one apply of ``op`` over ``steps`` steps whose outputs
+    end with its summary, under profiling='measured' with a profile-dir,
+    read back by operator/trace_profile.py. Returns (fn's outputs, a row
+    of ms a step): ``loop_ms``, the loop's CUDA-event time under the
+    profiler; ``busy_ms``, the union of its device events; ``waited_ms``,
+    the loop less that union, where the device waited for the host;
+    ``idle_share``; ``items``, each body item's device ms by
+    ``item_label`` (its ``dtpu_secN`` section); ``other_ms``, the device
+    time outside the sections (prologue, epilogue); ``kernels``, the ten
+    longest rows of ``trace_of``."""
+    import tempfile
+    from devito_tpu_torch import switchconfig
+    from devito_tpu_torch.operator import trace_profile as TP
+    with tempfile.TemporaryDirectory() as tmp:
+        with switchconfig(**{'profiling': 'measured', 'profile-dir': tmp}):
+            out = fn()
         sync(device)
-    return device_rows(prof)
+        rows, busy = trace_of(tmp)
+        secs = TP.attribute(tmp) or {'sections': {}, 'other': 0.0}
+    loop = out[-1].globals['fdlike'].time * 1e3
+    items = {}
+    for i, it in enumerate(op.schedule.body):
+        lab = item_label(op, it)
+        if lab is not None:
+            items[lab] = items.get(lab, 0.0) + secs['sections'].get(
+                f'dtpu_sec{i}', 0.0) * 1e3 / steps
+    return out, dict(
+        steps=steps, loop_ms=loop / steps, busy_ms=busy / steps,
+        waited_ms=(loop - busy) / steps,
+        idle_share=1 - busy / loop if loop else None, items=items,
+        other_ms=secs['other'] * 1e3 / steps,
+        kernels=[dict(name=n[:120], ms=m / steps, calls=c)
+                 for n, m, c in rows[:10]])
+
+
+def log_measured(label, m):
+    log(f"[measured] {label}, {m['steps']} steps: loop {m['loop_ms']:.3f} "
+        f"ms/step under the profiler, device busy {m['busy_ms']:.3f} (the "
+        f"union of its events), waiting for the host {m['waited_ms']:.3f} "
+        f"({100 * (m['idle_share'] or 0):.1f} %); by item: " + '; '.join(
+            f"{k} {v:.3f}" for k, v in m['items'].items())
+        + f"; outside the sections {m['other_ms']:.3f}; by kernel: "
+        + '; '.join(f"{k['ms']:.3f} x{k['calls'] / m['steps']:g}: "
+                    f"{k['name'][:60]}" for k in m['kernels'][:6]))
 
 
 def release(device):
@@ -639,26 +665,6 @@ def release(device):
 def sync(device):
     if device.type == 'cuda':
         torch.cuda.synchronize()
-
-
-def time_ms(fn, reps, device):
-    """Mean milliseconds of ``fn()`` over ``reps`` calls after one
-    warm-up call: CUDA events on the card, the host clock elsewhere."""
-    fn()
-    sync(device)
-    if device.type == 'cuda':
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
-    tic = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    return (time.perf_counter() - tic) * 1e3 / reps
 
 
 def headline_operator(n, device, opt=None):
@@ -1026,11 +1032,8 @@ def _smoke(device, sizes):
     fop = solver.op_fwd(None)
     nsteps = solver.geometry.nt - 2      # time_m=1 .. time_M=nt-2
     before = dict(K.launches_by_design)
-    host = time_host(fop)
-    tic = time.perf_counter()
-    rec, _, fsum = solver.forward()
+    rec = solver.forward()[0]
     sync(device)
-    wall = time.perf_counter() - tic
     by_design = {d: K.launches_by_design[d] - before[d] for d in before}
     fwd_launches = sum(by_design.values())       # main path ends here
     off_path = probe_launches()
@@ -1046,12 +1049,8 @@ def _smoke(device, sizes):
         raise AssertionError(f"forward launched the kernels {by_design} "
                              f"times for {nsteps} steps")
     nf = sizes['fwd_n'] + 2 * sizes['fwd_nbl']
-    loop = fsum.globals['fdlike'].time
     log(f"[forward] {sizes['fwd_n']}^3 (+nbl {sizes['fwd_nbl']}: {nf}^3) "
-        f"SO=8, {nsteps} steps, {r.shape[1]} receivers: wall {wall:.2f} s, "
-        f"loop {loop:.3f} s = {loop * 1e3 / nsteps:.3f} ms/step "
-        f"({fsum.globals['fdlike'].gpointss:.2f} GPts/s), host time in the "
-        f"loop {host['s'] * 1e3 / nsteps:.3f} ms/step; rec norm "
+        f"SO=8, {nsteps} steps, {r.shape[1]} receivers: rec norm "
         f"{np.linalg.norm(r):.6g}; launches {fwd_launches} = {nsteps} "
         f"steps (stream {by_design['stream']}, point {by_design['point']}), "
         f"declined 0")
@@ -1059,8 +1058,6 @@ def _smoke(device, sizes):
         head_launches + fwd_launches
     record['launches_by_design'] = {
         d: K.launches_by_design[d] for d in K.launches_by_design}
-    record['forward_ms_per_step'] = loop * 1e3 / nsteps
-    record['forward_host_ms_per_step'] = host['s'] * 1e3 / nsteps
     selftest['launches'] = selftest['launches_main_path'] = \
         K.selftest_launches
     for rec in records:
@@ -1075,14 +1072,6 @@ def _smoke(device, sizes):
         f"with its own dt and grid, reused the phase-2 builds); K2 "
         f"self-test ran once before the first K1 launch, not once per "
         f"apply")
-    # the main path ends above; the same shot again, warm
-    host = time_host(fop)
-    wloop = solver.forward()[2].globals['fdlike'].time
-    record['forward_warm_ms_per_step'] = wloop * 1e3 / nsteps
-    record['forward_warm_host_ms_per_step'] = host['s'] * 1e3 / nsteps
-    log(f"[forward] the same shot again (warm): loop "
-        f"{wloop * 1e3 / nsteps:.3f} ms/step, host time in the loop "
-        f"{host['s'] * 1e3 / nsteps:.3f} ms/step")
     del rec, fop        # the solver stays for phase 9
     if device.type == 'cuda':
         torch.cuda.empty_cache()
@@ -1100,17 +1089,7 @@ def _smoke(device, sizes):
     log(f"[forward] {sizes['fwd_compare_n']}^3: rec through the kernel vs "
         f"the plain version (CPU): max|diff| {err:.3e} (tolerance "
         f"{tol:.3e}), rec norm {np.linalg.norm(rk):.6g}")
-    sop = small.op_fwd(None)
-    host = time_host(sop)
-    ssum = small.forward()[2]
-    snt = small.geometry.nt - 2
-    record['forward_small_host_ms_per_step'] = host['s'] * 1e3 / snt
-    log(f"[forward] {sizes['fwd_compare_n']}^3, second run: host time in "
-        f"the loop {host['s'] * 1e3 / snt:.3f} ms/step against "
-        f"{ssum.globals['fdlike'].time * 1e3 / snt:.3f} ms/step of loop: "
-        f"the host's own cost a step, the device being idle there")
-    del small, sop
-    record['forward_profile'] = forward_profile(device, sizes)
+    del small
 
     ceiling = probes(device, sizes, gen, records)
     tiled_probes(device, sizes, gen, records, ceiling)
@@ -1173,7 +1152,7 @@ print(json.dumps({'ms': (time.perf_counter() - tic) * 1e3}))
 def device_us(fn, device, calls=20):
     """Device microseconds of one call of ``fn`` under torch.profiler: the
     device events of ``calls`` calls, over ``calls``."""
-    rows = profiled(lambda: [fn() for _ in range(calls)], device)
+    rows, _ = profiled(lambda: [fn() for _ in range(calls)], device)
     return sum(ms for _, ms, _ in rows) * 1e3 / calls
 
 
@@ -1770,7 +1749,8 @@ def tiles_stream(device, N, gen, recs, nb_t, reps):
         the launches a call add up to ``kernels``, and raises then."""
         for _ in range(3):
             sync(device)
-            rows = profiled(lambda: [fn() for _ in range(reps)], device)
+            rows, _ = profiled(lambda: [fn() for _ in range(reps)],
+                               device)
             per_call = [round(r[2] / reps) for r in rows]
             if sum(per_call) == kernels and all(per_call):
                 return [(r[0], r[1] / r[2] * k)
@@ -2421,55 +2401,12 @@ def copy_sweep(P7, src, device, reps, ceiling, k10):
                sweep=rows)
 
 
-def call_stats(op):
-    """Wrap ``op``'s apply, argument preparation and time loop so that
-    each call adds to the returned dict: ``calls``, the seconds apply
-    takes (``wall``), the host seconds in ``_prepare`` and in the loop's
-    enqueue (``prepare``, ``loop_host``), and the loop's device seconds
-    (``loop``, CUDA events, from the summary). Returns (the dict, a
-    function that undoes the wrapping)."""
-    st = dict(calls=0, wall=0., prepare=0., loop_host=0., loop=0.)
-    apply, prepare, runner = op.apply, op._prepare, op._runner
-
-    def _apply(**kwargs):
-        tic = time.perf_counter()
-        summary = apply(**kwargs)
-        st['wall'] += time.perf_counter() - tic
-        st['calls'] += 1
-        st['loop'] += summary.globals['fdlike'].time
-        return summary
-
-    def _prepare(kwargs):
-        tic = time.perf_counter()
-        out = prepare(kwargs)
-        st['prepare'] += time.perf_counter() - tic
-        return out
-
-    def _run(*args):
-        tic = time.perf_counter()
-        halted = runner(*args)
-        st['loop_host'] += time.perf_counter() - tic
-        return halted
-
-    _run.plans = runner.plans
-    op.apply, op._prepare, op._runner = _apply, _prepare, _run
-
-    def undo():
-        del op.apply, op._prepare
-        op._runner = runner
-    return st, undo
-
-
-def per_call_ms(st):
-    """``call_stats``'s sums as milliseconds a call."""
-    n = max(st['calls'], 1)
-    return {k: v * 1e3 / n for k, v in st.items() if k != 'calls'}
-
-
-def step_kernels(label, rows, steps):
-    """Log and return ``profiled``'s rows of a run of ``steps`` steps as
-    device ms a step by kernel, with the busy total."""
-    busy = sum(m for _, m, _ in rows) / steps
+def step_kernels(label, trace, steps):
+    """Log and return ``profiled``'s reading of a run of ``steps`` steps as
+    device ms a step by kernel, with the busy time (the union of the
+    device events)."""
+    rows, busy = trace
+    busy /= steps
     log(f"[profile] {label}: device busy {busy:.4f} ms a step ({steps} "
         f"steps); by kernel: " + '; '.join(
             f"{m / steps:.4f} ms x{c / steps:g}: {n[:70]}"
@@ -2546,39 +2483,37 @@ def inverse(device, sizes, solver, shot, vp0, small, record):
     (_, aplan), = aop.kernel_plans
     rec = solver.geometry.rec
     rec.data[:] = shot
-    host = time_host(aop)
     (srca, _, asum), by, wall = drive(
         'adjoint', lambda: solver.adjoint(rec), [aplan], nsteps)
     loop = asum.globals['fdlike'].time
     inv['adjoint'] = dict(
         design=aplan.design, design_reason=aplan.design_reason,
-        ms_per_step=loop * 1e3 / nsteps,
-        host_ms_per_step=host['s'] * 1e3 / nsteps, wall_s=wall,
+        ms_per_step=loop * 1e3 / nsteps, wall_s=wall,
         srca_norm=finite_nonzero('adjoint: srca', srca.data))
     log(f"[adjoint] {nf}^3 SO=8 fp32, {nsteps} steps back from the forward "
         f"shot's {rec.npoint} receivers: v.backward in the {aplan.design} "
         f"design ({aplan.design_reason}); launches stream {by['stream']}, "
         f"point {by['point']} (one streaming launch a step); loop "
-        f"{loop * 1e3 / nsteps:.3f} ms/step, host time in the loop "
-        f"{host['s'] * 1e3 / nsteps:.3f} ms/step; wall {wall:.2f} s; srca "
+        f"{loop * 1e3 / nsteps:.3f} ms/step; wall {wall:.2f} s; srca "
         f"norm {inv['adjoint']['srca_norm']:.6g}")
     k = sizes['inc_steps']
-    inv['adjoint']['device_by_kernel'] = step_kernels(
-        'adjoint', profiled(lambda: solver.adjoint(rec, time_m=nsteps + 1 - k),
-                            device), k)
+    inv['adjoint']['measured'] = measured(
+        lambda: solver.adjoint(rec, time_m=nsteps + 1 - k), aop, k,
+        device)[1]
+    log_measured('adjoint', inv['adjoint']['measured'])
     del srca, rec
     release(device)
 
     # -- (b) smooth, then Born about the smoothed model ---------------------
-    _, by, wall = drive('smooth', lambda: smooth(vp0, solver.model.vp), [],
-                        0, extra_stream=1)
-    log(f"[born] smooth(vp0, vp) at {nf}^3: one streaming launch, wall "
-        f"{wall:.2f} s")
+    splan = smooth_plan(vp0, solver.model.vp)
+    _, by, wall = drive('smooth', lambda: smooth(vp0, solver.model.vp),
+                        [splan], 1)
+    log(f"[born] smooth(vp0, vp) at {nf}^3: one launch in the "
+        f"{splan.design} design ({splan.design_reason}), wall {wall:.2f} s")
     dm = Function(name='dm', grid=solver.model.grid, space_order=0)
     dm.data[:] = 1e-3 * rng.standard_normal(dm.shape, dtype=np.float32)
     bop = solver.op_born()
     bplans = [p for _, p in bop.kernel_plans]
-    host = time_host(bop)
     (lin, u, U, bsum), by, wall = drive(
         'born', lambda: solver.jacobian(dm, vp=vp0), bplans, nsteps)
     del u, U
@@ -2586,8 +2521,7 @@ def inverse(device, sizes, solver, shot, vp0, small, record):
     inv['born'] = dict(
         designs={eq.target.name: (p.design, p.design_reason)
                  for eq, p in bop.kernel_plans},
-        ms_per_step=loop * 1e3 / nsteps,
-        host_ms_per_step=host['s'] * 1e3 / nsteps, wall_s=wall,
+        ms_per_step=loop * 1e3 / nsteps, wall_s=wall,
         rec_norm=finite_nonzero('Born: the linearized record', lin.data))
     log(f"[born] {nsteps} steps about smooth(vp), dm seeded normal x 1e-3: "
         + '; '.join(f"{eq.target.name}.forward in the {p.design} design "
@@ -2595,12 +2529,11 @@ def inverse(device, sizes, solver, shot, vp0, small, record):
         + f"; launches stream {by['stream']}, point {by['point']} ("
         f"{by['stream'] // max(nsteps, 1)} + {by['point'] // max(nsteps, 1)}"
         f" a step, as the plans imply); loop {loop * 1e3 / nsteps:.3f} "
-        f"ms/step, host time in the loop {host['s'] * 1e3 / nsteps:.3f} "
         f"ms/step; wall {wall:.2f} s; linearized record norm "
         f"{inv['born']['rec_norm']:.6g}")
-    inv['born']['device_by_kernel'] = step_kernels(
-        'born', profiled(lambda: solver.jacobian(dm, vp=vp0, time_M=k),
-                         device), k)
+    inv['born']['measured'] = measured(
+        lambda: solver.jacobian(dm, vp=vp0, time_M=k), bop, k, device)[1]
+    log_measured('born', inv['born']['measured'])
     release(device)
 
     # -- (c) the checkpointed gradient of Born's record ----------------------
@@ -2631,8 +2564,6 @@ def inverse(device, sizes, solver, shot, vp0, small, record):
     # the Revolver's default: sqrt(nt) snapshots, the optimal count + 1
     ncp = max(1, int(np.sqrt(nsteps)))
     opt = CK.optimal_forward_count(nsteps, ncp - 1)
-    gst, gundo = call_stats(gop)
-    fst, fundo = call_stats(fop)
     CK.Revolver = Timed
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
@@ -2644,8 +2575,6 @@ def inverse(device, sizes, solver, shot, vp0, small, record):
             extra_stream=(opt + 1) * len(fop.kernel_plans))
     finally:
         CK.Revolver = revolver
-        gundo()
-        fundo()
     (rv,) = made
     if (rv.n_checkpoints, rv.nt, rv.forward_steps) != (ncp, nsteps, opt + 1):
         raise AssertionError(f"Revolver: {rv.n_checkpoints} snapshots, "
@@ -2655,7 +2584,6 @@ def inverse(device, sizes, solver, shot, vp0, small, record):
     snap_bytes = rv.n_checkpoints * rv.cp.size * 4
     g = finite_nonzero('the gradient', grad.data)
     t1, t2 = inner(grad, dm), norm(lin) ** 2
-    gpc, fpc = per_call_ms(gst), per_call_ms(fst)
     inv['gradient'] = dict(
         snapshots=rv.n_checkpoints, snapshot_bytes=snap_bytes,
         max_memory_allocated=peak, memory_allocated_before=held,
@@ -2663,9 +2591,7 @@ def inverse(device, sizes, solver, shot, vp0, small, record):
         reverse_recompute_steps=rv.reverse_recompute_steps,
         optimal_forward_count=opt, forward_sweep_s=rv.forward_s,
         reverse_sweep_s=rv.reverse_s,
-        reverse_ms_per_step=rv.reverse_s * 1e3 / nsteps,
-        grad_apply_calls=gst['calls'], grad_apply_ms=gpc,
-        fwd_apply_calls=fst['calls'], fwd_apply_ms=fpc, wall_s=wall,
+        reverse_ms_per_step=rv.reverse_s * 1e3 / nsteps, wall_s=wall,
         grad_norm=g, dot_J_fp32=(t1 - t2) / t1)
     log(f"[gradient] checkpointed, {rv.nt} steps, {rv.n_checkpoints} "
         f"snapshots of u ({snap_bytes / 1e9:.2f} GB on the device); peak "
@@ -2681,12 +2607,7 @@ def inverse(device, sizes, solver, shot, vp0, small, record):
         f"declined ({K.decline_reason(inc_eq)}): the torch translator")
     log(f"[gradient] forward sweep {rv.forward_s:.2f} s, reverse sweep "
         f"{rv.reverse_s:.2f} s = {rv.reverse_s * 1e3 / nsteps:.3f} ms a "
-        f"reversed step; a reverse apply ({gst['calls']} calls): wall "
-        f"{gpc['wall']:.3f} ms, of it host {gpc['prepare']:.3f} ms in "
-        f"_prepare and {gpc['loop_host']:.3f} ms in the loop, loop "
-        f"{gpc['loop']:.3f} ms (CUDA events); a forward apply "
-        f"({fst['calls']} calls): wall {fpc['wall']:.3f} ms, prepare "
-        f"{fpc['prepare']:.3f} ms; wall {wall:.2f} s; gradient norm {g:.6g}; "
+        f"reversed step; wall {wall:.2f} s; gradient norm {g:.6g}; "
         f"<dm, J^T J dm> against |J dm|^2 in fp32: {(t1 - t2) / t1:.3e}")
 
     # the increment alone, and whole reverse steps, under torch.profiler
@@ -2867,56 +2788,6 @@ def trig_taps_on(op):
                    for it in op.schedule.body if hasattr(it, 'region'))
 
 
-def tti_bound(op, kinds):
-    """(bytes, flops, schedule bytes) a step of ``op``'s time loop needs.
-    The bytes are the function's: each (user field, time row) that the
-    step's dense equations read, read once, and each field that its body
-    updates write, written once, over the whole grid. A read of a
-    compiler temporary (CIRE's, the hoisting pass's, the interpolation's)
-    stands for the reads of the equation that computes it, so the bound
-    leaves out the temporaries' round trips. The schedule bytes count
-    every field that this schedule reads and writes, temporaries
-    included: the floor of this schedule, not of the function. A read of
-    a row that the step's own updates write (a first-order system's
-    v.forward in its stress update) is inside the function, so the bytes
-    leave it out; the schedule bytes count it. The flops are the
-    operations of each equation's point expression (``point_flops``) over
-    its region. The sparse operations and the prologue's own work are left
-    out."""
-    from devito_tpu_torch.kernels import stencil as K
-    from devito_tpu_torch.ir.lowering import time_access_of
-    from devito_tpu_torch.types.basic import retrieve_functions
-    temps = {eq.target.name: eq for kind, eq, _ in kinds
-             if kind != 'body update'}
-
-    def user_reads(eq, seen):
-        for a in retrieve_functions(eq.rhs):
-            name = a.function.name
-            if name not in temps:
-                yield name, str(time_access_of(a))
-            elif name not in seen:
-                seen.add(name)
-                yield from user_reads(temps[name], seen)
-
-    reads, writes, sreads, swrites, flops = set(), set(), set(), set(), 0
-    rows = {(eq.target.name, str((eq.time_kind, eq.time_off)))
-            for kind, eq, _ in kinds if kind == 'body update'}
-    for kind, eq, plan in kinds:
-        if kind == 'hoisted prologue item':
-            continue
-        for a in retrieve_functions(eq.rhs):
-            sreads.add((a.function.name, str(time_access_of(a))))
-        swrites.add(eq.target.name)
-        if kind == 'body update':
-            reads.update(set(user_reads(eq, set())) - rows)
-            writes.add(eq.target.name)
-        flops += K.point_flops(plan, eq) * int(np.prod(plan.extents))
-    npts = int(np.prod(op._grid.shape))
-    size = np.dtype(op._grid.dtype).itemsize
-    return ((len(reads) + len(writes)) * npts * size, flops,
-            (len(sreads) + len(swrites)) * npts * size)
-
-
 def loop_steps(op):
     """Steps of ``op``'s time loop under its default time bounds."""
     tm, tM = op._default_time_bounds()
@@ -2962,17 +2833,6 @@ def tti_drive(label, fn, kinds, steps, device):
     return out, by_kind, wall
 
 
-def tti_streams(so):
-    """The CIRE temporaries of a centred TTI forward at ``so`` (with or
-    without hoist-trig-taps) that K1 streams: cire3 reads u at radius
-    so/2 and cire2 its groups at so/4, each with more than FEW_STAGED
-    staged groups, so each streams once its widest reach is WIDE_RADIUS.
-    Every other dense equation runs on the point design."""
-    from devito_tpu_torch.kernels import stencil as K
-    return {name for name, r in (('cire2', so // 4), ('cire3', so // 2))
-            if K.WIDE_RADIUS <= r <= K.MAX_RADIUS}
-
-
 def point_alts(kinds):
     """{id(plan): the same equation's point-design plan} of every
     streaming plan of ``kinds``, for ``launch_ms``'s comparison."""
@@ -2981,25 +2841,22 @@ def point_alts(kinds):
             if p is not None and p.design == 'stream'}
 
 
-def check_tti_plans(label, kinds, streams=frozenset()):
-    """Log every K1 decline on the path with its reason; raise when a
-    dense equation runs in the translator, or when the targets on the
-    streaming design are not ``streams`` (a set of target names; every
-    other equation on the point design; None: any design)."""
+def check_tti_plans(label, kinds):
+    """Log each K1 unit of ``kinds`` with its design and why, and every
+    decline with its reason; raise when a dense equation runs in the
+    translator. Which design a unit takes is K1's rule
+    (kernels/stencil.py), held by the CPU tests."""
     from devito_tpu_torch.kernels import stencil as K
     bad = [(k, eq.target.name, K.decline_reason(eq)) for k, eq, p in kinds
            if p is None]
     for k, name, why in bad:
         log(f"[tti] {label}: {k} {name} declined: {why}")
-    off = [(k, eq.target.name, p.design, p.design_reason)
-           for k, eq, p in kinds if p is not None and streams is not None
-           and p.design != ('stream' if eq.target.name in streams
-                            else 'point')]
-    if bad or off:
+    log(f"[tti] {label}: " + '; '.join(
+        f"{k} {unit_name(p)} {p.design} ({p.design_reason})"
+        for k, _, p in units(kinds) if p is not None))
+    if bad:
         raise AssertionError(f"{label}: a dense equation runs in the "
-                             f"translator ({bad}) or off the design K1 "
-                             f"should take, the streaming one for "
-                             f"{sorted(streams or ())} ({off})")
+                             f"translator: {bad}")
 
 
 def halo_cases(device, ops, gen):
@@ -3031,28 +2888,6 @@ def halo_cases(device, ops, gen):
                 f"{tol:.3e})")
         del bufs
     return rows
-
-
-def tti_profile(solver, kinds, k, device, gen, alts=None):
-    """Device time of ``k`` warm steps of ``solver``'s forward by kernel
-    (torch.profiler, the prologue in), the idle share of the loop's
-    time, and ``launch_ms`` of its forward (with ``alts``, each streaming
-    unit's point design beside it)."""
-    out = {}
-
-    def run():
-        out['fwd'] = solver.forward(time_M=k)
-    rows = profiled(run, device)
-    busy = sum(m for _, m, _ in rows)
-    _, u, v, summary = out.pop('fwd')
-    loop = summary.globals['fdlike'].time * 1e3
-    return dict(steps=k, loop_ms=loop, busy_ms=busy,
-                idle_share=1 - busy / loop if loop else None,
-                kernels=[dict(name=n[:120], ms=m, calls=c)
-                         for n, m, c in rows[:12]],
-                per_equation=launch_ms(solver.op_fwd(None), kinds,
-                                       dict(u=u, v=v), solver.dt, device,
-                                       gen, alts))
 
 
 def tti_gather_ms(solver, kinds, u, v, device):
@@ -3108,16 +2943,15 @@ def tti(device, sizes, record, gen):
     """Phase 10, the TTI path: (1) K1's point design on halo-extended
     regions against its plain version; (2) the centered forward at the
     canonical shape, driven with every count at 0 just before and read
-    just after (``tti_streams`` on the streaming design, every other
-    equation on the point design, the streaming launches counted a step),
-    profiled with each unit timed beside its point design, and again with
-    hoist-trig-taps forced the other way; (3) the forward at tti_cmp_n^3
+    just after (each unit launched once a step, as its plan implies), each
+    unit at that shape held against its plain version and timed beside
+    its point design, and again with hoist-trig-taps forced the other way,
+    the two settings timed warm in turns; (3) the forward at tti_cmp_n^3
     against the plain version on the CPU; (4) the staggered kernel's
     forward; (5) the fp64 dot tests F and J. Adds the canonical forward's
     launches, by design, to K1's ``record``."""
     from devito_tpu_torch import switchconfig
     from devito_tpu_torch.builtins import inner, norm
-    from devito_tpu_torch.experiments import bound_ms
     from devito_tpu_torch.kernels import stencil as K
     from devito_tpu_torch.models.seismic import tti_setup
     from concurrent.futures import ThreadPoolExecutor
@@ -3170,10 +3004,9 @@ def tti(device, sizes, record, gen):
     ops.update(halo_ops)
     lower_s = time.perf_counter() - tic
     kinds = {lab: tti_kinds(op) for lab, op in ops.items()}
-    for lab, o in (('forward', so), ('forward, trig taps forced', so),
-                   (f'{cn}^3 forward', cso)):
-        check_tti_plans(lab, kinds[lab], tti_streams(o))
-    check_tti_plans('staggered forward', kinds['staggered forward'], None)
+    for lab in ('forward', 'forward, trig taps forced', f'{cn}^3 forward',
+                'staggered forward'):
+        check_tti_plans(lab, kinds[lab])
     # each streaming unit of the canonical forward beside its point design
     alts = {lab: point_alts(kinds[lab])
             for lab in ('forward', 'forward, trig taps forced')}
@@ -3189,15 +3022,15 @@ def tti(device, sizes, record, gen):
         log(f"[tti-build] {len(uniq)} K1 units in "
             f"{time.perf_counter() - tic:.2f} s wall (nvcc {nvcc_s:.2f} s); "
             f"the operators' lowering took {lower_s:.2f} s")
-    units = [dict(op=lab, kind=k, target=eq.target.name, key=p.key,
+    built = [dict(op=lab, kind=k, target=eq.target.name, key=p.key,
                   nvcc_s=K.build_seconds.get(p.key),
                   ptxas=ptxas(K.build_log.get(p.key, '')))
              for lab in ('forward', 'forward, trig taps forced')
              for k, eq, p in kinds[lab]]
-    for u in units:
+    for u in built:
         log(f"[tti-unit] {u['op']}: {u['kind']} {u['target']}: nvcc "
             f"{u['nvcc_s'] or 0:.2f} s; {u['ptxas'] or 'no ptxas report'}")
-    res.update(units=units, nvcc_s=nvcc_s, lower_s=lower_s,
+    res.update(units=built, nvcc_s=nvcc_s, lower_s=lower_s,
                n_units=len(uniq))
     del plans, uniq     # they would keep every operator's temporaries
 
@@ -3208,31 +3041,24 @@ def tti(device, sizes, record, gen):
     # -- (2) the canonical forward ------------------------------------------
     nf = tuple(n + 2 * nbl for n in shape)
     fk, k2 = kinds['forward'], kinds['forward, trig taps forced']
-    nbytes, flops, sbytes = tti_bound(fop, fk)
-    bound, bound_by = bound_ms(nbytes, flops)
-    sbound = bound_ms(sbytes, flops)[0]
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(device)
-    host = time_host(fop)
-    (rec, _, _, fsum), by_kind, wall = tti_drive(
+    (rec, u, v, _), by_kind, _ = tti_drive(
         'TTI forward', main.forward, fk, loop_steps(fop), device)
-    peak = torch.cuda.max_memory_allocated(device) if on_card else None
     r = np.array(rec.data)
     if not (np.isfinite(r).all() and np.abs(r).max() > 0):
         raise AssertionError("TTI forward: the shot record is not finite "
                              "and non-zero")
-    del rec
     designs = by_design(fk)
-    nstream = len(tti_streams(so))
-    if designs['stream'] != nstream * loop_steps(fop) * on_card:
-        raise AssertionError(f"TTI forward: {designs['stream']} streaming "
-                             f"launches, not {nstream} a step")
     record['launches'] += sum(by_kind.values())
     for d, c in designs.items():
         record['launches_by_design'][d] += c
     record['launches_main_path'] = record['launches']
     record.setdefault('launches_by_path', {})['tti forward'] = by_kind
-    cold = fsum.globals['fdlike'].time * 1e3 / steps, host['s'] * 1e3 / steps
+    # each unit at this shape against its plain version, the streaming
+    # ones also on the point design
+    per_eq = launch_ms(fop, fk, dict(u=u, v=v), main.dt, device, gen,
+                       alts['forward'])
+    del rec, u, v
+    release(device)
     (rec2, u2, v2, _), by2, _ = tti_drive(
         'TTI forward, trig taps forced', forced.forward, k2, loop_steps(fop2),
         device)
@@ -3247,59 +3073,48 @@ def tti(device, sizes, record, gen):
         raise AssertionError(f"the two hoist-trig-taps settings give shot "
                              f"records {diff:.3e} apart")
     del rec2, r2
-    # warm, in turns: 'auto', forced, forced, 'auto'
+    # hoist-trig-taps' 'auto' against the setting forced the other way
+    # (ir/optimize.py), warm, in turns: 'auto', forced, forced, 'auto'
     warm = {True: [], False: []}
-    turns = [(main, fop, auto_on), (forced, fop2, not auto_on)]
-    for sv, op_, setting in turns + turns[::-1]:
-        host = time_host(op_)
-        loop = sv.forward()[3].globals['fdlike'].time * 1e3 / steps
-        warm[setting].append((loop, host['s'] * 1e3 / steps))
-    ms = {k: float(np.mean([w[0] for w in v])) for k, v in warm.items()}
-    hms = {k: float(np.mean([w[1] for w in v])) for k, v in warm.items()}
-    loop = ms[auto_on]
+    turns = [(main, auto_on), (forced, not auto_on)]
+    for sv, setting in turns + turns[::-1]:
+        warm[setting].append(
+            sv.forward()[3].globals['fdlike'].time * 1e3 / steps)
+    ms = {k: float(np.mean(v)) for k, v in warm.items()}
     nbody = sum(k != 'hoisted prologue item' for k, _, _ in fk)
+    nstream = sum(p.design == 'stream' for k, _, p in units(fk)
+                  if k != 'hoisted prologue item')
     res['forward'] = dict(
         shape=nf, so=so, steps=steps, nrec=r.shape[1],
-        hoist_trig_taps_auto=auto_on, loop_ms_per_step=loop,
-        host_ms_per_step=hms[auto_on], cold_loop_ms_per_step=cold[0],
-        cold_host_ms_per_step=cold[1], wall_s=wall,
-        launches_by_kind=by_kind, launches_by_design=designs,
-        launches_per_step=nbody, stream_launches_per_step=nstream,
-        bound_ms=bound, bound_by=bound_by, bound_bytes=nbytes,
-        bound_flops=flops, share_of_bound=bound / loop,
-        schedule_bytes=sbytes, schedule_bound_ms=sbound,
-        max_memory_allocated=peak, rec_norm=float(np.linalg.norm(r)),
-        warm_runs={str(k): v for k, v in warm.items()})
+        hoist_trig_taps_auto=auto_on, launches_by_kind=by_kind,
+        launches_by_design=designs, launches_per_step=nbody,
+        stream_launches_per_step=nstream, per_equation=per_eq,
+        rec_norm=float(np.linalg.norm(r)))
     res['forward_forced'] = dict(
-        hoist_trig_taps=not auto_on, loop_ms_per_step=ms[not auto_on],
-        host_ms_per_step=hms[not auto_on], launches_by_kind=by2,
-        bound_ms=bound_ms(*tti_bound(fop2, k2)[:2])[0], rec_max_abs_diff=diff,
-        per_equation=forced_eqs, receiver_gather=gather)
+        hoist_trig_taps=not auto_on, launches_by_kind=by2,
+        rec_max_abs_diff=diff, per_equation=forced_eqs,
+        receiver_gather=gather)
+    res['hoist_trig_taps'] = dict(auto=auto_on, ms_per_step=ms[auto_on],
+                                  forced_ms_per_step=ms[not auto_on],
+                                  warm_runs={str(k): v
+                                             for k, v in warm.items()})
     log(f"[tti] forward {shape} (+nbl {nbl}: {nf}) SO={so} fp32, {steps} "
         f"steps, {r.shape[1]} receivers, hoist-trig-taps 'auto' -> "
-        f"{auto_on}: first run (the main path) loop {cold[0]:.3f} ms/step, "
-        f"host time in the loop {cold[1]:.3f} ms/step, wall {wall:.2f} s; "
-        f"warm loop {loop:.3f} ms/step, host {hms[auto_on]:.3f} ms/step; "
-        f"bound {bound:.3f} ms/step by {bound_by} ({nbytes / 1e9:.2f} GB, "
-        f"{flops / 1e9:.1f} GFlop a step) = {100 * bound / loop:.1f} % of "
-        f"the warm step; this schedule's own floor, its temporaries' round "
-        f"trips included, {sbound:.3f} ms/step ({sbytes / 1e9:.2f} GB); K1 "
-        f"launches by kind {by_kind} ({nbody} a step, {nstream} of them "
-        f"on the streaming design ({sorted(tti_streams(so))}), by design "
-        f"{designs}, no equation in the translator); peak device "
-        f"memory " + (f"{peak / 1e9:.2f} GB" if peak else "not measured")
-        + f"; rec norm {np.linalg.norm(r):.6g}")
+        f"{auto_on}: K1 launches by kind {by_kind} ({nbody} equations a step, "
+        f"{nstream} of them on the streaming design), by design {designs}, "
+        f"no equation in the translator; rec norm {np.linalg.norm(r):.6g}")
+    for lab, eqs in (('auto', per_eq), ('forced', forced_eqs)):
+        log(f"[tti] a launch by unit, hoist-trig-taps {lab}, held against "
+            f"its plain version and timed alone (CUDA events): " + '; '.join(
+                f"{e['kind']} {e['target']} {e['design']} {e['ms']:.3f} ms"
+                + (f" (point {e['point_ms']:.3f})" if 'point_ms' in e
+                   else '') for e in eqs))
     log(f"[tti] hoist-trig-taps, warm, in turns ('auto' = {auto_on}, "
         f"forced, forced, 'auto'): {auto_on} "
-        f"{[round(w[0], 3) for w in warm[auto_on]]} ms/step, "
-        f"{not auto_on} {[round(w[0], 3) for w in warm[not auto_on]]} "
-        f"ms/step; host {hms[auto_on]:.3f} and {hms[not auto_on]:.3f} "
+        f"{[round(w, 3) for w in warm[auto_on]]} ms/step, "
+        f"{not auto_on} {[round(w, 3) for w in warm[not auto_on]]} "
         f"ms/step; launches by kind with it forced {by2}; rec max|diff| "
-        f"between the two {diff:.3e}; a launch by equation with it forced "
-        f"(CUDA events): " + '; '.join(
-            f"{e['kind']} {e['target']} {e['design']} {e['ms']:.3f} ms"
-            + (f" (point {e['point_ms']:.3f})" if 'point_ms' in e else '')
-            for e in forced_eqs))
+        f"between the two {diff:.3e}")
     if gather:
         log(f"[tti] the receivers' interpolation, {gather['npoint']} "
             f"points (CUDA events on the card): K1's {gather['itmp_ms']:.4f}"
@@ -3308,26 +3123,11 @@ def tti(device, sizes, record, gen):
             f"4096-corner rule; the direct gather from the fields "
             f"{gather['direct_ms']:.4f} ms; max|diff| "
             f"{gather['max_abs_diff']:.3e}")
-    # nothing below reads the forced setting's solver: its model and
-    # temporaries are freed before the profile's seeded rows need room
-    del forced, fop2, turns, k2
-    ops.pop('forward, trig taps forced')
-    kinds.pop('forward, trig taps forced')
-    alts.pop('forward, trig taps forced')
-    release(device)
-    prof = res['forward']['profile'] = tti_profile(
-        main, fk, sizes['tti_prof_steps'], device, gen, alts['forward'])
-    log(f"[tti-profile] {prof['steps']} warm steps: loop "
-        f"{prof['loop_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms, "
-        f"idle share {100 * (prof['idle_share'] or 0):.1f} %; by kernel: "
-        + '; '.join(f"{m['ms']:.3f} ms x{m['calls']}: {m['name'][:60]}"
-                    for m in prof['kernels'][:8]))
-    log("[tti-profile] a launch by equation (CUDA events): " + '; '.join(
-        f"{e['kind']} {e['target']} {e['design']} {e['ms']:.3f} ms"
-        + (f" (point {e['point_ms']:.3f})" if 'point_ms' in e else '')
-        for e in prof['per_equation']))
-    del r, main, fop, sv, op_, alts
+    del r, main, fop, forced, fop2, turns, sv, k2, alts
     ops.pop('forward')
+    ops.pop('forward, trig taps forced')
+    kinds.pop('forward')
+    kinds.pop('forward, trig taps forced')
     release(device)
 
     # -- (3) the forward at cn^3 against the plain version on the CPU -----
@@ -3597,73 +3397,10 @@ def sparse_ms(op, fields, dt, device):
         def call():
             _exec_sparse(it, bufs, params, 1, geom)
         dev = sum(m for _, m, _ in profiled(
-            lambda: [call() for _ in range(3)], device)) / 3
+            lambda: [call() for _ in range(3)], device)[0]) / 3
         rows.append((f'{it.kind} {it.sparse.name}', it.sparse.npoint,
                      time_ms(call, 3, device), dev))
     return rows, first
-
-
-def loop_split(fn, steps, device):
-    """``fn()`` (a solver's entry point; its outputs end with the summary)
-    with a span around every K1 launch and every sparse operation of its
-    loop: CUDA events on the card, the host clock elsewhere, with the
-    executor's ``stencil_update`` and ``_exec_sparse`` wrapped for the
-    call. Returns the loop's ms a step (its own CUDA events), the ms a
-    step in each K1 target and each sparse item (the first call of a
-    sparse item, which builds its geometry, also alone: ``first_ms``), and
-    ``rest_ms``: the loop's time outside every span. The spans of one
-    stream are disjoint, so ``rest_ms`` is time in which the device ran
-    no kernel of the loop: it waited for the host."""
-    from devito_tpu_torch.compiler import executor as E
-    on_card = device.type == 'cuda'
-    spans, wrapped = [], (E.stencil_update, E._exec_sparse)
-
-    def stamp():
-        if not on_card:
-            return time.perf_counter()
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def timed(label, f):
-        def call(*args):
-            a = stamp()
-            f(*args)
-            spans.append((label(*args), a, stamp()))
-        return call
-    E.stencil_update = timed(lambda p, *_: f'K1 {unit_name(p)}',
-                             wrapped[0])
-    E._exec_sparse = timed(lambda it, *_: f'{it.kind} {it.sparse.name}',
-                           wrapped[1])
-    try:
-        loop = fn()[-1].globals['fdlike'].time * 1e3
-    finally:
-        E.stencil_update, E._exec_sparse = wrapped
-    sync(device)
-    ms, first = {}, {}
-    for label, a, b in spans:
-        t = a.elapsed_time(b) if on_card else (b - a) * 1e3
-        if label not in ms and not label.startswith('K1'):
-            first[label] = t
-        ms[label] = ms.get(label, 0.) + t
-    return dict(loop_ms=loop / steps,
-                ms={k: v / steps for k, v in ms.items()},
-                first_ms=first, rest_ms=(loop - sum(ms.values())) / steps)
-
-
-def log_split(label, sp, plain_ms, plain='the warm run'):
-    k1 = sum(v for k, v in sp['ms'].items() if k.startswith('K1'))
-    log(f"[sol-split] {label}: loop {sp['loop_ms']:.3f} ms/step with a span "
-        f"around every call ({plain_ms:.3f} in {plain}, without); K1 "
-        f"{k1:.3f} ms/step "
-        f"({100 * k1 / sp['loop_ms']:.1f} %), the sparse operations "
-        f"{sp['loop_ms'] - k1 - sp['rest_ms']:.3f}, outside every span "
-        f"(the device waiting for the host) {sp['rest_ms']:.3f} "
-        f"({100 * sp['rest_ms'] / sp['loop_ms']:.1f} %); by call: "
-        + '; '.join(f"{k} {v:.3f}" for k, v in sp['ms'].items())
-        + (f"; first calls (the geometry built): " + '; '.join(
-            f"{k} {v:.1f} ms" for k, v in sp['first_ms'].items())
-           if sp['first_ms'] else ''))
 
 
 def log_units(label, ops, kinds):
@@ -3696,14 +3433,13 @@ def by_design(kinds):
 
 def drive_solver(label, fn, op, kinds, device, record):
     """``tti_drive`` of ``fn`` (a solver's entry point) over ``op``'s loop
-    steps, its peak device memory, loop and host time a step; adds the
-    launches to K1's ``record``. Returns (fn's outputs, a row)."""
+    steps, its peak device memory and loop time a step; adds the launches
+    to K1's ``record``. Returns (fn's outputs, a row)."""
     on_card = device.type == 'cuda'
     steps = loop_steps(op)
     held = torch.cuda.memory_allocated(device) if on_card else None
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
-    host = time_host(op)
     out, by_kind, wall = tti_drive(label, fn, kinds, steps, device)
     peak = torch.cuda.max_memory_allocated(device) if on_card else None
     summary = out[-1]
@@ -3715,9 +3451,9 @@ def drive_solver(label, fn, op, kinds, device, record):
     record.setdefault('launches_by_path', {})[label] = by_kind
     return out, dict(steps=steps, wall_s=wall,
                      loop_ms_per_step=summary.globals['fdlike'].time * 1e3
-                     / steps, host_ms_per_step=host['s'] * 1e3 / steps,
-                     launches_by_kind=by_kind, launches_by_design=designs,
-                     held_bytes=held, max_memory_allocated=peak)
+                     / steps, launches_by_kind=by_kind,
+                     launches_by_design=designs, held_bytes=held,
+                     max_memory_allocated=peak)
 
 
 def solvers(device, sizes, record, gen):
@@ -3725,9 +3461,10 @@ def solvers(device, sizes, record, gen):
     self-adjoint) and the geometry's sinc and precomputed interpolation:
     (1) every operator of the phase lowered first and all their K1 units
     built at once; (2) each solver at full width driven with every count
-    at 0 just before and read just after, timed, bounded, profiled, its
-    loop split by ``loop_split`` and each launch at that shape held
-    against its plain version (``launch_ms``); (3) each at sol_cmp_n^3,
+    at 0 just before and read just after, each launch at that shape held
+    against its plain version (``launch_ms``) and, but for the elastic
+    forward, a cell's, timed warm and split under profiling='measured'
+    (``measured``); (3) each at sol_cmp_n^3,
     with the other five viscoacoustic kernels (forward and adjoint) and
     the sinc and precomputed elastic forwards, against the plain versions
     on the CPU; (4) the fp64 dot tests through the kernels; (5) sinc and
@@ -3736,7 +3473,6 @@ def solvers(device, sizes, record, gen):
     from devito_tpu_torch import (NODE, TensorTimeFunction, TimeFunction,
                                   switchconfig)
     from devito_tpu_torch.builtins import inner, norm
-    from devito_tpu_torch.experiments import bound_ms
     from devito_tpu_torch.kernels import stencil as K
     from concurrent.futures import ThreadPoolExecutor
     on_card = device.type == 'cuda'
@@ -3794,7 +3530,7 @@ def solvers(device, sizes, record, gen):
     lower_s = time.perf_counter() - tic
     kinds = {lab: tti_kinds(op) for lab, op in ops.items()}
     for lab, ks in kinds.items():
-        check_tti_plans(lab, ks, None)
+        check_tti_plans(lab, ks)
     # the point design of each streaming equation at full width, timed
     # beside it
     alts = {id(p): K.plan_for(eq, _design='point') for k in SOLVERS
@@ -3860,60 +3596,41 @@ def solvers(device, sizes, record, gen):
                                 fop, fk, device, record)
         recs = records_of(out)
         rec = out[0]
-        # a Function's tensor is freed with its class, which the cyclic
+        if k != 'elastic':
+            # a cell times the elastic forward; the others are timed warm
+            # here, then split under profiling='measured'
+            del out, ex
+            release(device)
+            row['warm_loop_ms_per_step'] = s.forward(**extra(
+                k, s.model.grid))[-1].globals['fdlike'].time * 1e3 / \
+                row['steps']
+            release(device)
+            ex = extra(k, s.model.grid)
+            out, row['measured'] = measured(lambda: s.forward(**ex), fop,
+                                            row['steps'], device)
+        # the run's wavefields: the rows each launch is timed on; a
+        # Function's tensor is freed with its class, which the cyclic
         # collector frees (release)
+        fields = dict(wavefields(out), **wavefields(ex.values()))
         del out, ex
-        release(device)
-        nbytes, flops, sbytes = tti_bound(fop, fk)
-        bound, bound_by = bound_ms(nbytes, flops)
-        host = time_host(fop)
-        warm = s.forward(**extra(k, s.model.grid))[-1].globals[
-            'fdlike'].time * 1e3 / row['steps']
-        release(device)
-        split = loop_split(lambda: s.forward(**extra(k, s.model.grid)),
-                           row['steps'], device)
-        release(device)
-        po, ex = {}, extra(k, s.model.grid)
-        prow = profiled(lambda: po.setdefault('out', s.forward(
-            time_M=sizes['sol_prof_steps'], **ex)), device)
-        busy = sum(m for _, m, _ in prow)
-        pout = po.pop('out')
-        ploop = pout[-1].globals['fdlike'].time * 1e3
-        # the profiled run's wavefields: the rows each launch is timed on
-        fields = dict(wavefields(pout), **wavefields(ex.values()))
-        del pout, ex
         per_eq = launch_ms(fop, fk, fields, s.dt, device, gen, alts,
                            apart)
-        # the prologue's launches are in the profile, not in the loop
-        pro = sum(e['ms'] for e in per_eq
-                  if e['kind'] == 'hoisted prologue item')
         # every buffer is allocated with its last two axes rounded up to
         # 8 and 128 (types/dense.py _allocated_space)
         f = s.model.damp if getattr(s.model.damp, 'is_Function', False) \
             else s.model.b
         row.update(
             shape=nf, so=SOLVERS[k], nt=s.geometry.nt,
-            nrec=s.geometry.nrec, warm_loop_ms_per_step=warm,
-            warm_host_ms_per_step=host['s'] * 1e3 / row['steps'],
-            bound_ms=bound, bound_by=bound_by, bound_bytes=nbytes,
-            bound_flops=flops, schedule_bytes=sbytes,
-            schedule_bound_ms=bound_ms(sbytes, flops)[0],
-            share_of_bound=bound / warm,
+            nrec=s.geometry.nrec,
             rec_norms={nm: float(np.linalg.norm(r))
                        for nm, r in recs.items()},
             launches_per_step=sum(kd != 'hoisted prologue item'
                                   for kd, _, _ in units(fk)),
-            per_equation=per_eq, split=split,
+            per_equation=per_eq,
             unrounded_share=float(np.prod(f.shape_with_halo) /
-                                  np.prod(f._allocated_space())),
-            profile=dict(steps=sizes['sol_prof_steps'], busy_ms=busy,
-                         loop_ms=ploop, prologue_ms=pro,
-                         idle_share=1 - (busy - pro) / ploop,
-                         kernels=[dict(name=nm[:120], ms=m, calls=c)
-                                  for nm, m, c in prow[:10]]))
+                                  np.prod(f._allocated_space())))
         res[f'{k} forward'] = row
         log_full(f'{k} forward', row)
-        log_split(f'{k} forward', split, warm)
         if k == 'elastic':
             rows, first = sparse_ms(fop, fields, s.dt, device)
             res['receivers'] = dict(linear=dict(sparse=rows,
@@ -3930,23 +3647,18 @@ def solvers(device, sizes, record, gen):
             fields = wavefields(aout)
             del aout
             release(device)
-            host = time_host(aop)
-            asum = s.adjoint(rec)[-1]
-            awarm = asum.globals['fdlike'].time * 1e3 / arow['steps']
+            arow['warm_loop_ms_per_step'] = s.adjoint(rec)[-1].globals[
+                'fdlike'].time * 1e3 / arow['steps']
             release(device)
-            asplit = loop_split(lambda: s.adjoint(rec), arow['steps'],
-                                device)
+            arow['measured'] = measured(lambda: s.adjoint(rec), aop,
+                                        arow['steps'], device)[1]
             release(device)
-            arow.update(warm_loop_ms_per_step=awarm,
-                        warm_host_ms_per_step=host['s'] * 1e3 / arow['steps'],
-                        rec_norms={nm: float(np.linalg.norm(r))
+            arow.update(rec_norms={nm: float(np.linalg.norm(r))
                                    for nm, r in arecs.items()},
                         per_equation=launch_ms(aop, kinds[f'{k} adjoint'],
-                                               fields, s.dt, device, gen),
-                        split=asplit)
+                                               fields, s.dt, device, gen))
             res[f'{k} adjoint'] = arow
             log_full(f'{k} adjoint', arow)
-            log_split(f'{k} adjoint', asplit, awarm)
             del aop, fields
         del rec, f
         release(device)
@@ -4031,8 +3743,9 @@ def solvers(device, sizes, record, gen):
 def receivers_phase(interp, kinds, device, record):
     """(5): the elastic forward at full width with sinc (r=4) and with
     precomputed receivers (the solvers of ``interp``), each driven as the
-    linear one (counts at 0 just before, read just after) and each sparse
-    operation then timed alone."""
+    linear one (counts at 0 just before, read just after), each sparse
+    operation then timed alone, and the run split under
+    profiling='measured'."""
     out = {}
     for i, si in interp.items():
         lab = f'elastic forward, {i} receivers'
@@ -4043,19 +3756,20 @@ def receivers_phase(interp, kinds, device, record):
                                 device)
         del o
         release(device)
-        split = loop_split(si.forward, row['steps'], device)
-        row.update(sparse=rows, first_call_ms=first, split=split,
+        row.update(sparse=rows, first_call_ms=first,
+                   measured=measured(si.forward, si.op_fwd(None),
+                                     row['steps'], device)[1],
                    rec_norms={nm: float(np.linalg.norm(r))
                               for nm, r in recs.items()})
         out[i] = row
         log(f"[sol-rec] {lab}: loop {row['loop_ms_per_step']:.3f} ms/step "
-            f"over {row['steps']} steps (host {row['host_ms_per_step']:.3f}),"
-            f" K1 launches {row['launches_by_kind']}, peak device memory "
+            f"over {row['steps']} steps, K1 launches "
+            f"{row['launches_by_kind']}, peak device memory "
             + (f"{row['max_memory_allocated'] / 1e9:.2f} GB (held before "
                f"{row['held_bytes'] / 1e9:.2f})"
                if row['max_memory_allocated'] else "not measured"))
         log_sparse(i, rows, first)
-        log_split(lab, split, row['loop_ms_per_step'], 'the first run')
+        log_measured(lab, row['measured'])
         release(device)
     return out
 
@@ -4074,25 +3788,16 @@ def log_full(label, row):
     mem = row['max_memory_allocated']
     log(f"[sol] {label} {row.get('shape', '')} SO={row.get('so', '')}, "
         f"{row['steps']} steps: first run (the main path) loop "
-        f"{row['loop_ms_per_step']:.3f} ms/step, host time in the loop "
-        f"{row['host_ms_per_step']:.3f} ms/step, wall {row['wall_s']:.2f} s;"
-        f" warm loop {row['warm_loop_ms_per_step']:.3f} ms/step, host "
-        f"{row['warm_host_ms_per_step']:.3f}; K1 launches by kind "
-        f"{row['launches_by_kind']}, by design {row['launches_by_design']};"
-        f" peak device memory " + (f"{mem / 1e9:.2f} GB (held before "
-                                   f"{row['held_bytes'] / 1e9:.2f})"
-                                   if mem else "not measured")
+        f"{row['loop_ms_per_step']:.3f} ms/step, wall {row['wall_s']:.2f} s"
+        + (f"; warm loop {row['warm_loop_ms_per_step']:.3f} ms/step"
+           if 'warm_loop_ms_per_step' in row else "")
+        + f"; K1 launches by kind {row['launches_by_kind']}, by design "
+        f"{row['launches_by_design']}; peak device memory "
+        + (f"{mem / 1e9:.2f} GB (held before {row['held_bytes'] / 1e9:.2f})"
+           if mem else "not measured")
         + (f", {row['unrounded_share']:.4f} of it without the (8, 128) "
            f"rounding" if 'unrounded_share' in row else "")
         + f"; records {row['rec_norms']}")
-    if 'bound_ms' in row:
-        log(f"[sol] {label}: bound {row['bound_ms']:.3f} ms/step by "
-            f"{row['bound_by']} ({row['bound_bytes'] / 1e9:.2f} GB, "
-            f"{row['bound_flops'] / 1e9:.1f} GFlop) = "
-            f"{100 * row['share_of_bound']:.1f} % of the warm step; this "
-            f"schedule's floor {row['schedule_bound_ms']:.3f} ms/step "
-            f"({row['schedule_bytes'] / 1e9:.2f} GB); {row['nrec']} "
-            f"receivers, nt {row['nt']}")
     if 'per_equation' in row:
         log(f"[sol] {label}: each launch by equation on seeded rows at the "
             f"loop's shapes, held against its plain version (max|kernel - "
@@ -4104,16 +3809,8 @@ def log_full(label, row):
                 + (f" (point design {e['point_ms']:.3f} ms, err "
                    f"{e['point_max_abs_err']:.2e})" if 'point_ms' in e
                    else "") for e in row['per_equation']))
-    if 'profile' in row:
-        p = row['profile']
-        log(f"[sol-profile] {label}: {p['steps']} warm steps, loop "
-            f"{p['loop_ms']:.3f} ms, device busy {p['busy_ms']:.3f} ms of "
-            f"which the prologue's launches {p['prologue_ms']:.3f} ms, idle "
-            f"share of the loop {100 * (p['idle_share'] or 0):.1f} % "
-            f"(negative: the device events sum past the loop's CUDA-event "
-            f"time); by kernel: " + '; '.join(
-                f"{m['ms']:.3f} ms x{m['calls']}: {m['name'][:60]}"
-                for m in p['kernels'][:8]))
+    if 'measured' in row:
+        log_measured(label, row['measured'])
 
 
 # -- phase 12: narrow storage, separable interpolation and the options ------
@@ -4426,9 +4123,9 @@ def separable_phase(device, sizes, count):
     every surface node) with linear and with sinc (r=4) receivers, each
     with the separable path (the default) and with it off: the records
     agree within 1e-5 x max (fp32: the sums run in other orders); each
-    way's first loop ms a step, and in a warm run its sparse and loop ms a
-    step (``loop_split``), ``_prepare``'s host ms and the separable
-    set-up's share of it."""
+    way's first loop ms a step and the separable set-up's ms, and a warm
+    run under profiling='measured' (``measured``): its sparse and loop ms
+    a step."""
     from devito_tpu_torch import switchconfig
     n, nbl, h, steps = (sizes['sol_n'], sizes['sol_nbl'],
                         sizes['sol_spacing'], sizes['sol_steps'])
@@ -4450,21 +4147,14 @@ def separable_phase(device, sizes, count):
                 first = fo[-1].globals['fdlike'].time * 1e3 / nsteps
                 del fo
                 release(device)
-                # warm: the model's tensors are on the device already, so
-                # _prepare's host ms are the same work both ways but the
-                # separable set-up
-                st, undo = call_stats(op)
-                try:
-                    split = loop_split(lambda: s.forward(), nsteps, device)
-                finally:
-                    undo()
-            sparse = sum(v for k, v in split['ms'].items()
+                split = measured(lambda: s.forward(), op, nsteps,
+                                 device)[1]
+            sparse = sum(v for k, v in split['items'].items()
                          if not k.startswith('K1'))
-            rows[way] = dict(recs=recs, launches=by, split=split,
+            rows[way] = dict(recs=recs, launches=by, measured=split,
                              sparse_ms_per_step=sparse,
                              loop_ms_per_step=split['loop_ms'],
                              first_loop_ms_per_step=first,
-                             prepare_ms=per_call_ms(st)['prepare'],
                              setup_ms=op.separable_seconds * 1e3)
             release(device)
         errs = {}
@@ -4484,9 +4174,9 @@ def separable_phase(device, sizes, count):
             f"{n}^3 + nbl {nbl}, {nsteps} steps: " + '; '.join(
                 f"{way}: loop {r['loop_ms_per_step']:.3f} ms/step (first run "
                 f"{r['first_loop_ms_per_step']:.3f}), sparse "
-                f"{r['sparse_ms_per_step']:.4f} ms/step, _prepare "
-                f"{r['prepare_ms']:.2f} ms of which the separable set-up "
-                f"{r['setup_ms']:.2f}, K1 {r['launches']}"
+                f"{r['sparse_ms_per_step']:.4f} ms/step of device time, the "
+                f"separable set-up {r['setup_ms']:.2f} ms, K1 "
+                f"{r['launches']}"
                 for way, r in rows.items())
             + "; records separable - gathered: " + '; '.join(
                 f"{nm} {e:.3e} (tolerance {t:.3e})"
@@ -4793,11 +4483,10 @@ def errctl_shot(device, sizes, count):
             nsteps = s.geometry.nt - 2
             first = summ.globals['fdlike'].time * 1e3 / nsteps
             ncheck = len(checks)
-            host = time_host(s.op_fwd(None))
             warm = s.forward()[2].globals['fdlike'].time * 1e3 / nsteps
             out[lab] = dict(rec=np.array(rec.data), first_ms=first,
-                            warm_ms=warm, host_ms=host['s'] * 1e3 / nsteps,
-                            checks=ncheck, launches=by, steps=nsteps)
+                            warm_ms=warm, checks=ncheck, launches=by,
+                            steps=nsteps)
             del s, rec, summ
             release(device)
     finally:
@@ -4810,10 +4499,9 @@ def errctl_shot(device, sizes, count):
     e, p = out['errctl'], out['plain']
     log(f"[p12-errctl] forward shot {sizes['fwd_n']}^3 + nbl "
         f"{sizes['fwd_nbl']}, {e['steps']} steps: with errctl='max' warm "
-        f"{e['warm_ms']:.4f} ms/step (first {e['first_ms']:.4f}, host "
-        f"{e['host_ms']:.4f}), {e['checks']} checks; without "
-        f"{p['warm_ms']:.4f} ms/step (first {p['first_ms']:.4f}, host "
-        f"{p['host_ms']:.4f}); the scan's cost "
+        f"{e['warm_ms']:.4f} ms/step (first {e['first_ms']:.4f}), "
+        f"{e['checks']} checks; without {p['warm_ms']:.4f} ms/step (first "
+        f"{p['first_ms']:.4f}); the scan's cost "
         f"{e['warm_ms'] - p['warm_ms']:.4f} ms/step; records equal to the "
         f"bit")
     del base
@@ -5175,9 +4863,9 @@ def measured_profile(device, sizes, model, count, plat):
     (save=False) under profiling='measured' with a profile-dir: the trace
     file parses, every body section has device time (on the card), the
     busy time is within 1.02 x the loop's CUDA-event time; beside it the
-    unattributed events, the loop split (``loop_split``), and the loop ms
-    a step with no profiler (the program's spans closed) and under the
-    profiler; apply's roofline line names ``plat``."""
+    unattributed events, and the loop ms a step with no profiler (the
+    program's spans closed) and under the profiler; apply's roofline line
+    names ``plat``."""
     import logging
     import tempfile
     from devito_tpu_torch import switchconfig
@@ -5226,7 +4914,6 @@ def measured_profile(device, sizes, model, count, plat):
     if on_card and (min(per.values()) <= 0 or busy > 1.02 * loop):
         raise AssertionError(f"(3) sections {per} ms/step, busy {busy:.4f} "
                              f"s against the loop's {loop:.4f} s")
-    split = loop_split(lambda: s.forward(), steps, device)
     roof = [m for m in msgs if 'HBM roofline' in m]
     if not roof or f"of {plat.name} HBM roofline" not in roof[0]:
         raise AssertionError(f"(3) no roofline of {plat.name} in the log: "
@@ -5238,7 +4925,7 @@ def measured_profile(device, sizes, model, count, plat):
         loop_ms_per_step=loop * 1e3 / steps,
         unattributed=lost, categories=cats,
         basic_ms_per_step=basic,
-        trace_events=nev, trace_bytes=tbytes, split=split,
+        trace_events=nev, trace_bytes=tbytes,
         log_line=roof[0].replace('\x1b[32m', '').replace('\x1b[0m', ''))
     log(f"[p13] (3) {steps} steps under profiling='measured': "
         + ', '.join(f"{lab} {v:.4f}" for lab, v in per.items())
@@ -5250,10 +4937,7 @@ def measured_profile(device, sizes, model, count, plat):
                                    out['categories'].items() if v)
         + f"; the trace {nev} events, {tbytes / 1e6:.1f} MB")
     log(f"[p13] (3) loop ms/step with no profiler (the spans closed) "
-        f"{basic:.4f}; loop_split: " + ', '.join(
-            f"{k} {v:.4f}" for k, v in split['ms'].items())
-        + f", outside every call {split['rest_ms']:.4f} of "
-        f"{split['loop_ms']:.4f} ms/step")
+        f"{basic:.4f}")
     log(f"[p13] (4) apply's line: {out['log_line']}")
     return out
 
@@ -5300,27 +4984,6 @@ def shot_solver(model, steps, sizes):
     if s.geometry.nt != steps + 2:
         raise AssertionError(f"{s.geometry.nt - 2} steps, not {steps}")
     return s
-
-
-def host_timer(op):
-    """Wrap the runner ``op``'s next apply runs (its ShardedRunner's where
-    it has one) so that the host seconds it takes to return -- to enqueue
-    every step -- land in the returned dict's ``'s'``."""
-    hr = getattr(op, '_halo_runner', None)
-    owner, attr = (hr, 'runner') if hr is not None else (op, '_runner')
-    runner, out = getattr(owner, attr), {}
-
-    def timed(*args, **kw):
-        tic = time.perf_counter()
-        halted = runner(*args, **kw)
-        out['s'] = time.perf_counter() - tic
-        setattr(owner, attr, runner)
-        return halted
-
-    timed.plans = runner.plans
-    timed.shard_plans = getattr(runner, 'shard_plans', None)
-    setattr(owner, attr, timed)
-    return out
 
 
 def shard_launches(op, steps):
@@ -5381,7 +5044,6 @@ def p14_shot(device, sizes, model, topology, count, label, ref=None):
     _, by1 = count(lambda: s.forward())
     first_wall = time.perf_counter() - tic
     nbuilds = len(K.build_seconds)
-    host = host_timer(op)
     tic = time.perf_counter()
     (rec, u, summ), by, peak, held = with_peak(lambda: s.forward(), count,
                                                device)
@@ -5390,7 +5052,6 @@ def p14_shot(device, sizes, model, topology, count, label, ref=None):
         raise AssertionError(f"(1) {label}: the warm run built a K1 unit")
     row = dict(topology=topology, first_wall_s=first_wall, wall_s=wall,
                loop_ms_per_step=summ.globals['fdlike'].time * 1e3 / steps,
-               host_ms_per_step=host['s'] * 1e3 / steps,
                launches=sum(by.values()), by_design=by, peak=peak,
                held=held, first_launches=sum(by1.values()))
     hr = op._halo_runner
@@ -5424,8 +5085,7 @@ def p14_shot(device, sizes, model, topology, count, label, ref=None):
         row['err'], row['bit_equal'], row['rec_err'] = held_against(
             label, domain_tensor(u), ref[0], r, ref[1])
     log(f"[p14] (1) {label}: loop {row['loop_ms_per_step']:.4f} ms/step "
-        f"(first run's wall {first_wall:.2f} s), host "
-        f"{row['host_ms_per_step']:.4f} ms/step; K1 {by} = "
+        f"(first run's wall {first_wall:.2f} s); K1 {by} = "
         f"{want_launches} expected; peak device memory "
         + (f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} held before the run)"
            if peak is not None else 'not measured')

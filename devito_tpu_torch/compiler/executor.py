@@ -560,6 +560,35 @@ def _unstable(bufs, names):
     return not bool(torch.stack(ok).all())
 
 
+def _time_loop(schedule, tagged, exec_item, unstable, bufs, params, time_m,
+               time_M, cache):
+    """Run ``schedule`` over ``[time_m, time_M]``: its prologue, then each
+    step's body items, each inside the span its ``tagged`` name gives it,
+    then its epilogue; the prologue and epilogue run outside the sections
+    (``exec_item(it, bufs, params, t, cache)``, t None for them). With
+    ``unstable`` (a test of ``bufs``), it runs after every step t with t
+    mod ERRCTL_PERIOD == 0, and the first that holds ends the steps.
+    Returns that step, or None."""
+    halted = None
+    for it in schedule.prologue:
+        exec_item(it, bufs, params, None, cache)
+    if schedule.body:
+        direction = schedule.direction
+        anchor = time_m if direction >= 0 else time_M
+        for i in range(max(time_M - time_m + 1, 0)):
+            t = anchor + direction * i
+            for it, name in tagged:
+                with span(name):
+                    exec_item(it, bufs, params, t, cache)
+            if unstable is not None and t % ERRCTL_PERIOD == 0 and \
+                    unstable(bufs):
+                halted = t
+                break
+    for it in schedule.epilogue:
+        exec_item(it, bufs, params, None, cache)
+    return halted
+
+
 def build_runner(schedule, storage=None, errctl=None, sections=None,
                  shard_spec=None):
     """Build ``run(bufs, params, time_m, time_M)``, which
@@ -601,10 +630,10 @@ def build_runner(schedule, storage=None, errctl=None, sections=None,
         run_ = []
         if isinstance(it, LoweredEq):
             plans[id(it)] = (it, plan_for(it, storage=storage))
-    direction = schedule.direction
     if sections is None:
         sections = [f'dtpu_sec{i}' for i in range(len(schedule.body))]
     tagged = list(zip(schedule.body, sections))
+    unstable = (lambda bufs: _unstable(bufs, errctl)) if errctl else None
 
     def _exec_item(it, bufs, params, t, geom_cache):
         if isinstance(it, LoweredEq):
@@ -618,27 +647,9 @@ def build_runner(schedule, storage=None, errctl=None, sections=None,
         else:
             raise CompilationError(f"Cannot execute {it}")
 
-    def _exec_items(items, bufs, params, t, geom_cache):
-        for it in items:
-            _exec_item(it, bufs, params, t, geom_cache)
-
     def run(bufs, params, time_m, time_M):
-        geom_cache = {}
-        halted = None
-        _exec_items(schedule.prologue, bufs, params, None, geom_cache)
-        if schedule.body:
-            anchor = time_m if direction >= 0 else time_M
-            for i in range(max(time_M - time_m + 1, 0)):
-                t = anchor + direction * i
-                for it, name in tagged:
-                    with span(name):
-                        _exec_item(it, bufs, params, t, geom_cache)
-                if errctl and t % ERRCTL_PERIOD == 0 and \
-                        _unstable(bufs, errctl):
-                    halted = t
-                    break
-        _exec_items(schedule.epilogue, bufs, params, None, geom_cache)
-        return halted
+        return _time_loop(schedule, tagged, _exec_item, unstable, bufs,
+                          params, time_m, time_M, {})
 
     run.plans = list(plans.values())
     return run
@@ -779,8 +790,9 @@ def _build_sharded(schedule, storage, errctl, sections, spec):
             row.append((eq, plan))
             shard_plans.append((sh.index, it, eq, plan))
         per[id(it)] = row
-    direction = schedule.direction
     tagged = list(zip(schedule.body, sections))
+    unstable = (lambda sbufs: any(_unstable(b, errctl) for b in sbufs)) \
+        if errctl else None
 
     def groups(axes):
         """The shards by their mesh coordinates off ``axes``: each group
@@ -838,28 +850,10 @@ def _build_sharded(schedule, storage, errctl, sections, spec):
         else:
             raise CompilationError(f"Cannot execute {it}")
 
-    def _exec_items(items, sbufs, sparams, t, geoms):
-        for it in items:
-            _exec_item(it, sbufs, sparams, t, geoms)
-
     def run(sbufs, params, time_m, time_M):
         sparams = [dict(params, **sh.params) for sh in shards]
-        geoms = [{} for _ in shards]
-        halted = None
-        _exec_items(schedule.prologue, sbufs, sparams, None, geoms)
-        if schedule.body:
-            anchor = time_m if direction >= 0 else time_M
-            for i in range(max(time_M - time_m + 1, 0)):
-                t = anchor + direction * i
-                for it, name in tagged:
-                    with span(name):
-                        _exec_item(it, sbufs, sparams, t, geoms)
-                if errctl and t % ERRCTL_PERIOD == 0 and \
-                        any(_unstable(b, errctl) for b in sbufs):
-                    halted = t
-                    break
-        _exec_items(schedule.epilogue, sbufs, sparams, None, geoms)
-        return halted
+        return _time_loop(schedule, tagged, _exec_item, unstable, sbufs,
+                          sparams, time_m, time_M, [{} for _ in shards])
 
     run.plans = [(eq, plan) for eq, plan in plans.values()]
     run.shard_plans = shard_plans

@@ -211,9 +211,13 @@ def plan_for(eq, storage=None, _design=None, _tile=None, space=None):
     backend's rested on the shape and dtypes. ``_design`` ('point') and
     ``_tile`` (a (TY, TZ, PY, STAGES, TX) tuple for ``stream_tile``)
     override the choice: chip_smoke.py's comparisons and tile sweep use
-    them; nothing else does. ``space`` (a function's halo'd extent per
-    space axis, default its ``_allocated_space``) plans for other rows: a
-    shard's (parallel/halo.py)."""
+    them, and so do the tests that hold one design against the other
+    (tests/test_torch_stencil.py, test_torch_stencil_stream.py,
+    test_torch_k1_units.py, test_torch_inverse.py, test_torch_probes.py
+    and test_torch_chip_smoke.py); the program does not. ``space`` (a
+    function's halo'd extent per space axis, default its
+    ``_allocated_space``) plans for other rows: a shard's
+    (parallel/halo.py)."""
     global declines
     plan, reason = _plan_or_reason(eq, storage, _design, _tile, space)
     if plan is None:
